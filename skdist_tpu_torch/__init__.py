@@ -1,0 +1,40 @@
+"""
+skdist_tpu_torch: the PyTorch / CUDA port of skdist_tpu, for NVIDIA
+Hopper (H100).
+
+It keeps the JAX package's layout, names and public estimator API
+(sklearn-style ``fit``/``predict``/``cv_results_``, clone, pickle-clean
+fitted artifacts). Plain tensor code is PyTorch; each Pallas TPU kernel
+on a ported path is a CUDA kernel written by hand for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use and bound with ``ctypes``.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+which runs every kernel's plain PyTorch version.
+
+This package never imports ``jax``, ``skdist_tpu`` or scikit-learn.
+
+Ported so far: ``DistGridSearchCV(LogisticRegression)`` over dense or
+packed-CSR sparse X, with the packed matvec/rmatvec kernels. ROADMAP.md
+lists what is still to port.
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "DistGridSearchCV": "skdist_tpu_torch.distribute.search",
+    "LogisticRegression": "skdist_tpu_torch.models.linear",
+    "CUDABackend": "skdist_tpu_torch.parallel",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level conveniences (``skdist_tpu_torch.DistGridSearchCV``
+    ...); resolved attributes are cached in the module namespace."""
+    from importlib import import_module
+
+    if name in _EXPORTS:
+        obj = getattr(import_module(_EXPORTS[name]), name)
+        globals()[name] = obj
+        return obj
+    raise AttributeError(
+        f"module 'skdist_tpu_torch' has no attribute {name!r}"
+    )

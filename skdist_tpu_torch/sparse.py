@@ -1,0 +1,307 @@
+"""
+Packed-CSR shared-data plane for the port: sparse X as a first-class fit
+and predict representation.
+
+Counterpart of ``skdist_tpu/sparse.py``. A hashed-text matrix at 2**18
+columns and ~1% density stays packed end to end: :class:`PackedX` holds
+``idx (n, m) int32`` / ``val (n, m) float32`` (one padded row per
+sample, ``m`` = max nnz per row, padding ``(0, 0.0)``), and the linear
+fit problems reach it through :class:`LinearOperator`, whose packed form
+runs the CUDA kernels of :mod:`skdist_tpu_torch.ops.packed_sparse` (K1
+forward, K2 as its backward) and whose dense form is ``Xa @ W``.
+
+The host-side routing (:func:`pack_decision`, :func:`would_pack`,
+:func:`pack_for_fit`) is the JAX package's, copied: pack exactly when
+the packed pair saves at least :data:`PACK_MIN_SAVINGS` device bytes
+and the nnz distribution has no outlier rows.
+
+Not yet ported (ROADMAP): ``weighted_gram_rhs`` and ``packed_to_dense``
+(the ridge family's closed form), ``mode='dense'``, the bf16 packed
+matmuls and the matvec-mode calibration table.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from .ops.packed_sparse import (
+    PackedMatvec,
+    build_columns,
+    packed_matvec,
+    packed_rmatvec,
+)
+from .utils.meminfo import BUDGET_ENV, densify_budget_bytes
+
+__all__ = [
+    "PackedX",
+    "is_sparse_2d",
+    "max_nnz_per_row",
+    "pack_csr_rows",
+    "pack_decision",
+    "would_pack",
+    "pack_for_fit",
+    "sparse_to_dense_f32",
+    "matvec_any",
+    "LinearOperator",
+]
+
+#: kill switch / force switch for the packed fit plane: "0" keeps every
+#: sparse input dense, "1"/"force" packs any 2-D sparse input
+SPARSE_FIT_ENV = "SKDIST_SPARSE_FIT"
+
+#: how many times smaller (bytes) the packed pair must be than the dense
+#: f32 matrix before the fit path packs
+PACK_MIN_SAVINGS = 4.0
+PACK_SAVINGS_ENV = "SKDIST_SPARSE_PACK_SAVINGS"
+
+#: nnz-outlier guard: when the max row nnz exceeds this multiple of the
+#: 95th percentile AND padding inflates the pair past the same multiple
+#: of the true nnz, max-row padding would bill every row for a few
+OUTLIER_FACTOR = 4.0
+
+
+class PackedX:
+    """Padded-row packed CSR: ``idx (n, m) int32``, ``val (n, m) f32``,
+    as numpy arrays or as tensors on one device, and the logical width
+    ``n_cols``. Every ``idx`` entry must lie in ``[0, n_cols)``; the
+    constructor checks it once, since the kernels index with it
+    unchecked."""
+
+    __slots__ = ("idx", "val", "n_cols")
+
+    def __init__(self, idx, val, n_cols):
+        self.idx = idx
+        self.val = val
+        self.n_cols = int(n_cols)
+        if tuple(idx.shape) != tuple(val.shape) or len(idx.shape) != 2:
+            raise ValueError(
+                f"idx and val must be (n, m) of one shape; got "
+                f"{tuple(idx.shape)} and {tuple(val.shape)}"
+            )
+        if idx.shape[0] * idx.shape[1]:
+            lo, hi = int(idx.min()), int(idx.max())
+            if lo < 0 or hi >= self.n_cols:
+                raise ValueError(
+                    f"packed idx spans [{lo}, {hi}]; it must lie in "
+                    f"[0, {self.n_cols})"
+                )
+
+    @property
+    def shape(self):
+        """Logical (n, d)."""
+        return (int(self.idx.shape[0]), self.n_cols)
+
+    @property
+    def m(self):
+        """Packed width: max nnz per row (plus padding)."""
+        return int(self.idx.shape[1])
+
+    def to(self, device):
+        """Both leaves as tensors on ``device``."""
+        return PackedX(
+            torch.as_tensor(self.idx, dtype=torch.int32).to(device),
+            torch.as_tensor(self.val, dtype=torch.float32).to(device),
+            self.n_cols,
+        )
+
+    def __repr__(self):  # pragma: no cover - debugging nicety
+        n, d = self.shape
+        return f"PackedX(n={n}, d={d}, m={self.m})"
+
+
+# ---------------------------------------------------------------------------
+# host-side packing + routing
+# ---------------------------------------------------------------------------
+
+def is_sparse_2d(X):
+    """scipy-sparse duck test, 2-D only."""
+    return (hasattr(X, "toarray") and hasattr(X, "tocsr")
+            and len(X.shape) == 2)
+
+
+def max_nnz_per_row(X):
+    """Packed width m from ``indptr`` alone."""
+    nnz = np.diff(np.asarray(X.indptr))
+    return max(1, int(nnz.max()) if nnz.size else 1)
+
+
+def pack_csr_rows(X):
+    """CSR -> ``(idx (n, m) int32, val (n, m) f32)``, m = max nnz per
+    row, padded with ``(0, 0.0)``."""
+    indptr = np.asarray(X.indptr)
+    nnz = np.diff(indptr)
+    m = max_nnz_per_row(X)
+    n = X.shape[0]
+    pos = indptr[:-1, None] + np.arange(m)[None, :]
+    mask = np.arange(m)[None, :] < nnz[:, None]
+    idx = np.zeros((n, m), np.int32)
+    val = np.zeros((n, m), np.float32)
+    idx[mask] = np.asarray(X.indices)[pos[mask]]
+    val[mask] = np.asarray(X.data)[pos[mask]]
+    return idx, val
+
+
+def _pack_savings():
+    env = os.environ.get(PACK_SAVINGS_ENV, "").strip()
+    if env:
+        try:
+            v = float(env)
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    return PACK_MIN_SAVINGS
+
+
+def pack_decision(X):
+    """Routing decision for a 2-D CSR input: ``(pack, reason, m)``, from
+    ``indptr`` alone."""
+    env = os.environ.get(SPARSE_FIT_ENV, "").strip().lower()
+    if env in ("0", "false", "no", "off"):
+        return False, "disabled via " + SPARSE_FIT_ENV, None
+    nnz = np.diff(np.asarray(X.indptr))
+    m = max(1, int(nnz.max()) if nnz.size else 1)
+    if env in ("1", "true", "force", "on"):
+        return True, "forced via " + SPARSE_FIT_ENV, m
+    n, d = X.shape
+    if n == 0:
+        return False, "empty input", m
+    if m * 8 * _pack_savings() > d * 4:
+        return False, (
+            f"dense-competitive density (m={m} of d={d}: the packed "
+            f"pair saves < {_pack_savings()}x device bytes)"
+        ), m
+    p95 = float(np.percentile(nnz, 95)) if nnz.size else 0.0
+    total = max(1, int(nnz.sum()))
+    if (m > OUTLIER_FACTOR * max(p95, 1.0)
+            and n * m > OUTLIER_FACTOR * total):
+        return False, (
+            f"nnz outlier (max row nnz {m} vs p95 {p95:.0f}: padding "
+            f"would inflate {total} nnz to {n * m} slots)"
+        ), m
+    return True, "packed", m
+
+
+def would_pack(X):
+    """Whether :func:`pack_for_fit` would return a ``PackedX`` for ``X``,
+    decided from shape and ``indptr`` alone."""
+    if not is_sparse_2d(X):
+        return False
+    X = X.tocsr()
+    pack, _reason, m = pack_decision(X)
+    if not pack:
+        return False
+    budget, _ = densify_budget_bytes()
+    n, _d = X.shape
+    if budget is not None and n * max(1, m) * 8 * 3 > budget:
+        return False
+    return True
+
+
+def pack_for_fit(X):
+    """``PackedX`` (numpy leaves) when the fit plane should consume ``X``
+    packed, else None (callers densify)."""
+    if not would_pack(X):
+        return None
+    X = X.tocsr()
+    idx, val = pack_csr_rows(X)
+    return PackedX(idx, val, X.shape[1])
+
+
+def sparse_to_dense_f32(X):
+    """Densify a scipy-sparse input to float32, refusing a size that
+    cannot fit host memory. A 1-D sparse input is a column vector."""
+    if len(X.shape) == 1:
+        out = np.asarray(X.toarray(), dtype=np.float32)
+        return np.ascontiguousarray(out.reshape(-1, 1))
+    est = int(X.shape[0]) * int(X.shape[1]) * 4
+    budget, source = densify_budget_bytes()
+    if budget is not None and est > budget:
+        raise ValueError(
+            f"densifying this {tuple(X.shape)} sparse input needs "
+            f"{est / 1e9:.2f} GB as float32, but only {budget / 1e9:.2f} "
+            f"GB is available ({source}); fit it packed (force with "
+            f"{SPARSE_FIT_ENV}=1) or raise the limit via {BUDGET_ENV}"
+        )
+    out = np.asarray(X.toarray())
+    if out.ndim == 1:
+        out = out.reshape(-1, 1)
+    return np.ascontiguousarray(out, dtype=np.float32)
+
+
+def matvec_any(X, W):
+    """``X @ W`` for either representation (tensors on one device)."""
+    if isinstance(X, PackedX):
+        return packed_matvec(X.idx, X.val, W)
+    return X @ W
+
+
+# ---------------------------------------------------------------------------
+# the matvec interface the fit problems consume
+# ---------------------------------------------------------------------------
+
+class LinearOperator:
+    """The augmented design matrix ``X~ = [X | 1]`` behind one matvec
+    interface, for a dense tensor and a :class:`PackedX` (tensor leaves)
+    alike.
+
+    Dense input is ``Xa @ W``. Packed input appends the intercept as one
+    extra packed column (``idx=d, val=1``) and runs ``matvec`` through
+    :class:`~skdist_tpu_torch.ops.packed_sparse.PackedMatvec` (K1
+    forward, K2 backward), so the solvers differentiate through it.
+
+    ``W`` is ``(p,)``, ``(p, k)`` or a task batch ``(T, p, k)``; the
+    result is ``(n,)``, ``(n, k)`` or ``(T, n, k)``.
+    """
+
+    __slots__ = ("d", "p", "n", "Xa", "pidx", "pval", "dtype", "columns")
+
+    def __init__(self, X, fit_intercept):
+        if isinstance(X, PackedX):
+            d = X.n_cols
+            idx, val = X.idx, X.val
+            n = idx.shape[0]
+            if fit_intercept:
+                idx = torch.cat(
+                    [idx, torch.full((n, 1), d, dtype=idx.dtype,
+                                     device=idx.device)], dim=1,
+                ).contiguous()
+                val = torch.cat(
+                    [val, torch.ones((n, 1), dtype=val.dtype,
+                                     device=val.device)], dim=1,
+                ).contiguous()
+            self.d, self.p, self.n = d, d + int(bool(fit_intercept)), n
+            self.Xa = None
+            self.pidx, self.pval = idx, val
+            self.dtype = val.dtype
+            # the column-sorted copy K2 reads: built once per operator
+            self.columns = (
+                build_columns(idx, val, self.p) if idx.is_cuda else None
+            )
+        else:
+            if fit_intercept:
+                ones = torch.ones((X.shape[0], 1), dtype=X.dtype,
+                                  device=X.device)
+                Xa = torch.cat([X, ones], dim=1)
+            else:
+                Xa = X
+            self.Xa = Xa
+            self.pidx = self.pval = self.columns = None
+            self.d = X.shape[1]
+            self.p = Xa.shape[1]
+            self.n = X.shape[0]
+            self.dtype = X.dtype
+
+    def matvec(self, W):
+        """``X~ @ W``."""
+        if self.Xa is not None:
+            return self.Xa @ W
+        return PackedMatvec.apply(W, self.pidx, self.pval, self.columns)
+
+    def rmatvec(self, r):
+        """``X~.T @ r``."""
+        if self.Xa is not None:
+            return self.Xa.T @ r
+        return packed_rmatvec(self.pidx, self.pval, r, self.p,
+                              columns=self.columns)

@@ -1,0 +1,84 @@
+"""Validation helpers of the search (copies of the functions of
+``skdist_tpu/utils/validation.py`` that the batched path uses)."""
+
+import numbers
+
+import numpy as np
+
+
+def full_length_sample_weight(fit_params, n):
+    """The batched path's fit-params contract: the compiled programs
+    accept exactly ONE array-valued fit param, a full-length per-sample
+    ``sample_weight``, which composes multiplicatively with fold masks.
+
+    Returns ``(sw_or_None, ok)``. ``ok`` False means another fit param
+    was given, or weights that are not a length-``n`` vector;
+    ``(None, True)`` means "no weights". ``(n, 1)`` columns flatten.
+    """
+    if not fit_params:
+        return None, True
+    if set(fit_params) != {"sample_weight"}:
+        return None, False
+    sw = fit_params["sample_weight"]
+    if sw is None:
+        return None, True
+    try:
+        arr = np.asarray(sw, dtype=np.float64)
+    except (ValueError, TypeError):
+        return None, False
+    if arr.ndim == 2 and arr.shape[1] == 1:
+        arr = arr.ravel()
+    if arr.ndim == 1 and arr.shape[0] == n:
+        return arr, True
+    return None, False
+
+
+def check_is_fitted(estimator, attributes=None):
+    """Raise if estimator has no fitted attributes."""
+    if attributes is not None:
+        if isinstance(attributes, str):
+            attributes = [attributes]
+        fitted = all(hasattr(estimator, a) for a in attributes)
+    else:
+        fitted = any(
+            v for v in vars(estimator)
+            if v.endswith("_") and not v.startswith("__")
+        )
+    if not fitted:
+        raise AttributeError(
+            f"This {type(estimator).__name__} instance is not fitted yet. "
+            "Call 'fit' before using this estimator."
+        )
+
+
+def check_error_score(error_score):
+    """Validate the ``error_score`` policy at ``fit()`` entry: 'raise' or
+    a real number (NaN included)."""
+    if isinstance(error_score, str):
+        if error_score == "raise":
+            return error_score
+        raise ValueError(
+            f"error_score must be 'raise' or a number, got "
+            f"{error_score!r} (did you mean numpy.nan?)"
+        )
+    if isinstance(error_score, bool) or not isinstance(
+            error_score, numbers.Number):
+        raise ValueError(
+            f"error_score must be 'raise' or a number, got "
+            f"{error_score!r}"
+        )
+    return error_score
+
+
+def num_samples(x):
+    """Number of samples in array-like x."""
+    if hasattr(x, "shape") and x.shape is not None:
+        if len(x.shape) == 0:
+            raise TypeError(
+                "Singleton array cannot be considered a valid collection."
+            )
+        if isinstance(x.shape[0], numbers.Integral):
+            return x.shape[0]
+    if hasattr(x, "__len__"):
+        return len(x)
+    raise TypeError(f"Expected sequence or array-like, got {type(x)}")
