@@ -13,8 +13,9 @@ which runs every kernel's plain PyTorch version.
 This package never imports ``jax``, ``skdist_tpu`` or scikit-learn.
 
 Ported so far: ``DistGridSearchCV(LogisticRegression)`` over dense or
-packed-CSR sparse X, with the packed matvec/rmatvec kernels. ROADMAP.md
-lists what is still to port.
+packed-CSR sparse X, with the packed matvec/rmatvec kernels; the
+histogram trees, forests and their ``Dist*`` wrappers, with the
+level-histogram kernel. ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +24,10 @@ _EXPORTS = {
     "DistGridSearchCV": "skdist_tpu_torch.distribute.search",
     "LogisticRegression": "skdist_tpu_torch.models.linear",
     "CUDABackend": "skdist_tpu_torch.parallel",
+    **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
+        "DistRandomForestClassifier", "DistRandomForestRegressor",
+        "DistExtraTreesClassifier", "DistExtraTreesRegressor",
+        "DistRandomTreesEmbedding")},
 }
 
 

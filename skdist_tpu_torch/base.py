@@ -1,7 +1,9 @@
 """
 Estimator base protocol and backend-aware cloning: a copy of
 ``skdist_tpu/base.py``'s ``BaseEstimator``, ``ClassifierMixin``,
-``clone`` and ``strip_runtime``.
+``RegressorMixin``, ``TransformerMixin``, ``clone`` and
+``strip_runtime`` (the scores use the port's own metrics, not
+scikit-learn's).
 
 The "cluster handle" is a :class:`skdist_tpu_torch.parallel.TaskBackend`,
 which must never be deep-copied or pickled into a fitted artifact.
@@ -86,6 +88,21 @@ class ClassifierMixin:
         from .metrics import accuracy_score
 
         return accuracy_score(y, self.predict(X), sample_weight=sample_weight)
+
+
+class RegressorMixin:
+    _estimator_type = "regressor"
+
+    def score(self, X, y, sample_weight=None):
+        """R^2 of ``predict(X)`` against ``y``."""
+        from .metrics import r2_score
+
+        return r2_score(y, self.predict(X), sample_weight=sample_weight)
+
+
+class TransformerMixin:
+    def fit_transform(self, X, y=None, **fit_params):
+        return self.fit(X, y, **fit_params).transform(X)
 
 
 def clone(estimator, safe=True):

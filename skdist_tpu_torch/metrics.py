@@ -177,6 +177,21 @@ def accuracy_score(y_true, y_pred, sample_weight=None):
     return float(np.average(correct, weights=sample_weight))
 
 
+def r2_score(y_true, y_pred, sample_weight=None):
+    """Host coefficient of determination (what ``RegressorMixin.score``
+    reports): sklearn's R^2, 1.0 for a perfect fit of a constant target
+    and 0.0 for an imperfect one."""
+    y = np.asarray(y_true, np.float64).ravel()
+    p = np.asarray(y_pred, np.float64).ravel()
+    w = (np.ones_like(y) if sample_weight is None
+         else np.asarray(sample_weight, np.float64).ravel())
+    ss_res = float(np.sum(w * (y - p) ** 2))
+    ss_tot = float(np.sum(w * (y - np.average(y, weights=w)) ** 2))
+    if ss_tot == 0.0:
+        return 1.0 if ss_res == 0.0 else 0.0
+    return 1.0 - ss_res / ss_tot
+
+
 class DeviceScorer:
     """``scorer(estimator, X, y)`` over a fitted port estimator, through
     the device scorer kernel of ``metric`` (the search's ``scorer_``)."""

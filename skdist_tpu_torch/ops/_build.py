@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 #: every kernel library of the port: name -> its sources under csrc/
 LIBRARIES = {
     "packed_sparse": ("packed_sparse.cu",),
+    "level_histogram": ("level_histogram.cu",),
 }
 
 _LOCK = threading.Lock()

@@ -129,11 +129,15 @@ class CUDABackend(TaskBackend):
 
     def batched_map(self, kernel, task_args, shared, bytes_per_task=None,
                     round_size=None, return_timings=False):
-        """Run ``kernel(shared, task_batch) -> {name: (T,) tensor}`` over
-        the tasks of ``task_args`` (a dict tree of host arrays with a
+        """Run ``kernel(shared, task_batch) -> {name: (T, ...) tensor}``
+        over the tasks of ``task_args`` (a dict tree of host arrays with a
         leading task axis) in rounds. ``shared`` is already placed
-        (:meth:`place`). Returns ``{name: (n_tasks,) ndarray}`` and, with
-        ``return_timings``, a list of ``(round wall seconds, tasks)``."""
+        (:meth:`place`). Returns ``{name: (n_tasks, ...) ndarray}`` (the
+        rounds' outputs concatenated on the task axis; trailing axes, such
+        as a tree's ``(N,)`` nodes, are kept) and, with ``return_timings``,
+        a list of ``(round wall seconds, tasks)``. The round stats
+        (rounds, tasks per round, round walls, the per-task byte estimate)
+        are left in :attr:`last_round_stats`."""
         n_tasks = _leading_dim(task_args)
         chunk = self.plan_round_size(n_tasks, bytes_per_task, round_size)
         outs, timings = [], []
@@ -151,6 +155,7 @@ class CUDABackend(TaskBackend):
             "rounds": len(timings),
             "tasks_per_round": chunk,
             "round_walls_s": [w for w, _ in timings],
+            "bytes_per_task": bytes_per_task,
         }
         result = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         if return_timings:

@@ -1,5 +1,6 @@
-"""Validation helpers of the search (copies of the functions of
-``skdist_tpu/utils/validation.py`` that the batched path uses)."""
+"""Validation helpers (copies of the functions of
+``skdist_tpu/utils/validation.py`` that the search and the ensembles
+use)."""
 
 import numbers
 
@@ -82,3 +83,25 @@ def num_samples(x):
     if hasattr(x, "__len__"):
         return len(x)
     raise TypeError(f"Expected sequence or array-like, got {type(x)}")
+
+
+def check_estimator_backend(estimator, verbose=False):
+    """Print which execution path a fit will use."""
+    if verbose:
+        backend = getattr(estimator, "backend", None)
+        if backend is None:
+            print("Will fit using the default CUDABackend")
+        else:
+            print(f"Will fit using {type(backend).__name__}")
+
+
+def safe_indexing(X, indices):
+    """Row-subset X across container types (pandas, numpy, scipy
+    sparse, lists)."""
+    if X is None:
+        return None
+    if hasattr(X, "iloc"):
+        return X.iloc[indices]
+    if hasattr(X, "shape"):  # numpy / scipy sparse
+        return X[indices]
+    return [X[i] for i in indices]

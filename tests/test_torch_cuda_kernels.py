@@ -102,3 +102,72 @@ def test_autograd_backward_is_k2(cuda):
     Wr = W.clone().requires_grad_(True)
     (ps.packed_matvec_ref(idx, val, Wr) * G).sum().backward()
     torch.testing.assert_close(Wk.grad, Wr.grad, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4: the level histogram. Integer channels sum exactly in float32, so the
+# kernel must equal its plain version bitwise and repeat bitwise;
+# fractional channels are held to 2 * c * 2**-24 * sum|terms| with c the
+# sample count.
+# ---------------------------------------------------------------------------
+
+from skdist_tpu_torch.ops import hist as kh  # noqa: E402
+
+HIST_SHAPES = [  # (T, n, d, nl, B, C): ragged n, sentinel keys, B up to 256
+    (1, 37, 3, 3, 4, 2),
+    (3, 1000, 5, 1, 32, 3),
+    (2, 5003, 7, 128, 32, 4),
+    (4, 3001, 3, 3, 256, 3),
+]
+
+
+def _hist_inputs(cuda, T, n, d, nl, B, C, integer, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Xb = torch.randint(0, B, (n, d), generator=g, device=cuda,
+                       dtype=torch.int32)
+    key = torch.randint(0, nl + max(1, nl // 2), (T, n), generator=g,
+                        device=cuda, dtype=torch.int32)
+    if integer:
+        Y = torch.randint(0, 3, (T, n, C), generator=g, device=cuda).float()
+    else:
+        Y = torch.rand((T, n, C), generator=g, device=cuda)
+    return Xb, key, Y
+
+
+@pytest.mark.parametrize("T,n,d,nl,B,C", HIST_SHAPES)
+def test_level_histogram_matches_plain_version(cuda, T, n, d, nl, B, C):
+    before = kh.level_histogram.launches
+    for integer in (True, False):
+        Xb, key, Y = _hist_inputs(cuda, T, n, d, nl, B, C, integer, n)
+        XbF = Xb.t().contiguous().t()  # the feature-major layout trees use
+        out = kh.level_histogram(XbF, key, Y, nl, B)
+        again = kh.level_histogram(Xb, key, Y, nl, B)
+        ref = kh.level_histogram_ref(Xb, key, Y, nl, B)
+        if integer:
+            assert torch.equal(out, ref) and torch.equal(again, out)
+        else:
+            tol = 2 * n * U * kh.level_histogram_ref(Xb, key, Y.abs(), nl, B)
+            assert bool(((out - ref).abs() <= tol).all())
+            assert bool(((again - ref).abs() <= tol).all())
+    assert kh.level_histogram.launches == before + 4
+    one = kh.level_histogram(Xb, key[0], Y[0], nl, B)  # unbatched form
+    assert one.shape == (d, nl, B, C)
+
+
+def test_small_forest_on_card_equals_cpu(cuda):
+    """Same seeds on the card and on the CPU: the shared counter-hash
+    draws and the exact integer histograms grow the same forest."""
+    from skdist_tpu_torch.distribute.ensemble import DistRandomForestClassifier
+
+    rng = np.random.RandomState(0)
+    X = rng.rand(2000, 10).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] + 0.3 * rng.randn(2000) > 1).astype(int)
+    kw = dict(n_estimators=16, max_depth=6, random_state=0)
+    before = kh.level_histogram.launches
+    card = DistRandomForestClassifier(**kw).fit(X, y)
+    assert kh.level_histogram.launches == before + 6  # one per level
+    cpu = DistRandomForestClassifier(device="cpu", **kw).fit(X, y)
+    for k in ("feat", "thr", "is_split", "seed"):
+        np.testing.assert_array_equal(card._trees[k], cpu._trees[k])
+    np.testing.assert_allclose(card.predict_proba(X), cpu.predict_proba(X),
+                               rtol=0, atol=1e-6)

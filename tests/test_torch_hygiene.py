@@ -110,10 +110,12 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "import sys\n"
         "import skdist_tpu_torch as p\n"
         "from skdist_tpu_torch import convert, metrics, sparse\n"
-        "from skdist_tpu_torch.distribute import search\n"
-        "from skdist_tpu_torch.ops import packed_sparse, _build\n"
-        "from skdist_tpu_torch.utils import cv, device, validation\n"
+        "from skdist_tpu_torch.distribute import ensemble, search\n"
+        "from skdist_tpu_torch.models import forest, linear, tree\n"
+        "from skdist_tpu_torch.ops import binning, hist, packed_sparse, _build\n"
+        "from skdist_tpu_torch.utils import cv, device, draws, validation\n"
         "p.DistGridSearchCV, p.LogisticRegression, p.CUDABackend\n"
+        "p.DistRandomForestClassifier, p.DistRandomTreesEmbedding\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         f"       if m.split('.')[0] in {FORBIDDEN!r}]\n"
