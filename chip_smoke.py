@@ -52,11 +52,36 @@ result line:
    trees that agree may differ by at most 1e-5.
 8. ``DistExtraTreesRegressor`` on the card: fractional channels through
    K4 on the real path.
-9. One JSON line ``{"kernels": [...]}`` (K1, K2, K4), then, last, the
-   result line ``{"ok": true, "device": {...}}``.
+9. K3 ``packed_weighted_gram`` against its plain version on the card:
+   ragged small shapes (n off every chunk, m in {1, 7, 70} with padding,
+   p odd, T in {1, 3}, an empty row, a repeated (row, col) entry) and
+   the ridge path's shape (n=11314, m=41, p=2**14+1) for one and three
+   lanes and for a whole round (first, middle and last lanes; random
+   weights, then 0/1 fold masks on integer values). Integer data must equal the plain version bitwise; fractional
+   data is held to a summation-order tolerance; two launches must be
+   bitwise equal. Whether the TF32 switch reaches cuSOLVER's float32
+   Cholesky. Times of K3 (a lane and a round), its plain version, and
+   two yardsticks the port never calls: ``torch.sparse.mm`` of the CSR
+   X~.T against the dense S X~, and the dense GEMM X~.T @ (S X~).
+10. The ridge path at full size: ``DistGridSearchCV(RidgeClassifier(),
+    {"alpha": logspace(-2, 3, 96)}, cv=5, scoring="f1_weighted")`` on
+    the 20news-shaped CSR at d=2**14 (n=11314, 20 classes), 480 fits on
+    the card. K3's launches must equal the rounds plus the refit, K2's
+    and K1's be > 0; every score finite (the count of lanes whose
+    Cholesky failed is printed); the pickled ``best_estimator_`` must
+    predict as the live one; the refit on the card is held to the same
+    refit on the CPU (one thread, so that it repeats itself bitwise) as
+    in phase 3, and both to a float64 solve on the card (the card's
+    error at most 10x the CPU's), at the best alpha and at alpha = 1.
+    The sizer's bytes beside the peak device memory, and a
+    ``torch.profiler`` split of one round.
+11. ``DistGridSearchCV(Ridge(), {"alpha": logspace(-2, 3, 16)}, cv=5)``
+    (r2) on the same X and a real target made from the seed: 80 fits.
+12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4), then, last,
+    the result line ``{"ok": true, "device": {...}}``.
 
-``--candidates N`` cuts the C grid to its first N points (never the
-data width); the cut is printed.
+``--candidates N`` cuts the C and alpha grids to their first N points
+(never the data width); the cut is printed.
 
 Imports torch, numpy, scipy and ``skdist_tpu_torch`` only; exits
 nonzero when there is no CUDA device or no ``skdist_tpu_torch`` beside
@@ -399,26 +424,31 @@ def phase_k4(torch, X, y):
     return max(errs), times, bnd
 
 
-def profile_device_split(torch, fit):
-    """Device time of one call of ``fit`` under torch.profiler: (total
-    kernel ms, K4 ms), or None when the profiler saw no device time."""
+def profile_device_split(torch, fn, kernels):
+    """Device time of one call of ``fn`` under torch.profiler, in ms:
+    ``total`` (every device activity) and, for each name of ``kernels``
+    (``{name: substrings}``), the device activities whose name holds one
+    of its substrings (the first name that matches takes it). None when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fit()
+        fn()
         torch.cuda.synchronize()
-    total = k4 = 0.0
+    out = dict.fromkeys(["total", *kernels], 0.0)
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        total += us / 1e3
-        if "level_histogram" in ev.key:
-            k4 += us / 1e3
-    return (total, k4) if total > 0 else None
+        out["total"] += us / 1e3
+        for name, subs in kernels.items():
+            if any(sub in ev.key for sub in subs):
+                out[name] += us / 1e3
+                break
+    return out if out["total"] > 0 else None
 
 
 def phase_forest(torch, X, y, backend):
@@ -506,12 +536,12 @@ def phase_forest(torch, X, y, backend):
 
     t0 = time.perf_counter()
     split = profile_device_split(torch, lambda: DistRandomForestClassifier(
-        backend=backend, **FOREST).fit(X, y))
+        backend=backend, **FOREST).fit(X, y), {"K4": ("level_histogram",)})
     t_prof = time.perf_counter() - t0
     if split is None:
         say("  profiler: no device time recorded (split not measured)")
     else:
-        total, k4 = split
+        total, k4 = split["total"], split["K4"]
         say(f"  profiled fit (wall {t_prof:.3f} s with the profiler on): "
             f"device kernels {total:.1f} ms, of which K4 {k4:.1f} ms "
             f"({100 * k4 / total:.1f}%), plain-torch glue {total - k4:.1f} ms;"
@@ -571,10 +601,448 @@ def phase_extra_trees_regressor(torch):
         raise AssertionError("the extra-trees regressor path failed")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: K3 and the ridge path
+# ---------------------------------------------------------------------------
+
+#: the ridge path's hashed-text width: one lane's (p, p) gram is 1.07 GB
+RIDGE_D = 2 ** 14
+
+
+def hold_k3(torch, ps, out, idx, val, sw, p, label, lanes=None):
+    """Hold K3's output ``out`` to its plain version, lane by lane over
+    ``lanes`` (default all); returns (largest error, largest |out|,
+    whether the data is integer). Each K3 term is bitwise the plain
+    version's term, so integer data must give the plain gram exactly;
+    fractional data is held to 2 * c * u * sum|terms| (c = the cell's
+    pair count). One lane's reference and tolerance are held at a time,
+    so a whole round's output fits beside them."""
+    integer = bool(torch.equal(val, torch.round(val))
+                   and torch.equal(sw, torch.round(sw)))
+    sw2 = sw if sw.ndim == 2 else sw[None]
+    out2 = out if out.ndim == 3 else out[None]
+    err = scale = 0.0
+    count = None
+    for t in (range(sw2.shape[0]) if lanes is None else lanes):
+        ref = ps.packed_weighted_gram_ref(idx, val, sw2[t], p)
+        scale = max(scale, float(ref.abs().max()))
+        if integer:
+            if not torch.equal(out2[t], ref):
+                raise AssertionError(
+                    f"K3 is not bitwise equal to its plain version on "
+                    f"integer data at {label}, lane {t}: max err "
+                    f"{float((out2[t] - ref).abs().max()):.3e}")
+            del ref
+            continue
+        diff = out2[t] - ref
+        del ref
+        diff.abs_()
+        err = max(err, float(diff.max()))
+        if count is None:
+            count = ps.packed_weighted_gram_ref(
+                idx, (val != 0).float(), torch.ones_like(sw2[t]), p)
+            count *= 2 * U32
+        tol = ps.packed_weighted_gram_ref(idx, val.abs(), sw2[t].abs(), p)
+        tol *= count
+        bad = int((diff > tol).sum())
+        del diff, tol
+        if bad:
+            raise AssertionError(f"K3 disagrees at {label}, lane {t}, in "
+                                 f"{bad} cells: max err {err:.3e}")
+    del count
+    torch.cuda.empty_cache()
+    return err, scale, integer
+
+
+def check_k3(torch, ps, idx, val, sw, p, label, pairs=None):
+    """Hold K3 to its plain version at one shape (:func:`hold_k3`), and
+    two launches to each other, bitwise; returns the largest error."""
+    out = ps.packed_weighted_gram(idx, val, sw, p, pairs=pairs)
+    again = ps.packed_weighted_gram(idx, val, sw, p, pairs=pairs)
+    if not torch.equal(out, again):
+        raise AssertionError(f"K3 is not bitwise repeatable at {label}")
+    del again
+    err, scale, integer = hold_k3(torch, ps, out, idx, val, sw, p, label)
+    del out
+    torch.cuda.empty_cache()
+    n, m = idx.shape
+    T = 1 if sw.ndim == 1 else sw.shape[0]
+    say(f"  {label}: n={n} m={m} p={p} T={T} "
+        f"{'integer' if integer else 'fractional'} data: max err {err:.3e} "
+        f"(max|out| {scale:.3e}), bitwise repeatable"
+        + (", bitwise equal" if integer else ""))
+    return err
+
+
+def k3_bound(idx, val, sw, p, n_pairs):
+    """(least ms, what bounds it) of one K3 launch over sw's lanes: what
+    the function must move, the dense output written once and idx, val
+    and sw read once (the pair table is K3's own layout of idx and val,
+    not counted); three FLOPs (two products, one add) per nonzero pair
+    and lane."""
+    T = 1 if sw.ndim == 1 else sw.shape[0]
+    moved = (T * p * p * 4 + idx.numel() * idx.element_size()
+             + val.numel() * val.element_size()
+             + sw.numel() * sw.element_size())
+    return bound(moved, 3 * n_pairs * T)
+
+
+def ridge_f64(torch, X, y, device="cuda"):
+    """A float64 arbiter for RidgeClassifier's fit on the CSR ``X``: the
+    same closed form (+-1 targets a class, unit weights, the intercept
+    unpenalised, ``1e-8`` jitter) by dense float64 algebra on the card,
+    outside the port. Returns ``coef(alpha) -> (k, d)`` numpy."""
+    n, d = X.shape
+    _, yi = np.unique(y, return_inverse=True)
+    coo = X.tocoo()
+    Xa = torch.zeros((n, d + 1), dtype=torch.float64, device=device)
+    Xa.index_put_((torch.as_tensor(coo.row.astype(np.int64)).to(device),
+                   torch.as_tensor(coo.col.astype(np.int64)).to(device)),
+                  torch.as_tensor(coo.data.astype(np.float64)).to(device),
+                  accumulate=True)
+    Xa[:, d] = 1.0
+    T = -torch.ones((n, int(yi.max()) + 1), dtype=torch.float64,
+                    device=device)
+    T[torch.arange(n), torch.as_tensor(yi).to(device)] = 1.0
+    G = Xa.t() @ Xa
+    b = Xa.t() @ T
+    del Xa, T
+
+    def coef(alpha):
+        A = G.clone()
+        A.diagonal()[:d] += alpha
+        A.diagonal().add_(1e-8)
+        W = torch.cholesky_solve(b, torch.linalg.cholesky(A))
+        return W[:d].t().cpu().numpy()
+
+    return coef
+
+
+def ridge_data(seed=0):
+    """The ridge path's data: 20news-shaped hashed text at d = 2**14."""
+    return make_20news_sparse(seed=seed, n=11314, d=RIDGE_D, nnz_row=40,
+                              k=20)
+
+
+def phase_k3(torch, X, round_lanes):
+    """Phase 9: K3 against its plain version on the card, at ragged small
+    shapes and at the ridge path's shape, then its times. Returns (max
+    error, times, bound of one lane)."""
+    from skdist_tpu_torch.models.linear import RidgeClassifier, prepare_fit_X
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    say("phase 9: K3 packed_weighted_gram against plain PyTorch on the card")
+    errs = []
+    rng = np.random.RandomState(3)
+    for i, (n, p, m, T) in enumerate([(37, 53, 7, 1), (1001, 301, 1, 3),
+                                      (299, 1001, 70, 3), (5003, 9, 7, 1)]):
+        idx, val = random_packed(torch, rng, n, p, m)
+        idx[1], val[1] = 0, 0.0  # an empty row
+        if m > 1:
+            idx[2, 1] = idx[2, 0]  # a repeated (row, col) entry
+        sw_f = torch.as_tensor(rng.rand(T, n).astype(np.float32)).cuda()
+        sw_i = torch.as_tensor(rng.randint(0, 4, (T, n)).astype(np.float32)
+                               ).cuda()
+        errs.append(check_k3(torch, ps, idx, val, sw_f, p, f"ragged case {i}"))
+        errs.append(check_k3(torch, ps, idx, torch.round(3 * val), sw_i, p,
+                             f"ragged case {i}"))
+
+    # the ridge path's shape: hashed text plus the intercept column
+    packed = prepare_fit_X(X, RidgeClassifier)
+    n, p = X.shape[0], RIDGE_D + 1
+    idx = torch.cat([torch.as_tensor(packed.idx),
+                     torch.full((n, 1), RIDGE_D, dtype=torch.int32)], 1).cuda()
+    val = torch.cat([torch.as_tensor(packed.val),
+                     torch.ones((n, 1), dtype=torch.float32)], 1).cuda()
+    t0 = time.perf_counter()
+    pairs = ps.build_pairs(idx, val, p)
+    torch.cuda.synchronize()
+    t_pairs = time.perf_counter() - t0
+    counts = pairs.cell_ptr[1:] - pairs.cell_ptr[:-1]
+    say(f"  pair table: {pairs.n_pairs} pairs in {pairs.n_cells} cells "
+        f"(longest {int(counts.max())}), {pairs.nbytes() / 2**20:.1f} MiB, "
+        f"built in {t_pairs:.3f} s")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sw = torch.rand((3, n), generator=g, device="cuda")
+    errs.append(check_k3(torch, ps, idx, val, sw[0], p, "ridge shape", pairs))
+    errs.append(check_k3(torch, ps, idx, val, sw, p, "ridge shape", pairs))
+    val_i = torch.round(2 * val)
+    pairs_i = ps.build_pairs(idx, val_i, p)
+    errs.append(check_k3(torch, ps, idx, val_i, torch.round(3 * sw), p,
+                         "ridge shape", pairs_i))
+    del pairs_i
+
+    # does the TF32 switch reach cuSOLVER's float32 Cholesky? factor one
+    # regularised lane with it off and on
+    G = ps.packed_weighted_gram(idx, val, sw[0], p, pairs=pairs)
+    G.diagonal().add_(1.0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L_off, info = torch.linalg.cholesky_ex(G)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    L_on, _ = torch.linalg.cholesky_ex(G)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"  cuSOLVER float32 Cholesky of one lane (info {int(info)}): TF32 "
+        f"switch on and off give "
+        + ("bitwise equal factors" if torch.equal(L_off, L_on) else
+           f"factors that differ by {float((L_off - L_on).abs().max()):.3e}"))
+    del G, L_off, L_on
+    torch.cuda.empty_cache()
+
+    # times: a lane, a round, the plain version and two yardsticks the
+    # port never calls (TF32 off)
+    times = {
+        "K3": cuda_ms(torch, lambda: ps.packed_weighted_gram(
+            idx, val, sw[0], p, pairs=pairs), 10),
+        "K3_plain": cuda_ms(torch, lambda: ps.packed_weighted_gram_ref(
+            idx, val, sw[0], p), 3),
+    }
+    swr = torch.rand((round_lanes, n), generator=g, device="cuda")
+    times["K3_round"] = cuda_ms(torch, lambda: ps.packed_weighted_gram(
+        idx, val, swr, p, pairs=pairs), 3)
+    rbnd = k3_bound(idx, val, swr, p, pairs.n_pairs)
+
+    # the launch the path makes, a whole round of lanes (int64 lane
+    # offsets past 2**31 elements), held to the plain version at its
+    # first, middle and last lanes: random weights on the path's values,
+    # then the path's own weights (0/1 fold masks) on integer values,
+    # bitwise
+    ends = sorted({0, round_lanes // 2, round_lanes - 1})
+    out = ps.packed_weighted_gram(idx, val, swr, p, pairs=pairs)
+    err, scale, _ = hold_k3(torch, ps, out, idx, val, swr, p,
+                            "a round", lanes=ends)
+    errs.append(err)
+    del out, swr
+    torch.cuda.empty_cache()
+    say(f"  a round: n={n} m={idx.shape[1]} p={p} T={round_lanes} "
+        f"fractional data, lanes {ends}: max err {err:.3e} (max|out| "
+        f"{scale:.3e})")
+    fold = torch.arange(n, device="cuda") * 5 // n
+    masks = (fold[None] != (torch.arange(round_lanes, device="cuda")
+                            % 5)[:, None]).float()
+    pairs_i = ps.build_pairs(idx, val_i, p)
+    out = ps.packed_weighted_gram(idx, val_i, masks, p, pairs=pairs_i)
+    hold_k3(torch, ps, out, idx, val_i, masks, p, "a round of fold masks",
+            lanes=ends)
+    del out, masks, pairs_i
+    torch.cuda.empty_cache()
+    say(f"  a round of 0/1 fold masks: T={round_lanes} integer data, "
+        f"lanes {ends}: bitwise equal")
+    from skdist_tpu_torch.sparse import packed_to_dense
+
+    Xa = packed_to_dense(idx, val, p)
+    SXa = Xa * sw[0][:, None]
+    XaT = Xa.t().to_sparse_csr()
+    times["sparse_mm"] = cuda_ms(torch, lambda: torch.sparse.mm(XaT, SXa), 3)
+    times["dense_gemm"] = cuda_ms(torch, lambda: Xa.t() @ SXa, 3)
+    want = ps.packed_weighted_gram(idx, val, sw[0], p, pairs=pairs)
+    for name, got in (("sparse_mm", torch.sparse.mm(XaT, SXa)),
+                      ("dense_gemm", Xa.t() @ SXa)):
+        gap = float((got - want).abs().max())
+        say(f"  yardstick {name} against K3: max diff {gap:.3e}")
+    del Xa, SXa, XaT, want
+    torch.cuda.empty_cache()
+    bnd = k3_bound(idx, val, sw[0], p, pairs.n_pairs)
+    say(f"  ridge shape n={n} m={idx.shape[1]} p={p}: K3 a lane "
+        f"{times['K3']:.3f} ms (bound {bnd[0]:.3f} ms, {bnd[1]}); a round of "
+        f"{round_lanes} lanes {times['K3_round']:.3f} ms (bound "
+        f"{rbnd[0]:.3f} ms); plain {times['K3_plain']:.3f} ms; "
+        f"torch.sparse.mm {times['sparse_mm']:.3f} ms; dense GEMM "
+        f"{times['dense_gemm']:.3f} ms")
+    return max(errs), times, bnd
+
+
+def phase_ridge(torch, X, y, alphas, backend):
+    """Phase 10: the 480-fit RidgeClassifier grid at full size. Returns
+    the kernels' launches over the search."""
+    from skdist_tpu_torch import DistGridSearchCV, RidgeClassifier
+    from skdist_tpu_torch.models.linear import prepare_fit_X, to_device_X
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    n_fits = 5 * len(alphas)
+    say(f"phase 10: DistGridSearchCV(RidgeClassifier(), {len(alphas)} alpha "
+        f"x 5 folds = {n_fits} fits, f1_weighted) on {X.shape} on the card")
+    ps.packed_weighted_gram.launches = 0
+    ps.packed_rmatvec.launches = 0
+    ps.packed_matvec.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs = DistGridSearchCV(RidgeClassifier(), {"alpha": alphas}, cv=5,
+                          scoring="f1_weighted", backend=backend).fit(X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"packed_weighted_gram": ps.packed_weighted_gram.launches,
+                "packed_rmatvec": ps.packed_rmatvec.launches,
+                "packed_matvec": ps.packed_matvec.launches}
+    stats = gs.round_stats_[0]
+    say(f"  wall {wall:.1f} s, {n_fits / wall:.2f} fits/s, rounds "
+        f"{stats['rounds']} x {stats['tasks_per_round']} tasks, round walls "
+        + ", ".join(f"{w:.2f}" for w in stats["round_walls_s"])
+        + f" s, refit {gs.refit_time_:.2f} s")
+    billed = (stats["tasks_per_round"] * stats["bytes_per_task"]
+              + stats["bytes_per_round"])
+    say(f"  sizer: {stats['bytes_per_task'] / 2**30:.3f} GiB a task + "
+        f"{stats['bytes_per_round'] / 2**30:.3f} GiB a round = "
+        f"{billed / 2**30:.1f} GiB; measured peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    splits = np.stack([gs.cv_results_[f"split{i}_test_score"]
+                       for i in range(5)])
+    failed = int((~np.isfinite(splits)).sum())
+    say(f"  best_params_ {gs.best_params_}, best_score_ {gs.best_score_:.6f}; "
+        f"lanes whose Cholesky failed: {failed}; launches {launches}")
+    if launches["packed_weighted_gram"] != stats["rounds"] + 1 or \
+            min(launches.values()) <= 0:
+        raise AssertionError(f"K3 launched {launches['packed_weighted_gram']}"
+                             f" times over {stats['rounds']} rounds and the "
+                             f"refit, or a kernel never launched: {launches}")
+    if failed or not np.all(np.isfinite(gs.cv_results_["mean_test_score"])):
+        raise AssertionError("non-finite mean_test_score")
+    live = gs.best_estimator_.predict(X)
+    loaded = pickle.loads(pickle.dumps(gs.best_estimator_))
+    if not np.array_equal(loaded.predict(X), live):
+        raise AssertionError("pickled best_estimator_ predicts differently")
+    say(f"  refit accuracy on its training data {np.mean(live == y):.4f}; "
+        "pickled artifact predicts the same")
+
+    # the refit on the card against the same fit on the CPU, held to what
+    # one ulp of input noise does to the card's own fit (phase 3's
+    # method): the card and the CPU sum the gram and factor it in other
+    # orders, and the solve amplifies rounding by the gram's condition.
+    # Both are also held to a float64 solve on the card, which sees
+    # neither float32 rounding path: the card's float32 error may be at
+    # most 10x the CPU's. Read at the best alpha (gated) and at alpha = 1
+    # (a worse-conditioned gram; the one-ulp ratio is printed, the
+    # float64 arbiter gated)
+    best = float(gs.best_params_["alpha"])
+    del gs
+    torch.cuda.empty_cache()
+
+    def cpu_refit(alpha):
+        # on one thread: the multithreaded LAPACK Cholesky does not
+        # repeat itself bitwise, which would make the check below a coin
+        # toss
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return RidgeClassifier(alpha=alpha, device="cpu").fit(X, y)
+        finally:
+            torch.set_num_threads(threads)
+
+    X_ulp = X.copy()
+    X_ulp.data *= np.float32(1 + 2.0 ** -23)
+    exact = ridge_f64(torch, X, y)
+    for alpha in (best, 1.0):
+        t0 = time.perf_counter()
+        on_card = RidgeClassifier(alpha=alpha).fit(X, y)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = cpu_refit(alpha)
+        t_cpu = time.perf_counter() - t0
+        on_card_ulp = RidgeClassifier(alpha=alpha).fit(X_ulp, y)
+        coef64 = exact(alpha)
+        dcoef = float(np.abs(on_card.coef_ - on_cpu.coef_).max())
+        dulp = float(np.abs(on_card.coef_ - on_card_ulp.coef_).max())
+        scale = float(np.abs(on_cpu.coef_).max())
+        e_card = float(np.abs(on_card.coef_ - coef64).max())
+        e_cpu = float(np.abs(on_cpu.coef_ - coef64).max())
+        again = (f", cpu vs cpu again "
+                 f"{float(np.abs(on_cpu.coef_ - cpu_refit(alpha).coef_).max()):.3e}"
+                 if alpha == best else "")
+        say(f"  refit alpha={alpha:.4g}: card {t_card:.2f} s, cpu (one "
+            f"thread) {t_cpu:.2f} s; max|coef| {scale:.3e}, card vs cpu "
+            f"max|dcoef| {dcoef:.3e}, card vs card on X*(1+ulp) "
+            f"{dulp:.3e} (ratio {dcoef / max(dulp, 1e-30):.2f}; 10 allowed "
+            f"at the best alpha){again}; against float64: card "
+            f"{e_card:.3e}, cpu {e_cpu:.3e} (ratio "
+            f"{e_card / max(e_cpu, 1e-30):.2f}; 10 allowed)")
+        if alpha == best and not dcoef <= 10 * dulp + 1e-6 * scale:
+            raise AssertionError("card and CPU refits differ by more than "
+                                 "10x what one ulp of input noise does")
+        if not e_card <= 10 * e_cpu:
+            raise AssertionError(f"the card's refit at alpha={alpha} is "
+                                 f"more than 10x further from the float64 "
+                                 f"solve than the CPU's")
+    del X_ulp, exact
+    torch.cuda.empty_cache()
+
+    # one round's device time, split by torch.profiler over kernel names
+    # (the factorisation and the solve share cuBLAS kernels, so they are
+    # one bucket there, split below by timing one lane of each)
+    lanes = max(1, stats["tasks_per_round"] // 5)
+    t0 = time.perf_counter()
+    split = profile_device_split(
+        torch, lambda: DistGridSearchCV(
+            RidgeClassifier(), {"alpha": alphas[:lanes]}, cv=5, refit=False,
+            scoring="f1_weighted", backend=backend).fit(X, y),
+        {"K3": ("packed_gram_kernel",),
+         "memsets (K3 zero fill, cuSOLVER)": ("Memset",),
+         "K2": ("packed_rmatvec_kernel",), "K1": ("packed_matvec_kernel",),
+         "Cholesky factor + solve (cuSOLVER, cuBLAS)": (
+             "getrf", "syrk", "syherk", "sgemm", "xmma_gemm", "trsm",
+             "splitKreduce", "gemv", "dot_kernel", "xxtrf", "triu_tril",
+             "Memcpy DtoD")})
+    t_prof = time.perf_counter() - t0
+    if split is None:
+        say("  profiler: no device time recorded (split not measured)")
+    else:
+        rest = split["total"] - sum(v for k, v in split.items()
+                                    if k != "total")
+        say(f"  profiled round of {5 * lanes} tasks (wall {t_prof:.2f} s "
+            f"with the profiler on): device {split['total']:.1f} ms = "
+            + ", ".join(f"{k} {v:.1f} ms ({100 * v / split['total']:.1f}%)"
+                        for k, v in split.items() if k != "total")
+            + f", rest {rest:.1f} ms ({100 * rest / split['total']:.1f}%)")
+    # one lane's factorisation and solve by CUDA events, at the best alpha
+    op = RidgeClassifier._linear_op(
+        to_device_X(prepare_fit_X(X, RidgeClassifier), "cuda"),
+        (("fit_intercept", True),))
+    sw = torch.ones(X.shape[0], device="cuda")
+    T = torch.ones((X.shape[0], 20), device="cuda")
+    G, b = op.weighted_gram_rhs(sw, T)
+    G.diagonal()[:-1] += best
+    G.diagonal().add_(1e-8)
+    factor, _ = torch.linalg.cholesky_ex(G)
+    t_factor = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(G), 3)
+    t_solve = cuda_ms(torch, lambda: torch.cholesky_solve(b, factor), 3)
+    del op, G, b, factor
+    torch.cuda.empty_cache()
+    say(f"  one lane by CUDA events: Cholesky factor {t_factor:.2f} ms "
+        f"({1.0e3 * (X.shape[1] + 1) ** 3 / 3 / t_factor / 1e12:.1f} "
+        f"TFLOP/s of p**3/3), solve {t_solve:.2f} ms; x{5 * lanes} lanes = "
+        f"{5 * lanes * t_factor:.1f} + {5 * lanes * t_solve:.1f} ms")
+    return launches
+
+
+def phase_ridge_regressor(torch, X, alphas, backend):
+    """Phase 11: Ridge on a real target made from the seed, default r2."""
+    from skdist_tpu_torch import DistGridSearchCV, Ridge
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    rng = np.random.RandomState(6)
+    yr = (np.asarray(X @ rng.randn(X.shape[1]).astype(np.float32)).ravel()
+          + 0.5 * rng.randn(X.shape[0])).astype(np.float32)
+    ps.packed_weighted_gram.launches = 0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gs = DistGridSearchCV(Ridge(), {"alpha": alphas}, cv=5,
+                          backend=backend).fit(X, yr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = gs.round_stats_[0]
+    launches = ps.packed_weighted_gram.launches
+    say(f"phase 11: DistGridSearchCV(Ridge(), {len(alphas)} alpha x 5 folds, "
+        f"r2) on {X.shape}: {wall:.1f} s, rounds {stats['rounds']} x "
+        f"{stats['tasks_per_round']}, K3 launches {launches}, best_params_ "
+        f"{gs.best_params_}, best r2 {gs.best_score_:.6f}")
+    if launches <= 0 or not np.isfinite(gs.best_score_):
+        raise AssertionError("the ridge regressor path failed")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
-                    help="C candidates of the grid (default: all 96)")
+                    help="C and alpha candidates of the grids (default: all)")
     args = ap.parse_args()
 
     import torch
@@ -766,7 +1234,33 @@ def main():
     phase_card_vs_cpu(torch)
     phase_extra_trees_regressor(torch)
 
-    # ---- phase 9: the kernel line and the result line ------------------
+    # ---- phases 9-11: K3 and the ridge path ----------------------------
+    from skdist_tpu_torch import RidgeClassifier
+
+    del Xf, yf
+    torch.cuda.empty_cache()
+    alphas = np.logspace(-2, 3, 96)
+    reg_alphas = np.logspace(-2, 3, 16)
+    if args.candidates < len(alphas):
+        say(f"CUT: alpha grids cut to their first {args.candidates} points")
+        alphas = alphas[: args.candidates]
+        reg_alphas = reg_alphas[: args.candidates]
+    t0 = time.perf_counter()
+    Xr, yr = ridge_data()
+    say(f"ridge data: 20news-shaped CSR {Xr.shape}, nnz {Xr.nnz}, "
+        f"{time.perf_counter() - t0:.1f}s")
+    r_meta = {"n_features": RIDGE_D, "n_classes": 20, "x_format": "packed"}
+    r_static = (("class_weight", None), ("fit_intercept", True))
+    round_lanes = backend.plan_round_size(
+        5 * len(alphas),
+        RidgeClassifier._batched_task_bytes(r_meta, r_static, Xr.shape[0]),
+        bytes_per_round=RidgeClassifier._batched_round_bytes(
+            r_meta, r_static, Xr.shape[0]))
+    k3_err, k3_times, (k3_bound_ms, k3_by) = phase_k3(torch, Xr, round_lanes)
+    r_launches = phase_ridge(torch, Xr, yr, alphas, backend)
+    phase_ridge_regressor(torch, Xr, reg_alphas, backend)
+
+    # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
         {"name": "packed_matvec", "route": "cuda", "source": source,
@@ -783,6 +1277,13 @@ def main():
          "ms": times["K2"], "plain_ms": times["K2_plain"],
          "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": times["K2_library"]},
+        {"name": "packed_weighted_gram", "route": "cuda",
+         "source": "skdist_tpu_torch/csrc/packed_gram.cu",
+         "replaces": "skdist_tpu/ops/pallas_sparse.py:263",
+         "launches": r_launches["packed_weighted_gram"],
+         "max_abs_err": k3_err, "ms": k3_times["K3"],
+         "plain_ms": k3_times["K3_plain"], "bound_ms": k3_bound_ms,
+         "bound_by": k3_by, "library_ms": k3_times["sparse_mm"]},
         {"name": "level_histogram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/level_histogram.cu",
          "replaces": "skdist_tpu/ops/pallas_hist.py:124",

@@ -15,14 +15,19 @@ This package never imports ``jax``, ``skdist_tpu`` or scikit-learn.
 Ported so far: ``DistGridSearchCV(LogisticRegression)`` over dense or
 packed-CSR sparse X, with the packed matvec/rmatvec kernels; the
 histogram trees, forests and their ``Dist*`` wrappers, with the
-level-histogram kernel. ROADMAP.md lists what is still to port.
+level-histogram kernel; the ridge family (``Ridge``,
+``LinearRegression``, ``RidgeClassifier``) over dense or packed X, with
+the packed weighted-gram kernel. ROADMAP.md lists what is still to
+port.
 """
 
 __version__ = "0.1.0"
 
 _EXPORTS = {
     "DistGridSearchCV": "skdist_tpu_torch.distribute.search",
-    "LogisticRegression": "skdist_tpu_torch.models.linear",
+    **{name: "skdist_tpu_torch.models.linear" for name in (
+        "LogisticRegression", "Ridge", "LinearRegression",
+        "RidgeClassifier")},
     "CUDABackend": "skdist_tpu_torch.parallel",
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",

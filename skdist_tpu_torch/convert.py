@@ -1,7 +1,9 @@
 """Carry a fitted model from the JAX package into the port.
 
 ``forest_from_reference`` turns a fitted JAX forest or single tree into
-the port's (below). ``logistic_regression_from_reference`` takes the
+the port's (below); ``ridge_from_reference`` does the same for a fitted
+``Ridge``, ``LinearRegression`` or ``RidgeClassifier``.
+``logistic_regression_from_reference`` takes the
 fitted state of a JAX ``skdist_tpu`` ``LogisticRegression`` as plain
 numpy (its ``_params`` and ``_meta``) and returns a fitted port
 ``LogisticRegression`` that computes the same ``decision_function`` and
@@ -16,9 +18,11 @@ waits for a later slice.
 import numpy as np
 
 from .base import BaseEstimator
+from .models import linear
 from .models.linear import LogisticRegression
 
-__all__ = ["forest_from_reference", "logistic_regression_from_reference"]
+__all__ = ["forest_from_reference", "logistic_regression_from_reference",
+           "ridge_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
@@ -57,6 +61,39 @@ def logistic_regression_from_reference(params, meta, device=None):
         "cw_arr": meta.get("cw_arr"),
         "x_format": meta.get("x_format", "dense"),
     })
+    return est
+
+
+def ridge_from_reference(ref, device=None):
+    """A fitted port ``Ridge``, ``LinearRegression`` or
+    ``RidgeClassifier`` from a fitted JAX one. Only its attributes are
+    read: the class name, its parameters, ``_params["W"]`` and
+    ``_meta`` (``n_features``; ``y_ndim`` for a regressor, ``classes``,
+    ``n_classes`` and ``cw_arr`` for the classifier). The two packages
+    share the weight layout, so the port's ``decision_function`` and
+    ``predict`` then equal the JAX package's."""
+    name = type(ref).__name__
+    if name not in ("Ridge", "LinearRegression", "RidgeClassifier"):
+        raise ValueError(f"{name} is not of the ridge family")
+    if not hasattr(ref, "_params"):
+        raise ValueError(f"{name} is not fitted")
+    cls = getattr(linear, name)
+    names = cls._get_param_names()
+    est = cls(**{k: v for k, v in ref.get_params(deep=False).items()
+                 if k in names and k != "device"}, device=device)
+    W = np.asarray(ref._params["W"], dtype=np.float32)
+    d = int(ref._meta["n_features"])
+    if W.shape[0] != d + int(bool(est.fit_intercept)):
+        raise ValueError(f"W has {W.shape[0]} rows for {d} features")
+    meta = {"n_features": d,
+            "x_format": ref._meta.get("x_format", "dense")}
+    if name == "RidgeClassifier":
+        classes = np.asarray(ref._meta["classes"])
+        meta.update(classes=classes, n_classes=len(classes),
+                    cw_arr=ref._meta.get("cw_arr"))
+    else:
+        meta.update(y_ndim=W.ndim, n_targets=1 if W.ndim == 1 else W.shape[1])
+    est._set_fitted({"W": W}, meta)
     return est
 
 

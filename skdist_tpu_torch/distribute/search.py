@@ -3,9 +3,10 @@ Distributed hyperparameter search of the port: ``DistGridSearchCV``.
 
 Counterpart of ``skdist_tpu/distribute/search.py``'s batched device
 path. Candidates are bucketed by the params that shape the kernel;
-within a bucket the numeric hyperparameters (``C``, ``tol``) are stacked
-onto a task axis together with a fold id, and the backend runs the
-bucket's (candidate x fold) tasks as batched fits in rounds on the card.
+within a bucket the numeric hyperparameters (``C``, ``tol``, ``alpha``)
+are stacked onto a task axis together with a fold id, and the backend
+runs the bucket's (candidate x fold) tasks as batched fits in rounds on
+the card.
 CV folds are 0/1 weight masks, and the scores of every task are computed
 on the device in the same round as its fit.
 
@@ -36,6 +37,7 @@ from ..metrics import (
     DeviceScorer,
     default_device_scorer,
     device_scorer_compatible,
+    scorer_task_compatible,
 )
 from ..parallel import CUDABackend, parse_partitions
 from ..utils.cv import ParameterGrid, check_cv
@@ -132,6 +134,11 @@ def _resolve_device_scoring(estimator, scoring, classes):
     for out_name, metric in names:
         if metric not in DEVICE_SCORERS:
             raise _not_ported(f"scoring {metric!r}")
+        if not scorer_task_compatible(metric, estimator):
+            raise _not_ported(
+                f"scoring {metric!r} on a "
+                f"{getattr(estimator, '_estimator_type', 'model')}"
+            )
         if metric in BINARY_ONLY_SCORERS and not device_scorer_compatible(
                 metric, classes):
             raise _not_ported(f"scoring {metric!r} on this label set")
@@ -209,6 +216,8 @@ class DistBaseSearchCV(BaseEstimator):
             backend = CUDABackend(device=getattr(estimator, "device", None))
         is_classifier = getattr(estimator, "_estimator_type", None) == \
             "classifier"
+        if not is_classifier and np.ndim(y) != 1:
+            raise _not_ported("a regressor's multi-target y")
         cv = check_cv(self.cv, y, classifier=is_classifier)
         n_splits = cv.get_n_splits(X, y, groups)
         candidate_params = list(self._get_param_iterator())
@@ -324,6 +333,7 @@ class DistBaseSearchCV(BaseEstimator):
             scores, round_timings = backend.batched_map(
                 kernel, task_args, shared,
                 bytes_per_task=est_cls._batched_task_bytes(meta, static, n),
+                bytes_per_round=est_cls._batched_round_bytes(meta, static, n),
                 round_size=parse_partitions(self.partitions, len(gids)),
                 return_timings=True,
             )

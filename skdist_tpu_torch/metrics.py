@@ -7,10 +7,11 @@ tensors inside the search round that fitted the models, with CV fold
 selection as 0/1 weight masks; no prediction leaves the device.
 
 ``out`` is the estimator's raw output for one task (``(n,)`` binary
-decision scores, ``(n, k)`` multinomial scores or probabilities) or for
-a batch of tasks, with a leading task axis; ``w`` is ``(n,)`` or
-``(T, n)`` to match. An output with one more axis than ``w`` is
-per-class. The result is a scalar or a ``(T,)`` tensor.
+decision scores, ``(n, k)`` multinomial scores or probabilities, a
+regressor's ``(n,)`` predictions) or for a batch of tasks, with a
+leading task axis; ``w`` is ``(n,)`` or ``(T, n)`` to match. An output
+with one more axis than ``w`` is per-class. The result is a scalar or a
+``(T,)`` tensor.
 """
 
 import numpy as np
@@ -24,10 +25,17 @@ __all__ = [
     "f1_micro",
     "neg_log_loss",
     "roc_auc_binary",
+    "r2",
+    "neg_mean_squared_error",
+    "neg_root_mean_squared_error",
+    "neg_mean_absolute_error",
     "DEVICE_SCORERS",
     "BINARY_ONLY_SCORERS",
+    "CLASSIFICATION_ONLY_SCORERS",
+    "REGRESSION_ONLY_SCORERS",
     "default_device_scorer",
     "device_scorer_compatible",
+    "scorer_task_compatible",
     "accuracy_score",
     "DeviceScorer",
 ]
@@ -136,7 +144,31 @@ def roc_auc_binary(y, out, w, meta):
     return auc_num / torch.clamp(denom, min=1e-12)
 
 
-#: name -> (kernel, required estimator output kind)
+def _wtotal(w):
+    return torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+
+
+def r2(y, pred, w, meta):
+    ybar = _wsum(y, w) / _wtotal(w)
+    ss_res = _wsum((y - pred) ** 2, w)
+    ss_tot = _wsum((y - ybar[..., None]) ** 2, w)
+    return 1.0 - ss_res / torch.clamp(ss_tot, min=1e-12)
+
+
+def neg_mean_squared_error(y, pred, w, meta):
+    return -_wsum((y - pred) ** 2, w) / _wtotal(w)
+
+
+def neg_root_mean_squared_error(y, pred, w, meta):
+    return -torch.sqrt(-neg_mean_squared_error(y, pred, w, meta))
+
+
+def neg_mean_absolute_error(y, pred, w, meta):
+    return -_wsum(torch.abs(y - pred), w) / _wtotal(w)
+
+
+#: name -> (kernel, required estimator output kind); the kinds are
+#: 'decision' (raw scores), 'proba' and 'predict' (a regressor's output)
 DEVICE_SCORERS = {
     "accuracy": (accuracy, "decision"),
     "f1_macro": (f1_macro, "decision"),
@@ -144,11 +176,42 @@ DEVICE_SCORERS = {
     "f1_weighted": (f1_weighted, "decision"),
     "neg_log_loss": (neg_log_loss, "proba"),
     "roc_auc": (roc_auc_binary, "decision"),
+    "r2": (r2, "predict"),
+    "neg_mean_squared_error": (neg_mean_squared_error, "predict"),
+    "neg_root_mean_squared_error": (neg_root_mean_squared_error, "predict"),
+    "neg_mean_absolute_error": (neg_mean_absolute_error, "predict"),
 }
 
 #: metrics whose device kernels hold only for binary problems with the
 #: positive class encoded as label 1 (sklearn's default pos_label)
 BINARY_ONLY_SCORERS = {"roc_auc"}
+
+#: the task-kind split of the device scorers: the classification kernels
+#: read ``meta["n_classes"]`` and encoded labels, and the regression
+#: kernels score raw predictions (a classifier's device 'predict' output
+#: is its decision scores, not its labels)
+CLASSIFICATION_ONLY_SCORERS = {
+    "accuracy", "f1_macro", "f1_micro", "f1_weighted", "neg_log_loss",
+    "roc_auc",
+}
+REGRESSION_ONLY_SCORERS = {
+    "r2", "neg_mean_squared_error", "neg_root_mean_squared_error",
+    "neg_mean_absolute_error",
+}
+
+
+def scorer_task_compatible(metric, task):
+    """Whether ``metric``'s device kernel fits this estimator kind
+    (``task``: an estimator, an estimator class, or ``'classifier'``/
+    ``'regressor'``; unknown kinds pass)."""
+    kind = task if isinstance(task, str) else getattr(
+        task, "_estimator_type", None
+    )
+    if kind == "classifier" and metric in REGRESSION_ONLY_SCORERS:
+        return False
+    if kind == "regressor" and metric in CLASSIFICATION_ONLY_SCORERS:
+        return False
+    return True
 
 
 def device_scorer_compatible(metric, classes):
@@ -165,7 +228,8 @@ def device_scorer_compatible(metric, classes):
 
 
 def default_device_scorer(estimator):
-    """Mirror estimator.score defaults: accuracy for classifiers."""
+    """Mirror estimator.score defaults: accuracy for classifiers, r2
+    for regressors."""
     kind = getattr(estimator, "_estimator_type", None)
     return "accuracy" if kind == "classifier" else "r2"
 
@@ -203,6 +267,18 @@ class DeviceScorer:
 
     def __call__(self, estimator, X, y):
         kernel, kind = DEVICE_SCORERS[self.metric]
+        if kind == "predict":
+            pred = torch.as_tensor(np.asarray(estimator.predict(X),
+                                              dtype=np.float32))
+            y = torch.as_tensor(np.asarray(y, dtype=np.float32))
+            if y.ndim != 1 or y.shape != pred.shape:
+                raise ValueError(
+                    f"the device regression scorers take a 1-D target of "
+                    f"the predictions' shape {tuple(pred.shape)}; got y of "
+                    f"shape {tuple(y.shape)}"
+                )
+            w = torch.ones(y.shape[0], dtype=torch.float32)
+            return float(kernel(y, pred, w, {}))
         out = (estimator.predict_proba(X) if kind == "proba"
                else estimator.decision_function(X))
         classes = np.asarray(estimator.classes_)

@@ -7,7 +7,12 @@ from .forest import (
     RandomForestRegressor,
     RandomTreesEmbedding,
 )
-from .linear import LogisticRegression
+from .linear import (
+    LinearRegression,
+    LogisticRegression,
+    Ridge,
+    RidgeClassifier,
+)
 from .tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
@@ -22,8 +27,11 @@ __all__ = [
     "ExtraTreeRegressor",
     "ExtraTreesClassifier",
     "ExtraTreesRegressor",
+    "LinearRegression",
     "LogisticRegression",
     "RandomForestClassifier",
     "RandomForestRegressor",
     "RandomTreesEmbedding",
+    "Ridge",
+    "RidgeClassifier",
 ]

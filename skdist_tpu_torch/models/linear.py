@@ -1,5 +1,6 @@
 """
-Linear estimator kernels of the port: logistic regression.
+Linear estimator kernels of the port: logistic regression and the ridge
+family (``Ridge``, ``LinearRegression``, ``RidgeClassifier``).
 
 Counterpart of ``skdist_tpu/models/linear.py``. The estimator is built
 around batched fit kernels: ``_build_fit_kernel(meta, static)`` returns
@@ -9,7 +10,7 @@ around batched fit kernels: ``_build_fit_kernel(meta, static)`` returns
 (candidate x fold) tasks on that axis; a single ``fit`` is a batch of
 one. Folds are selected by sample-weight masking, never by slicing rows.
 
-The objective is the JAX package's (and sklearn's):
+The logistic objective is the JAX package's (and sklearn's):
 ``sum_i s_i * ce_i + 0.5 / C * ||w||^2``, intercept unpenalised. The
 multinomial weights are a flat ``p * k`` vector reshaped row-major to
 ``(p, k)``, the JAX package's layout, so ``coef_`` and
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import BaseEstimator, ClassifierMixin
+from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
 from ..sparse import (
     LinearOperator,
     PackedX,
@@ -31,7 +32,8 @@ from ..sparse import (
 from ..utils.device import exact_matmuls, resolve_device
 from .solvers import lbfgs_minimize
 
-__all__ = ["LogisticRegression"]
+__all__ = ["LogisticRegression", "Ridge", "LinearRegression",
+           "RidgeClassifier"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
 
@@ -158,6 +160,26 @@ def _freeze(d):
     return tuple(sorted((k, fr(v)) for k, v in d.items()))
 
 
+def _linear_decision(d, fit_intercept, one_column):
+    """``(W, X) -> X @ w + b`` for a linear model of ``d`` features whose
+    weights are one column (``one_column``: ``W`` is ``(p,)``, or a task
+    batch ``(T, p)``) or k columns (``(p, k)`` or ``(T, p, k)``); X is a
+    device tensor or PackedX. Returns ``(n,)``/``(n, k)`` or
+    ``(T, n)``/``(T, n, k)``."""
+
+    def decision(W, X):
+        if one_column and W.ndim == 2:
+            return decision(W[:, :, None], X)[..., 0]
+        w = W[..., :d, :] if W.ndim == 3 else W[:d]
+        out = matvec_any(X, w)
+        if not fit_intercept:
+            return out
+        b = W[..., d, :] if W.ndim == 3 else W[d]
+        return out + (b[:, None, :] if W.ndim == 3 else b)
+
+    return decision
+
+
 # --------------------------------------------------------------------------
 # shared linear-model machinery
 # --------------------------------------------------------------------------
@@ -248,13 +270,23 @@ class _LinearModelBase(BaseEstimator):
     def decision_function(self, X):
         return self._device_outputs(X, "decision")
 
+    @classmethod
+    def _batched_round_bytes(cls, meta, static, n):
+        """Device bytes a round holds once, whatever its task count."""
+        return 0
+
+    def _sklearn_2d_coef(self):
+        """Whether a one-column model's ``coef_`` is ``(1, d)`` (a
+        classifier) rather than ``(d,)``."""
+        return isinstance(self, ClassifierMixin)
+
     @property
     def coef_(self):
         self._check_fitted()
         W = np.asarray(self._params["W"])  # (d[+1], k) or (d[+1],)
         w = W[: self.n_features_in_]
         if w.ndim == 1:
-            return w.reshape(1, -1)
+            return w.reshape(1, -1) if self._sklearn_2d_coef() else w
         return w.T
 
     @property
@@ -281,6 +313,12 @@ class _LinearClassifierBase(_LinearModelBase, ClassifierMixin):
             "x_format": "packed" if isinstance(X, PackedX) else "dense",
         }
         return {"X": X, "y": y_idx, "sw": sw}, meta
+
+    @classmethod
+    def _build_decision_kernel(cls, meta, static):
+        return _linear_decision(meta["n_features"],
+                                dict(static)["fit_intercept"],
+                                meta["n_classes"] <= 2)
 
     def predict(self, X):
         scores = self.decision_function(X)
@@ -427,29 +465,6 @@ class LogisticRegression(_LinearClassifierBase):
         return kernel
 
     @classmethod
-    def _build_decision_kernel(cls, meta, static):
-        fit_intercept = dict(static)["fit_intercept"]
-        d = meta["n_features"]
-        binary = meta["n_classes"] <= 2
-
-        def decision(W, X):
-            """``W`` is one model (``(p,)`` binary, ``(p, k)``) or a task
-            batch (``(T, p)``, ``(T, p, k)``); X a device tensor or
-            PackedX. Returns ``(n,)``/``(n, k)`` or ``(T, n)``/
-            ``(T, n, k)``."""
-            batched = W.ndim == (2 if binary else 3)
-            if binary and batched:
-                return decision(W[:, :, None], X)[..., 0]
-            w = W[..., :d, :] if W.ndim == 3 else W[:d]
-            out = matvec_any(X, w)
-            if not fit_intercept:
-                return out
-            b = W[..., d, :] if W.ndim == 3 else W[d]
-            return out + (b[:, None, :] if W.ndim == 3 else b)
-
-        return decision
-
-    @classmethod
     def _build_proba_kernel(cls, meta, static):
         decision = cls._build_decision_kernel(meta, static)
         binary = meta["n_classes"] <= 2
@@ -491,3 +506,183 @@ def _check_static(st):
             "engine='host' (the f64 host engine) is not ported to "
             f"skdist_tpu_torch yet ({_ROADMAP})"
         )
+
+
+# --------------------------------------------------------------------------
+# the ridge family (closed form: one Cholesky solve per task)
+# --------------------------------------------------------------------------
+
+class _RidgeKernelMixin:
+    """The closed-form solve shared by ``Ridge``, ``LinearRegression``
+    and ``RidgeClassifier``, and what a round of them holds."""
+
+    @staticmethod
+    def _solve(op, T, sw, alpha, d):
+        """Weighted ridge for a lane batch: solve ``(X~.T S X~ + alpha
+        I0 + 1e-8 I) W = (S X~).T T`` for each lane of ``sw (L, n)`` and
+        ``alpha (L,)``; ``I0`` has a zero at the intercept, which stays
+        unpenalised, and the jitter keeps a singular gram (alpha = 0)
+        solvable. Returns ``W (L, p, k)``.
+
+        The lanes' grams come from one call (K3 on packed X); the
+        regulariser is added in place, in the JAX package's order. Each
+        lane is then factored and solved on its own, so a round holds
+        one lane's Cholesky factor (and the copy ``cholesky_solve``
+        takes) beside the grams, not one per lane. A lane whose
+        factorisation fails (``info > 0``: not positive definite in
+        float32) gets NaN weights, as ``jax.scipy.linalg.solve(...,
+        assume_a="pos")`` gives, and the search maps its scores to
+        ``error_score``; nothing raises."""
+        G, b = op.weighted_gram_rhs(sw, T)  # (L, p, p), (L, p, k)
+        diag = torch.diagonal(G, dim1=-2, dim2=-1)
+        diag[:, :d] += alpha[:, None].to(G.dtype)
+        diag += 1e-8
+        W = torch.empty_like(b)
+        for t in range(G.shape[0]):
+            factor, info = torch.linalg.cholesky_ex(G[t])
+            W[t] = torch.where(info > 0, float("nan"),
+                               torch.cholesky_solve(b[t], factor))
+            del factor
+        return W
+
+    @classmethod
+    def _linear_op(cls, X, static):
+        """The operator, with K3's pair table built up front on the
+        card, so the round sizer sees its memory as taken."""
+        op = super()._linear_op(X, static)
+        op.gram_pairs()
+        return op
+
+    @classmethod
+    def _n_outputs(cls, meta):
+        return meta.get("n_targets", 1)
+
+    @classmethod
+    def _batched_task_bytes(cls, meta, static, n):
+        """Device bytes one lane of a round holds at its peak: its
+        ``(p, p)`` gram, the right-hand side, solution and solve
+        temporaries over ``(p, k)``, the weighted targets, decision and
+        K1 temporaries over ``(n, k)``, the scoring intermediates, and on
+        dense X the weighted copy ``Xw`` (billed twice: the batched
+        gram product may expand ``Xa.T`` to the lane batch)."""
+        p = meta["n_features"] + (1 if dict(static)["fit_intercept"] else 0)
+        k = cls._n_outputs(meta)
+        per = p * p * 4 + 3 * p * k * 4 + 4 * n * k * 4 \
+            + 10 * n * max(k, 2) * 4
+        if meta.get("x_format") == "dense":
+            per += 2 * n * p * 4
+        return per
+
+    @classmethod
+    def _batched_round_bytes(cls, meta, static, n):
+        """Device bytes a round holds once: the Cholesky factor of the
+        lane being solved and the copy of it ``cholesky_solve`` takes."""
+        p = meta["n_features"] + (1 if dict(static)["fit_intercept"] else 0)
+        return 2 * p * p * 4
+
+
+class Ridge(_RidgeKernelMixin, _LinearModelBase, RegressorMixin):
+    """Closed-form weighted ridge regression. ``alpha`` rides the task
+    axis, so a CV sweep over alphas x folds is one batched solve a
+    round. The JAX package's constructor arguments, plus ``device`` (the
+    card unless ``"cpu"``)."""
+
+    _hyper_names = ("alpha",)
+    _static_names = ("fit_intercept",)
+
+    def __init__(self, alpha=1.0, fit_intercept=True, device=None):
+        self.alpha = alpha
+        self.fit_intercept = fit_intercept
+        self.device = device
+
+    def _prep_fit_data(self, X, y, sample_weight=None):
+        y = np.asarray(y, dtype=np.float32)
+        if y.ndim not in (1, 2) or y.shape[0] != X.shape[0]:
+            raise ValueError(
+                f"y of shape {y.shape} does not fit {X.shape[0]} samples"
+            )
+        sw = prepare_sample_weight(sample_weight, X.shape[0])
+        meta = {
+            "n_features": X.shape[1],
+            "y_ndim": y.ndim,
+            "n_targets": 1 if y.ndim == 1 else y.shape[1],
+            "x_format": "packed" if isinstance(X, PackedX) else "dense",
+        }
+        return {"X": X, "y": y, "sw": sw}, meta
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        d = meta["n_features"]
+        one_column = meta.get("y_ndim", 1) == 1
+
+        def kernel(op, y, sw, hyper):
+            T = y.reshape(y.shape[0], -1).to(op.dtype)
+            alpha = hyper.get("alpha")
+            if alpha is None:  # LinearRegression: no alpha on the task axis
+                alpha = torch.zeros(sw.shape[0], dtype=sw.dtype,
+                                    device=sw.device)
+            W = cls._solve(op, T, sw, alpha, d)
+            return {"W": W[..., 0] if one_column else W}
+
+        return kernel
+
+    @classmethod
+    def _build_decision_kernel(cls, meta, static):
+        return _linear_decision(meta["n_features"],
+                                dict(static)["fit_intercept"],
+                                meta.get("y_ndim", 1) == 1)
+
+    def predict(self, X):
+        return self.decision_function(X)
+
+
+class LinearRegression(Ridge):
+    """Ordinary least squares as ridge with ``alpha=0`` (the ``1e-8``
+    jitter keeps a rank-deficient gram solvable)."""
+
+    _hyper_names = ()
+
+    def __init__(self, fit_intercept=True, device=None):
+        self.fit_intercept = fit_intercept
+        self.device = device
+        self.alpha = 0.0
+
+
+class RidgeClassifier(_RidgeKernelMixin, _LinearClassifierBase):
+    """Ridge on +-1 targets (one column when there are at most two
+    classes, else one a class); predicts by the sign or the argmax of
+    the decision. ``class_weight`` scales the sample weights, as in
+    ``LogisticRegression``."""
+
+    _hyper_names = ("alpha",)
+    _static_names = ("fit_intercept", "class_weight")
+
+    def __init__(self, alpha=1.0, fit_intercept=True, class_weight=None,
+                 device=None):
+        self.alpha = alpha
+        self.fit_intercept = fit_intercept
+        self.class_weight = class_weight
+        self.device = device
+
+    @classmethod
+    def _n_outputs(cls, meta):
+        k = meta["n_classes"]
+        return 1 if k <= 2 else k
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        st = dict(static)
+        class_weight, cw_arr = st["class_weight"], meta.get("cw_arr")
+        d = meta["n_features"]
+        k = meta["n_classes"]
+
+        def kernel(op, y_idx, sw, hyper):
+            sw = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
+            if k <= 2:
+                T = torch.where(y_idx == (k - 1), 1.0, -1.0)[:, None]
+            else:
+                T = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
+            W = cls._solve(op, T.to(op.dtype), sw, hyper["alpha"], d)
+            return {"W": W[..., 0] if k <= 2 else W}
+
+        return kernel

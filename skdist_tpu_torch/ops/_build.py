@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 LIBRARIES = {
     "packed_sparse": ("packed_sparse.cu",),
     "level_histogram": ("level_histogram.cu",),
+    "packed_gram": ("packed_gram.cu",),
 }
 
 _LOCK = threading.Lock()

@@ -1,11 +1,15 @@
 """The packed-CSR contractions on the card, beside their plain versions.
 
-Counterpart of ``skdist_tpu/ops/pallas_sparse.py``. Two hand-written
-CUDA kernels (``csrc/packed_sparse.cu``) replace its two Pallas kernels:
+Counterpart of ``skdist_tpu/ops/pallas_sparse.py``. Three hand-written
+CUDA kernels replace its three Pallas kernels:
 
-- :func:`packed_matvec` (K1, ``X @ W``) replaces ``_matvec_2d``;
-- :func:`packed_rmatvec` (K2, ``X.T @ r``) replaces ``_rmatvec_2d``;
-- :class:`PackedMatvec` ties them together as the counterpart of
+- :func:`packed_matvec` (K1, ``X @ W``, ``csrc/packed_sparse.cu``)
+  replaces ``_matvec_2d``;
+- :func:`packed_rmatvec` (K2, ``X.T @ r``, same file) replaces
+  ``_rmatvec_2d``;
+- :func:`packed_weighted_gram` (K3, ``X.T S X``, ``csrc/packed_gram.cu``)
+  replaces ``_gram_2d``;
+- :class:`PackedMatvec` ties K1 and K2 together as the counterpart of
   ``matvec_with_vjp``: its forward is K1 and its backward is K2.
 
 X is the padded-row packed pair ``idx (n, m) int32`` / ``val (n, m)
@@ -14,19 +18,23 @@ is ``(p,)``, ``(p, k)`` or a batch ``(T, p, k)`` of T tasks; a batch is
 one launch with ``K = T * k`` output columns, read through strides.
 
 Dispatch is by the device of the tensors: a CPU tensor goes to the plain
-version (:func:`packed_matvec_ref`, :func:`packed_rmatvec_ref`: gather +
-row-dot and ``index_add_``, the expressions of ``skdist_tpu/sparse.py``'s
-``packed_matvec``/``packed_rmatvec``), a CUDA tensor to the kernel. There
-is no fallback: a build or launch failure raises.
+version (:func:`packed_matvec_ref`, :func:`packed_rmatvec_ref`,
+:func:`packed_weighted_gram_ref`: gather + row-dot, ``index_add_`` and
+the m**2 ``index_put_`` scatter, the expressions of
+``skdist_tpu/sparse.py``'s ``packed_matvec``/``packed_rmatvec``/
+``packed_weighted_gram``), a CUDA tensor to the kernel. There is no
+fallback: a build or launch failure raises.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 import ctypes
 import functools
+import os
 
 import torch
 
+from ..utils.meminfo import densify_budget_bytes
 from . import _build
 
 __all__ = [
@@ -34,8 +42,12 @@ __all__ = [
     "packed_rmatvec",
     "packed_matvec_ref",
     "packed_rmatvec_ref",
+    "packed_weighted_gram",
+    "packed_weighted_gram_ref",
     "PackedColumns",
     "build_columns",
+    "PackedPairs",
+    "build_pairs",
     "PackedMatvec",
     "matvec_with_vjp",
 ]
@@ -58,9 +70,9 @@ def _lib():
     return lib
 
 
-def _check_launch(lib, code, what):
+def _check_launch(error_string, code, what):
     if code != 0:
-        msg = lib.skdist_cuda_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({code})")
 
 
@@ -157,7 +169,7 @@ def packed_matvec(idx, val, W):
             W3.data_ptr(), w_rs, w_bs,
             out.data_ptr(), k, n * k, T, k, stream,
         )
-    _check_launch(lib, code, "packed_matvec")
+    _check_launch(lib.skdist_cuda_error_string, code, "packed_matvec")
     packed_matvec.launches += 1
     return _from_batch(out, W.ndim)
 
@@ -262,12 +274,207 @@ def packed_rmatvec(idx, val, r, n_cols, columns=None):
             r3.data_ptr(), r_rs, r_bs,
             out.data_ptr(), k, n_cols * k, T, k, stream,
         )
-    _check_launch(lib, code, "packed_rmatvec")
+    _check_launch(lib.skdist_cuda_error_string, code, "packed_rmatvec")
     packed_rmatvec.launches += 1
     return _from_batch(out, r.ndim)
 
 
 packed_rmatvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: X.T S X
+# ---------------------------------------------------------------------------
+
+#: env override (rows per chunk) of the plain gram's row chunking
+GRAM_CHUNK_ENV = "SKDIST_GRAM_CHUNK_ROWS"
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_lib():
+    lib = _build.load("packed_gram")
+    P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.skdist_packed_gram_f32.argtypes = [
+        P, P, P, P, P, I64, P, I64, P, I64, I32, P,
+    ]
+    lib.skdist_packed_gram_f32.restype = ctypes.c_int
+    lib.skdist_gram_error_string.argtypes = [ctypes.c_int]
+    lib.skdist_gram_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _gram_row_chunk(n, m, lanes):
+    """Rows per chunk of :func:`packed_weighted_gram_ref`, or None for
+    one shot (a copy of ``skdist_tpu/sparse.py``'s): the env override
+    first; otherwise the ``(lanes, n, m, m)`` contribution tensor is
+    billed against the host memory budget at 1/8 (the tensor, its
+    indices and the scatter's temporaries coexist), and chunking engages
+    only when the bill overshoots that share."""
+    env = os.environ.get(GRAM_CHUNK_ENV, "").strip()
+    if env:
+        try:
+            v = int(float(env))
+            if v > 0:
+                return min(v, n)
+        except ValueError:
+            pass
+    budget, _ = densify_budget_bytes()
+    if budget is None:
+        return None
+    lane_bytes = int(m) * int(m) * 4 * max(1, int(lanes))
+    share = budget // 8
+    if int(n) * lane_bytes <= share:
+        return None
+    return max(1, int(share // max(lane_bytes, 1)))
+
+
+def _check_sw(sw, n, device):
+    if sw.dtype != torch.float32:
+        raise TypeError(f"sw must be float32; got {sw.dtype}")
+    if sw.device != device:
+        raise ValueError(f"sw is on {sw.device}, the packed pair on {device}")
+    if sw.ndim not in (1, 2) or sw.shape[-1] != n:
+        raise ValueError(
+            f"sw must be ({n},) or (T, {n}); got {tuple(sw.shape)}"
+        )
+
+
+def packed_weighted_gram_ref(idx, val, sw, n_cols, row_chunk=None):
+    """Plain ``X.T S X``: the m**2 scatter of the JAX package's
+    ``sparse.packed_weighted_gram``, contribution
+    ``(val[i,a] * sw[i]) * val[i,b]`` at ``(idx[i,a], idx[i,b])``,
+    accumulated with ``index_put_`` over the flattened output in chunks
+    of ``row_chunk`` rows (default :func:`_gram_row_chunk`). ``sw`` is
+    ``(n,)`` or a lane batch ``(T, n)``; returns ``(n_cols, n_cols)`` or
+    ``(T, n_cols, n_cols)``."""
+    n, m = idx.shape
+    p = int(n_cols)
+    sw2 = sw if sw.ndim == 2 else sw[None]
+    T = sw2.shape[0]
+    if row_chunk is None:
+        row_chunk = _gram_row_chunk(n, m, lanes=T)
+    chunk = n if row_chunk is None else max(1, min(int(row_chunk), n))
+    out = torch.zeros(T * p * p, dtype=val.dtype, device=val.device)
+    lane0 = (torch.arange(T, device=idx.device) * (p * p))[:, None, None, None]
+    for i0 in range(0, n, chunk):
+        ii = idx[i0:i0 + chunk].long()
+        vv = val[i0:i0 + chunk]
+        vw = vv[None] * sw2[:, i0:i0 + chunk, None]  # (T, c, m)
+        contrib = vw[:, :, :, None] * vv[None, :, None, :]  # (T, c, m, m)
+        cell = lane0 + (ii[:, :, None] * p + ii[:, None, :])[None]
+        out.index_put_((cell.reshape(-1),), contrib.reshape(-1),
+                       accumulate=True)
+    out = out.reshape(T, p, p)
+    return out if sw.ndim == 2 else out[0]
+
+
+class PackedPairs:
+    """The pair table K3 reads: every ``(row, slot a, slot b)`` of a
+    packed pair with both values nonzero (padding and explicit zeros
+    dropped, which is exact), stably sorted by its output cell
+    ``idx[a] * n_cols + idx[b]``, so each cell's rows ascend, for a pair
+    of ``n_rows`` rows. Per pair
+    ``rows (n_pairs,) int32``, ``va``/``vb (n_pairs,) float32`` (the
+    values at slots a and b); per occupied cell ``cell_key (n_cells,)
+    int64`` and ``cell_ptr (n_cells + 1,) int64``. Independent of the
+    sample weights: one table serves every lane and round."""
+
+    __slots__ = ("cell_key", "cell_ptr", "rows", "va", "vb", "n_rows",
+                 "n_cols")
+
+    def __init__(self, cell_key, cell_ptr, rows, va, vb, n_rows, n_cols):
+        self.cell_key = cell_key
+        self.cell_ptr = cell_ptr
+        self.rows = rows
+        self.va = va
+        self.vb = vb
+        self.n_rows = int(n_rows)
+        self.n_cols = int(n_cols)
+
+    @property
+    def n_pairs(self):
+        return int(self.rows.shape[0])
+
+    @property
+    def n_cells(self):
+        return int(self.cell_key.shape[0])
+
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in (
+            self.cell_key, self.cell_ptr, self.rows, self.va, self.vb))
+
+
+def build_pairs(idx, val, n_cols):
+    """Build the :class:`PackedPairs` of a packed pair on its device:
+    layout preparation (a stable sort by output cell), done once per
+    operator, not part of the contraction."""
+    _check_packed(idx, val)
+    n, m = idx.shape
+    p = int(n_cols)
+    nz = val != 0
+    both = (nz[:, :, None] & nz[:, None, :]).reshape(-1)
+    flat = torch.nonzero(both).squeeze(1)  # (row, a, b) row-major
+    row = flat // (m * m)
+    a = (flat // m) % m
+    b = flat % m
+    del flat, both
+    cols_a = idx[row, a].long()
+    cols_b = idx[row, b].long()
+    if cols_a.numel() and (int(cols_a.min()) < 0 or int(cols_a.max()) >= p):
+        raise ValueError(f"packed idx holds a column outside [0, {p})")
+    key = cols_a * p + cols_b
+    del cols_a, cols_b
+    order = torch.argsort(key, stable=True)
+    key = key[order]
+    cell_key, counts = torch.unique_consecutive(key, return_counts=True)
+    del key
+    cell_ptr = torch.zeros(cell_key.shape[0] + 1, dtype=torch.int64,
+                           device=idx.device)
+    torch.cumsum(counts, 0, out=cell_ptr[1:])
+    row, a, b = row[order], a[order], b[order]
+    return PackedPairs(
+        cell_key.contiguous(), cell_ptr, row.to(torch.int32).contiguous(),
+        val[row, a].contiguous(), val[row, b].contiguous(), n, p,
+    )
+
+
+def packed_weighted_gram(idx, val, sw, n_cols, pairs=None):
+    """``X.T S X`` on the packed pair. ``sw`` is ``(n,)`` or a lane
+    batch ``(T, n)``; returns ``(n_cols, n_cols)`` or ``(T, n_cols,
+    n_cols)`` float32. CPU tensors take :func:`packed_weighted_gram_ref`;
+    CUDA tensors launch K3 once for all lanes, over ``pairs`` (a
+    :class:`PackedPairs`, built here when not given). Deterministic: two
+    launches on the same inputs are bitwise equal."""
+    _check_packed(idx, val)
+    _check_sw(sw, idx.shape[0], idx.device)
+    p = int(n_cols)
+    if idx.device.type != "cuda":
+        return packed_weighted_gram_ref(idx, val, sw, p)
+    if pairs is None:
+        pairs = build_pairs(idx, val, p)
+    if (pairs.n_rows, pairs.n_cols) != (idx.shape[0], p):
+        raise ValueError(
+            f"pairs were built for {pairs.n_rows} rows and {pairs.n_cols} "
+            f"columns, not {idx.shape[0]} and {p}"
+        )
+    sw2 = (sw if sw.ndim == 2 else sw[None]).contiguous()
+    T = sw2.shape[0]
+    out = torch.empty((T, p, p), dtype=torch.float32, device=idx.device)
+    lib = _gram_lib()
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.skdist_packed_gram_f32(
+            pairs.cell_key.data_ptr(), pairs.cell_ptr.data_ptr(),
+            pairs.rows.data_ptr(), pairs.va.data_ptr(), pairs.vb.data_ptr(),
+            pairs.n_cells, sw2.data_ptr(), sw2.stride(0) if T > 1 else 0,
+            out.data_ptr(), p * p, T, stream,
+        )
+    _check_launch(lib.skdist_gram_error_string, code, "packed_weighted_gram")
+    packed_weighted_gram.launches += 1
+    return out if sw.ndim == 2 else out[0]
+
+
+packed_weighted_gram.launches = 0
 
 
 # ---------------------------------------------------------------------------

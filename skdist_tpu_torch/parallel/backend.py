@@ -46,7 +46,8 @@ class TaskBackend:
     last_round_stats = None
 
     def batched_map(self, kernel, task_args, shared, bytes_per_task=None,
-                    round_size=None, return_timings=False):
+                    round_size=None, return_timings=False,
+                    bytes_per_round=0):
         raise NotImplementedError
 
     # fitted estimators must never hold a live backend; give pickle a
@@ -108,38 +109,44 @@ class CUDABackend(TaskBackend):
                   - torch.cuda.memory_allocated(self.device))
         return int(free + cached)
 
-    def round_cap(self, bytes_per_task, headroom=0.85):
-        """Largest task count whose ``bytes_per_task`` footprint fits
-        ``headroom`` of free device memory; None on CPU."""
+    def round_cap(self, bytes_per_task, headroom=0.85, bytes_per_round=0):
+        """Largest task count whose ``bytes_per_task`` footprint, beside
+        the ``bytes_per_round`` a round holds once, fits ``headroom`` of
+        free device memory; None on CPU."""
         free = self.free_device_bytes()
         if free is None or bytes_per_task is None or bytes_per_task <= 0:
             return None
-        return max(1, int(free * headroom) // int(bytes_per_task))
+        room = int(free * headroom) - int(bytes_per_round or 0)
+        return max(1, room // int(bytes_per_task))
 
-    def plan_round_size(self, n_tasks, bytes_per_task=None, round_size=None):
+    def plan_round_size(self, n_tasks, bytes_per_task=None, round_size=None,
+                        bytes_per_round=0):
         """Tasks per round: at most ``round_size`` (or the backend's),
         at most what free device memory fits, and spread evenly so the
         last round is no smaller than it must be."""
         chunk = round_size or self.round_size or n_tasks
-        cap = self.round_cap(bytes_per_task)
+        cap = self.round_cap(bytes_per_task, bytes_per_round=bytes_per_round)
         if cap is not None:
             chunk = min(chunk, cap)
         chunk = max(1, min(chunk, n_tasks))
         return math.ceil(n_tasks / math.ceil(n_tasks / chunk))
 
     def batched_map(self, kernel, task_args, shared, bytes_per_task=None,
-                    round_size=None, return_timings=False):
+                    round_size=None, return_timings=False,
+                    bytes_per_round=0):
         """Run ``kernel(shared, task_batch) -> {name: (T, ...) tensor}``
         over the tasks of ``task_args`` (a dict tree of host arrays with a
         leading task axis) in rounds. ``shared`` is already placed
         (:meth:`place`). Returns ``{name: (n_tasks, ...) ndarray}`` (the
         rounds' outputs concatenated on the task axis; trailing axes, such
         as a tree's ``(N,)`` nodes, are kept) and, with ``return_timings``,
-        a list of ``(round wall seconds, tasks)``. The round stats
-        (rounds, tasks per round, round walls, the per-task byte estimate)
-        are left in :attr:`last_round_stats`."""
+        a list of ``(round wall seconds, tasks)``. ``bytes_per_round`` is
+        what a round holds once beside its tasks' ``bytes_per_task``. The
+        round stats (rounds, tasks per round, round walls, the byte
+        estimates) are left in :attr:`last_round_stats`."""
         n_tasks = _leading_dim(task_args)
-        chunk = self.plan_round_size(n_tasks, bytes_per_task, round_size)
+        chunk = self.plan_round_size(n_tasks, bytes_per_task, round_size,
+                                     bytes_per_round)
         outs, timings = [], []
         for lo in range(0, n_tasks, chunk):
             hi = min(n_tasks, lo + chunk)
@@ -156,6 +163,7 @@ class CUDABackend(TaskBackend):
             "tasks_per_round": chunk,
             "round_walls_s": [w for w, _ in timings],
             "bytes_per_task": bytes_per_task,
+            "bytes_per_round": bytes_per_round,
         }
         result = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         if return_timings:

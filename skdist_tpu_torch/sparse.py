@@ -8,15 +8,16 @@ columns and ~1% density stays packed end to end: :class:`PackedX` holds
 sample, ``m`` = max nnz per row, padding ``(0, 0.0)``), and the linear
 fit problems reach it through :class:`LinearOperator`, whose packed form
 runs the CUDA kernels of :mod:`skdist_tpu_torch.ops.packed_sparse` (K1
-forward, K2 as its backward) and whose dense form is ``Xa @ W``.
+forward, K2 as its backward, K3 for the ridge family's gram) and whose
+dense form is ``Xa @ W``.
 
 The host-side routing (:func:`pack_decision`, :func:`would_pack`,
 :func:`pack_for_fit`) is the JAX package's, copied: pack exactly when
 the packed pair saves at least :data:`PACK_MIN_SAVINGS` device bytes
 and the nnz distribution has no outlier rows.
 
-Not yet ported (ROADMAP): ``weighted_gram_rhs`` and ``packed_to_dense``
-(the ridge family's closed form), ``mode='dense'``, the bf16 packed
+Not yet ported (ROADMAP): ``mode='dense'`` (the rebuild-then-matmul
+operator; :func:`packed_to_dense` itself is here), the bf16 packed
 matmuls and the matvec-mode calibration table.
 """
 
@@ -28,8 +29,10 @@ import torch
 from .ops.packed_sparse import (
     PackedMatvec,
     build_columns,
+    build_pairs,
     packed_matvec,
     packed_rmatvec,
+    packed_weighted_gram,
 )
 from .utils.meminfo import BUDGET_ENV, densify_budget_bytes
 
@@ -42,6 +45,7 @@ __all__ = [
     "would_pack",
     "pack_for_fit",
     "sparse_to_dense_f32",
+    "packed_to_dense",
     "matvec_any",
     "LinearOperator",
 ]
@@ -230,6 +234,15 @@ def sparse_to_dense_f32(X):
     return np.ascontiguousarray(out, dtype=np.float32)
 
 
+def packed_to_dense(idx, val, n_cols):
+    """Scatter-rebuild the dense ``(n, n_cols)`` block of a packed pair
+    on its device; duplicate (row, col) entries accumulate, as in CSR."""
+    n = idx.shape[0]
+    out = torch.zeros((n, int(n_cols)), dtype=val.dtype, device=val.device)
+    rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
+    return out.index_put_((rows, idx.long()), val, accumulate=True)
+
+
 def matvec_any(X, W):
     """``X @ W`` for either representation (tensors on one device)."""
     if isinstance(X, PackedX):
@@ -253,9 +266,15 @@ class LinearOperator:
 
     ``W`` is ``(p,)``, ``(p, k)`` or a task batch ``(T, p, k)``; the
     result is ``(n,)``, ``(n, k)`` or ``(T, n, k)``.
+
+    :meth:`weighted_gram_rhs` gives the ridge family's normal equations;
+    on packed X its gram is K3 over a pair table built at the first
+    call (:meth:`gram_pairs`), so operators that never ask for a gram
+    never build one.
     """
 
-    __slots__ = ("d", "p", "n", "Xa", "pidx", "pval", "dtype", "columns")
+    __slots__ = ("d", "p", "n", "Xa", "pidx", "pval", "dtype", "columns",
+                 "pairs")
 
     def __init__(self, X, fit_intercept):
         if isinstance(X, PackedX):
@@ -272,6 +291,7 @@ class LinearOperator:
                                      device=val.device)], dim=1,
                 ).contiguous()
             self.d, self.p, self.n = d, d + int(bool(fit_intercept)), n
+            self.pairs = None
             self.Xa = None
             self.pidx, self.pval = idx, val
             self.dtype = val.dtype
@@ -287,7 +307,7 @@ class LinearOperator:
             else:
                 Xa = X
             self.Xa = Xa
-            self.pidx = self.pval = self.columns = None
+            self.pidx = self.pval = self.columns = self.pairs = None
             self.d = X.shape[1]
             self.p = Xa.shape[1]
             self.n = X.shape[0]
@@ -305,3 +325,25 @@ class LinearOperator:
             return self.Xa.T @ r
         return packed_rmatvec(self.pidx, self.pval, r, self.p,
                               columns=self.columns)
+
+    def gram_pairs(self):
+        """The pair table K3 reads (packed X on the card), built once per
+        operator at the first call; None for dense X or on the CPU."""
+        if self.pairs is None and self.pidx is not None and self.pidx.is_cuda:
+            self.pairs = build_pairs(self.pidx, self.pval, self.p)
+        return self.pairs
+
+    def weighted_gram_rhs(self, sw, T):
+        """``(X~.T S X~, (S X~).T T)``, the ridge normal equations, for
+        sample weights ``sw`` ``(n,)`` or a lane batch ``(L, n)`` and
+        targets ``T (n, k)``; returns ``(p, p)``/``(p, k)`` or
+        ``(L, p, p)``/``(L, p, k)``. Dense X keeps the JAX package's
+        expressions (``Xw = Xa * sw``, ``Xa.T @ Xw``, ``Xw.T @ T``);
+        packed X builds the gram with K3 and the right-hand side with
+        K2."""
+        if self.Xa is not None:
+            Xw = self.Xa * sw[..., None]
+            return self.Xa.T @ Xw, Xw.mT @ T
+        G = packed_weighted_gram(self.pidx, self.pval, sw, self.p,
+                                 pairs=self.gram_pairs())
+        return G, self.rmatvec(sw[..., None] * T)

@@ -7,8 +7,9 @@ test harness:
         tests/test_torch_cuda_kernels.py
 
 Tolerance: an output is a sum of c products (c = m for K1, the column's
-entry count for K2); two float32 sums of the same terms in different
-orders differ by at most 2 * c * 2**-24 * sum|terms|.
+entry count for K2, the cell's pair count for K3); two float32 sums of
+the same terms in different orders differ by at most
+2 * c * 2**-24 * sum|terms|.
 """
 
 import numpy as np
@@ -171,3 +172,87 @@ def test_small_forest_on_card_equals_cpu(cuda):
         np.testing.assert_array_equal(card._trees[k], cpu._trees[k])
     np.testing.assert_allclose(card.predict_proba(X), cpu.predict_proba(X),
                                rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K3: the weighted gram. Each term is the plain version's term bitwise, so
+# integer data must give the plain version's gram exactly; fractional
+# data is held to 2 * c * 2**-24 * sum|terms| with c the cell's pair
+# count; two launches are bitwise equal.
+# ---------------------------------------------------------------------------
+
+GRAM_SHAPES = [  # (n, p, m, T): n off every chunk, p odd, m = 1 and 70
+    (37, 53, 7, 1),
+    (1001, 301, 1, 3),
+    (299, 1001, 70, 3),
+    (500, 9, 7, 1),  # few columns: long cells, many repeats in a row
+]
+
+
+def _gram_inputs(cuda, n, p, m, T, integer, seed):
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, p, size=(n, m)).astype(np.int32)
+    if integer:
+        val = rng.randint(-3, 4, size=(n, m)).astype(np.float32)
+        sw = rng.randint(0, 4, size=(T, n)).astype(np.float32)
+    else:
+        val = rng.randn(n, m).astype(np.float32)
+        sw = rng.rand(T, n).astype(np.float32)
+    pad = rng.rand(n, m) < 0.3
+    idx[pad] = 0
+    val[pad] = 0.0
+    idx[1], val[1] = 0, 0.0  # an empty row
+    if m > 1:
+        idx[2, 1] = idx[2, 0]  # a repeated (row, col) entry
+    return (torch.as_tensor(idx).to(cuda), torch.as_tensor(val).to(cuda),
+            torch.as_tensor(sw).to(cuda))
+
+
+@pytest.mark.parametrize("n,p,m,T", GRAM_SHAPES)
+def test_weighted_gram_matches_plain_version(cuda, n, p, m, T):
+    before = ps.packed_weighted_gram.launches
+    for integer in (True, False):
+        idx, val, sw = _gram_inputs(cuda, n, p, m, T, integer, n + m)
+        pairs = ps.build_pairs(idx, val, p)
+        out = ps.packed_weighted_gram(idx, val, sw, p, pairs=pairs)
+        again = ps.packed_weighted_gram(idx, val, sw, p)  # builds its table
+        ref = ps.packed_weighted_gram_ref(idx, val, sw, p)
+        assert out.shape == (T, p, p) and torch.equal(again, out)
+        if integer:
+            assert torch.equal(out, ref)
+        else:
+            count = ps.packed_weighted_gram_ref(
+                idx, (val != 0).float(), torch.ones_like(sw), p)
+            tol = 2 * count * U * ps.packed_weighted_gram_ref(
+                idx, val.abs(), sw.abs(), p)
+            assert bool(((out - ref).abs() <= tol).all())
+        one = ps.packed_weighted_gram(idx, val, sw[0], p, pairs=pairs)
+        assert torch.equal(one, out[0])  # the unbatched form
+    assert ps.packed_weighted_gram.launches == before + 6
+
+
+def test_small_ridge_classifier_on_card_equals_cpu(cuda):
+    """A well-conditioned packed ridge fit (n > p, alpha = 1) through K3,
+    K2 and cuSOLVER on the card against the same fit on the CPU. They
+    differ by summation order only, in the gram and in the factorisation;
+    with a gram condition number in the hundreds that moves coef_ by far
+    less than 1e-4 of max|coef_|."""
+    import scipy.sparse as sp
+
+    from skdist_tpu_torch.models import RidgeClassifier
+
+    rng = np.random.RandomState(0)
+    X = sp.random(3000, 400, density=0.02, format="csr", random_state=rng,
+                  dtype=np.float32)
+    y = rng.randint(0, 4, size=3000)
+    before = ps.packed_weighted_gram.launches
+    card = RidgeClassifier(alpha=1.0).fit(X, y)
+    assert ps.packed_weighted_gram.launches == before + 1
+    cpu = RidgeClassifier(alpha=1.0, device="cpu").fit(X, y)
+    assert card._meta["x_format"] == "packed"
+    scale = float(np.abs(cpu.coef_).max())
+    np.testing.assert_allclose(card.coef_, cpu.coef_, rtol=0,
+                               atol=1e-4 * scale)
+    dec = cpu.decision_function(X)
+    np.testing.assert_allclose(card.decision_function(X), dec, rtol=0,
+                               atol=1e-4 * float(np.abs(dec).max()))

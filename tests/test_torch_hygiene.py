@@ -116,6 +116,9 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "from skdist_tpu_torch.utils import cv, device, draws, validation\n"
         "p.DistGridSearchCV, p.LogisticRegression, p.CUDABackend\n"
         "p.DistRandomForestClassifier, p.DistRandomTreesEmbedding\n"
+        "p.Ridge, p.RidgeClassifier, p.LinearRegression\n"
+        "convert.ridge_from_reference, sparse.packed_to_dense\n"
+        "packed_sparse.packed_weighted_gram, packed_sparse.build_pairs\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         f"       if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -130,7 +133,7 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
 def test_no_quiet_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is available: the no-card path cannot run")
-    from skdist_tpu_torch import CUDABackend, LogisticRegression
+    from skdist_tpu_torch import CUDABackend, LogisticRegression, RidgeClassifier
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CUDABackend()
@@ -138,6 +141,8 @@ def test_no_quiet_cpu_fallback(tmp_path):
     y = (X[:, 0] > 0).astype(int)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LogisticRegression().fit(X, y)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RidgeClassifier().fit(X, y)
     assert CUDABackend(device="cpu").device.type == "cpu"
 
     # chip_smoke.py exits nonzero and prints no result line without a

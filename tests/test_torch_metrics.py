@@ -91,3 +91,46 @@ def test_compatibility_and_defaults():
 
     assert tm.default_device_scorer(Clf()) == "accuracy"
     assert tm.accuracy_score([1, 2, 3], [1, 2, 0]) == pytest.approx(2 / 3)
+
+
+REGRESSION = ["r2", "neg_mean_squared_error", "neg_root_mean_squared_error",
+              "neg_mean_absolute_error"]
+
+
+@pytest.mark.parametrize("name", REGRESSION)
+def test_regression_scorer_matches_jax(name):
+    """One task and a batch of tasks (``pred (T, n)``, ``w (T, n)``),
+    against the JAX kernel and ``jax.vmap`` of it."""
+    tk, kind = tm.DEVICE_SCORERS[name]
+    jk, jkind = jm.DEVICE_SCORERS[name]
+    assert kind == jkind == "predict"
+    rng = np.random.RandomState(3)
+    y = rng.randn(N).astype(np.float32)
+    preds = (y + 0.3 * rng.randn(3, N)).astype(np.float32)
+    ws = ((rng.rand(3, N) < 0.6) * rng.uniform(0.5, 2.0, (3, N))).astype(
+        np.float32)
+    got = float(tk(torch.as_tensor(y), torch.as_tensor(preds[0]),
+                   torch.as_tensor(ws[0]), {}))
+    want = float(jk(jnp.asarray(y), jnp.asarray(preds[0]),
+                    jnp.asarray(ws[0]), {}))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    got = tk(torch.as_tensor(y), torch.as_tensor(preds), torch.as_tensor(ws),
+             {}).numpy()
+    want = np.asarray(jax.vmap(lambda p, w: jk(jnp.asarray(y), p, w, {}))(
+        jnp.asarray(preds), jnp.asarray(ws)))
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_task_kind_guards_match_jax():
+    for name in tm.DEVICE_SCORERS:
+        for kind in ("classifier", "regressor"):
+            assert tm.scorer_task_compatible(name, kind) == \
+                jm.scorer_task_compatible(name, kind), (name, kind)
+    assert tm.CLASSIFICATION_ONLY_SCORERS | tm.REGRESSION_ONLY_SCORERS == \
+        set(tm.DEVICE_SCORERS)
+
+    class Reg:
+        _estimator_type = "regressor"
+
+    assert tm.default_device_scorer(Reg()) == "r2"
