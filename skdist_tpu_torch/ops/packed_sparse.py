@@ -58,11 +58,12 @@ def _lib():
     lib = _build.load("packed_sparse")
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.skdist_packed_matvec_f32.argtypes = [
-        P, P, I64, I32, P, I64, I64, P, I64, I64, I32, I32, P,
+        P, P, I64, I32, P, I64, I64, P, I64, I64, I32, I32, I32, P,
     ]
     lib.skdist_packed_matvec_f32.restype = ctypes.c_int
     lib.skdist_packed_rmatvec_f32.argtypes = [
-        P, P, P, I64, P, I64, I64, P, I64, I64, I32, I32, P,
+        P, P, P, P, P, P, I64, I64, P, I64, I64, P, P, I64, I64, I32, I32,
+        I32, P,
     ]
     lib.skdist_packed_rmatvec_f32.restype = ctypes.c_int
     lib.skdist_cuda_error_string.argtypes = [ctypes.c_int]
@@ -130,6 +131,17 @@ def _kernel_strides(x3, name):
     return x3.stride(1), (x3.stride(0) if T > 1 else 0)
 
 
+def _vector_width(x3):
+    """4 when K1/K2 may read the ``(T, rows, k)`` operand ``x3`` as
+    16-byte vectors: ``k % 4 == 0``, unit stride along k, and its base,
+    row stride and batch stride (when ``T > 1``) 16-byte aligned; else 1
+    (the kernels' scalar form)."""
+    T, _, k = x3.shape
+    aligned = (k % 4 == 0 and x3.stride(2) == 1 and x3.data_ptr() % 16 == 0
+               and x3.stride(1) % 4 == 0 and (T == 1 or x3.stride(0) % 4 == 0))
+    return 4 if aligned else 1
+
+
 # ---------------------------------------------------------------------------
 # K1: X @ W
 # ---------------------------------------------------------------------------
@@ -167,7 +179,7 @@ def packed_matvec(idx, val, W):
         code = lib.skdist_packed_matvec_f32(
             idx.data_ptr(), val.data_ptr(), n, m,
             W3.data_ptr(), w_rs, w_bs,
-            out.data_ptr(), k, n * k, T, k, stream,
+            out.data_ptr(), k, n * k, T, k, _vector_width(W3), stream,
         )
     _check_launch(lib.skdist_cuda_error_string, code, "packed_matvec")
     packed_matvec.launches += 1
@@ -200,32 +212,52 @@ def packed_rmatvec_ref(idx, val, r, n_cols):
     return out.index_add_(1, flat, contrib.reshape(T, -1, k))
 
 
+#: entries of a K2 column segment: a longer column is cut into segments
+#: of at most this many entries, summed apart and then combined
+SEGMENT_ENTRIES = 64
+
+
 class PackedColumns:
     """The column-sorted copy of a packed pair that K2 reads: entries
     with ``val != 0`` (padding and explicit zeros dropped, which is
     exact), stably sorted by column, so each column's entries keep their
     row-major order. ``col_ptr (n_cols + 1,) int64``, ``rows (nnz,)
-    int32``, ``vals (nnz,) float32``."""
+    int32``, ``vals (nnz,) float32``.
 
-    __slots__ = ("col_ptr", "rows", "vals", "n_cols")
+    Beside it, the segment table: each column of more than
+    :data:`SEGMENT_ENTRIES` entries is cut into consecutive segments of
+    at most that many. Column c owns segments ``col_seg[c]:col_seg[c + 1]``
+    (``(n_cols + 1,) int32``; none for a column that is not cut), and
+    segment s holds the entries ``seg_lo[s]:seg_hi[s]`` (``int64``)."""
 
-    def __init__(self, col_ptr, rows, vals, n_cols):
+    __slots__ = ("col_ptr", "rows", "vals", "n_cols", "col_seg", "seg_lo",
+                 "seg_hi")
+
+    def __init__(self, col_ptr, rows, vals, n_cols, col_seg, seg_lo, seg_hi):
         self.col_ptr = col_ptr
         self.rows = rows
         self.vals = vals
         self.n_cols = int(n_cols)
+        self.col_seg = col_seg
+        self.seg_lo = seg_lo
+        self.seg_hi = seg_hi
 
     @property
     def nnz(self):
         return int(self.vals.shape[0])
 
+    @property
+    def n_segs(self):
+        return int(self.seg_lo.shape[0])
+
 
 def build_columns(idx, val, n_cols):
     """Build the :class:`PackedColumns` of a packed pair on its device:
-    layout preparation (a stable sort by column), done once per operator,
-    not part of the contraction."""
+    layout preparation (a stable sort by column, then the segment table),
+    done once per operator, not part of the contraction."""
     _check_packed(idx, val)
     m = idx.shape[1]
+    dev = idx.device
     flat_val = val.reshape(-1)
     keep = torch.nonzero(flat_val != 0).squeeze(1)
     cols = idx.reshape(-1)[keep].long()
@@ -233,11 +265,25 @@ def build_columns(idx, val, n_cols):
     counts = torch.bincount(cols, minlength=n_cols)
     if counts.shape[0] != n_cols or (cols.numel() and int(cols.min()) < 0):
         raise ValueError(f"packed idx holds a column outside [0, {n_cols})")
-    col_ptr = torch.zeros(n_cols + 1, dtype=torch.int64, device=idx.device)
+    col_ptr = torch.zeros(n_cols + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=col_ptr[1:])
     rows = (keep // m)[order].to(torch.int32).contiguous()
     vals = flat_val[keep][order].contiguous()
-    return PackedColumns(col_ptr, rows, vals, n_cols)
+
+    L = SEGMENT_ENTRIES
+    n_seg = torch.where(counts > L, (counts + L - 1) // L, 0)
+    seg_ptr = torch.zeros(n_cols + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n_seg, 0, out=seg_ptr[1:])
+    n_segs = int(seg_ptr[-1])
+    if n_segs >= 2**31:
+        raise ValueError(f"{n_segs} column segments; at most 2**31-1")
+    seg_col = torch.repeat_interleave(
+        torch.arange(n_cols, device=dev), n_seg, output_size=n_segs)
+    first = torch.arange(n_segs, device=dev) - seg_ptr[seg_col]
+    seg_lo = (col_ptr[seg_col] + first * L).contiguous()
+    seg_hi = torch.minimum(seg_lo + L, col_ptr[seg_col + 1]).contiguous()
+    return PackedColumns(col_ptr, rows, vals, n_cols,
+                         seg_ptr.to(torch.int32).contiguous(), seg_lo, seg_hi)
 
 
 def packed_rmatvec(idx, val, r, n_cols, columns=None):
@@ -245,8 +291,10 @@ def packed_rmatvec(idx, val, r, n_cols, columns=None):
     batch ``(T, n, k)``; returns ``(n_cols,)``, ``(n_cols, k)`` or
     ``(T, n_cols, k)`` float32. CPU tensors take
     :func:`packed_rmatvec_ref`; CUDA tensors launch K2 over ``columns``
-    (a :class:`PackedColumns`, built here when not given). Deterministic:
-    two launches on the same inputs are bitwise equal."""
+    (a :class:`PackedColumns`, built here when not given): its segment
+    pass when the columns have segments, then its tile pass (one count
+    in ``launches`` a call). Deterministic: two calls on the same inputs
+    are bitwise equal."""
     _check_packed(idx, val)
     r3 = _as_batch(r, "r", idx.device)
     n_cols = int(n_cols)
@@ -265,14 +313,17 @@ def packed_rmatvec(idx, val, r, n_cols, columns=None):
     T, _n, k = r3.shape
     r_rs, r_bs = _kernel_strides(r3, "r")
     out = torch.empty((T, n_cols, k), dtype=torch.float32, device=idx.device)
+    partial = torch.empty((columns.n_segs, T * k), dtype=torch.float32,
+                          device=idx.device)
     lib = _lib()
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.skdist_packed_rmatvec_f32(
-            columns.col_ptr.data_ptr(), columns.rows.data_ptr(),
-            columns.vals.data_ptr(), n_cols,
-            r3.data_ptr(), r_rs, r_bs,
-            out.data_ptr(), k, n_cols * k, T, k, stream,
+            columns.col_ptr.data_ptr(), columns.col_seg.data_ptr(),
+            columns.seg_lo.data_ptr(), columns.seg_hi.data_ptr(),
+            columns.rows.data_ptr(), columns.vals.data_ptr(), n_cols,
+            columns.n_segs, r3.data_ptr(), r_rs, r_bs, partial.data_ptr(),
+            out.data_ptr(), k, n_cols * k, T, k, _vector_width(r3), stream,
         )
     _check_launch(lib.skdist_cuda_error_string, code, "packed_rmatvec")
     packed_rmatvec.launches += 1

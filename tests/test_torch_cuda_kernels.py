@@ -90,6 +90,104 @@ def test_strided_operands_and_vector_forms(cuda):
                                ps.packed_rmatvec_ref(idx, val, r1, p - 10))
 
 
+def _segmented(seed, n, p, m, device):
+    """Entries on columns [0, 100) only (an empty stretch many K2 tiles
+    wide up to p - 1), column 7 in every third row and column p - 1 (an
+    intercept) in every row: both cut into many K2 segments."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, 100, size=(n, m)).astype(np.int32)
+    idx[:, 0] = p - 1
+    idx[::3, 1] = 7
+    val = rng.randn(n, m).astype(np.float32)
+    return torch.as_tensor(idx).to(device), torch.as_tensor(val).to(device)
+
+
+def _zipf(seed, n, d, m, device):
+    """Hashed-text-like rows: Zipf column popularity plus an intercept
+    column d, as the LogReg path packs them."""
+    rng = np.random.RandomState(seed)
+    pop = 1.0 / np.arange(1, d + 1)
+    rng.shuffle(pop)
+    idx = np.searchsorted(np.cumsum(pop / pop.sum()), rng.rand(n, m - 1))
+    idx = np.minimum(idx, d - 1).astype(np.int32)
+    val = (rng.rand(n, m - 1) + 0.5).astype(np.float32)
+    idx = np.concatenate([idx, np.full((n, 1), d, np.int32)], 1)
+    val = np.concatenate([val, np.ones((n, 1), np.float32)], 1)
+    return torch.as_tensor(idx).to(device), torch.as_tensor(val).to(device)
+
+
+def _ridge_rhs(pair, n, T, k, g, device):
+    """K2's operand on the ridge path, sw[..., None] * Y with Y the +-1
+    targets: sw the grid's 0/1 fold masks ("ridge masks") or fractional
+    weights ("ridge weights"), one lane a row."""
+    y = torch.randint(0, k, (n,), generator=g, device=device)
+    Y = torch.where(y[:, None] == torch.arange(k, device=device), 1.0, -1.0)
+    if pair == "ridge masks":
+        fold = torch.arange(n, device=device) * 5 // n
+        lane = torch.arange(T, device=device) % 5
+        sw = (fold[None] != lane[:, None]).float()
+    else:
+        sw = torch.rand((T, n), generator=g, device=device)
+    return sw[..., None] * Y
+
+
+BRANCH_CASES = [  # (pair, n, p, m, T, k, sliced)
+    ("random", 3000, 40, 8, 5, 20, False),      # ~480 entries a column
+    ("segmented", 2000, 5000, 6, 7, 8, False),  # segments, empty stretch
+    ("segmented", 2000, 5000, 6, 6, 20, True),  # vector form ruled out
+    ("segmented", 2000, 5000, 6, 96, 1, False),  # the binary path's k, T
+    ("segmented", 300, 5000, 6, 2, 300, True),  # k past one block's lanes
+    ("zipf", 11314, 2**16 + 1, 41, 8, 20, False),
+    ("zipf", 11314, 2**16 + 1, 41, 96, 1, False),
+    ("ridge masks", 11314, 2**14 + 1, 41, 60, 20, False),  # a ridge round
+    ("ridge weights", 11314, 2**14 + 1, 41, 60, 20, False),
+]
+
+
+@pytest.mark.parametrize("pair,n,p,m,T,k,sliced", BRANCH_CASES)
+def test_kernels_at_each_branch_of_their_design(cuda, pair, n, p, m, T, k,
+                                                sliced):
+    """K1, K2 and the PackedMatvec gradient against their plain versions
+    where K2 cuts columns into segments, skips empty tiles, and where the
+    operands' layout picks the scalar form, and at a ridge round, whose
+    K2 operand is weighted +-1 targets; K2 bitwise repeatable. The
+    "ridge" pairs are hashed-text rows like "zipf"."""
+    if pair == "random":
+        idx, val = _packed(n, n, p, m, cuda)
+    elif pair == "segmented":
+        idx, val = _segmented(n, n, p, m, cuda)
+    else:
+        idx, val = _zipf(n, n, p - 1, m, cuda)
+    extra = 1 if sliced else 0
+    g = torch.Generator(device=cuda).manual_seed(T * k)
+    W = torch.randn((T, p, k + extra), generator=g, device=cuda)[..., extra:]
+    r = torch.randn((T, n, k + extra), generator=g, device=cuda)[..., extra:]
+    if pair.startswith("ridge"):
+        r = _ridge_rhs(pair, n, T, k, g, cuda)
+    want = 4 if (k % 4 == 0 and not sliced) else 1
+    assert ps._vector_width(W) == ps._vector_width(r) == want
+
+    out = ps.packed_matvec(idx, val, W)
+    tol = 2 * m * U * ps.packed_matvec_ref(idx, val.abs(), W.abs())
+    assert bool(((out - ps.packed_matvec_ref(idx, val, W)).abs() <= tol).all())
+
+    cols = ps.build_columns(idx, val, p)
+    assert cols.n_segs > 0
+    counts = (cols.col_ptr[1:] - cols.col_ptr[:-1]).float()
+    back = ps.packed_rmatvec(idx, val, r, p, columns=cols)
+    assert torch.equal(back, ps.packed_rmatvec(idx, val, r, p, columns=cols))
+    tol2 = 2 * counts[None, :, None] * U * ps.packed_rmatvec_ref(
+        idx, val.abs(), r.abs(), p)
+    assert bool(((back - ps.packed_rmatvec_ref(idx, val, r, p)).abs()
+                 <= tol2).all())
+
+    Wk = W.detach().clone().requires_grad_(True)
+    (ps.PackedMatvec.apply(Wk, idx, val, cols) * r).sum().backward()
+    Wr = W.detach().clone().requires_grad_(True)
+    (ps.packed_matvec_ref(idx, val, Wr) * r).sum().backward()
+    assert bool(((Wk.grad - Wr.grad).abs() <= tol2).all())
+
+
 def test_autograd_backward_is_k2(cuda):
     n, p, m, T, k = 120, 400, 9, 3, 4
     idx, val = _packed(5, n, p, m, cuda)
