@@ -37,13 +37,23 @@ result line:
    11314 x 4096 problem (``torch.matmul``, no hand kernel).
 5. K4 ``level_histogram`` against its plain version on the card: ragged
    small shapes (n not a multiple of any chunk, nl in {1, 3, 128}, B in
-   {4, 32, 256}, C in {3, 4}, sentinel keys) and every level of the
-   forest (T=256, n=200000, d=28, nl=1..128, B=32, C=3). Integer channels
-   must equal the plain version bitwise and repeat bitwise; fractional
-   channels are held to a summation-order tolerance. Times of the kernel
-   at every level of the forest, of its plain version and of the JAX
-   package's "matmul" engine (one-hot times node-weighted channels
-   through ``torch.matmul``, per tree), with the bound.
+   {4, 32, 256}, C in {3, 4}, sentinel keys, bins outside [0, B)) in every
+   bin layout K4 takes (uint8 rows padded to 16 bytes, unpadded uint8
+   rows, feature-major uint8, int32 rows, a sliced int32 view); each branch
+   of its design (lane-private copies with all lanes on one node at nl = 1
+   and 2, the sample axis cut into chunks, every feature with node blocks,
+   feature groups with every node, one feature with node blocks, 11
+   channels); and every level of the forest (T=256, n=200000, d=28,
+   nl=1..128, B=32, C=3). Integer, fractional and mixed channels:
+   channels of whole numbers must equal the plain version bitwise and
+   repeat bitwise (with and without ``integer_channels``' proof);
+   fractional channels are held to a summation-order tolerance. At every
+   level of the forest, times of the kernel (integer channels with their
+   proof, as trees call it, and fractional channels), the bound from this
+   run's inputs, and the ``index_add_`` yardstick (one PyTorch call
+   computing K4's function, never called by the port); at the deepest,
+   the plain version and the JAX package's "matmul" engine (one-hot times
+   node-weighted channels through ``torch.matmul``, per tree).
 6. The forest path at full size: ``DistRandomForestClassifier(
    n_estimators=256, max_depth=8, n_bins=32, max_features="sqrt")`` on
    a HIGGS-shaped 200000 x 28 binary problem, fitted twice on the card
@@ -347,49 +357,112 @@ FOREST = dict(n_estimators=256, max_depth=8, n_bins=32, max_features="sqrt",
 FOREST_N, FOREST_D = 200_000, 28
 
 
-def check_k4(torch, kh, Xb, key, Y, nl, B, label):
+def check_k4(torch, kh, Xs, Xb, key, Y, nl, B, label, proof=True):
     """Hold K4 to its plain version at one shape; returns the largest
-    error. Integer-valued channels sum exactly in float32: the kernel
-    must equal the plain version bitwise and repeat bitwise. Fractional
-    channels: an entry sums c terms (c = its sample count), and two
-    float32 sums of them in different orders differ by at most
-    2 * c * u * sum|terms|."""
-    integer = bool(torch.equal(Y, torch.round(Y)))
-    XbF = Xb.t().contiguous().t()  # the feature-major layout trees pass
-    out = kh.level_histogram(XbF, key, Y, nl, B)
-    again = kh.level_histogram(XbF, key, Y, nl, B)
+    error and the channels held bitwise. ``Xs`` is the bin layout K4 is
+    given, ``Xb`` the int32 bins of
+    the plain version; with ``proof`` K4 gets ``integer_channels(Y)``.
+    Channels of whole numbers (sums below 2**24) sum exactly in float32 and
+    in int32: there K4 must equal the plain version bitwise and repeat
+    bitwise, with or without the proof. Other channels: an entry sums c
+    terms (c = its sample count), and two float32 sums of them in
+    different orders differ by at most 2 * c * u * sum|terms|."""
+    whole = kh.integer_channels(Y)
+    mask = whole.mask if whole is not None else 0
+    given = whole if proof else None
+    out = kh.level_histogram(Xs, key, Y, nl, B, integer=given)
+    again = kh.level_histogram(Xs, key, Y, nl, B, integer=given)
     ref = kh.level_histogram_ref(Xb, key, Y, nl, B)
     err = float((out - ref).abs().max())
-    if integer:
-        if not (torch.equal(out, ref) and torch.equal(again, out)):
-            raise AssertionError(f"K4 is not bitwise equal and repeatable "
-                                 f"on integer channels at {label}: max err "
-                                 f"{err:.3e}")
-    else:
+    C = Y.shape[-1]
+    exact = [c for c in range(C) if mask >> c & 1]
+    rest = [c for c in range(C) if not mask >> c & 1]
+    if exact and not (torch.equal(out[..., exact], ref[..., exact])
+                      and torch.equal(again[..., exact], out[..., exact])):
+        raise AssertionError(f"K4 is not bitwise equal and repeatable on "
+                             f"integer channels {exact} at {label}: max err "
+                             f"{err:.3e}")
+    if rest:
         cnt = kh.level_histogram_ref(Xb, key, torch.ones_like(Y[..., :1]),
                                      nl, B)
-        tol = 2 * cnt * U32 * kh.level_histogram_ref(Xb, key, Y.abs(), nl, B)
+        tol = 2 * cnt * U32 * kh.level_histogram_ref(Xb, key, Y[..., rest].abs(),
+                                                     nl, B)
         for res in (out, again):
-            if not bool(((res - ref).abs() <= tol).all()):
-                raise AssertionError(f"K4 disagrees at {label}: max err "
-                                     f"{float((res - ref).abs().max()):.3e}")
-    say(f"  {label}: T={key.shape[0]} n={Xb.shape[0]} d={Xb.shape[1]} "
-        f"nl={nl} B={B} C={Y.shape[-1]} {'integer' if integer else 'fractional'}"
-        f" channels: max err {err:.3e} (max|out| {float(ref.abs().max()):.3e})"
-        + (", bitwise equal and repeatable" if integer else ""))
-    return err
+            if not bool(((res[..., rest] - ref[..., rest]).abs() <= tol).all()):
+                raise AssertionError(
+                    f"K4 disagrees at {label}: max err "
+                    f"{float((res - ref).abs().max()):.3e}")
+    return err, exact
 
 
-def k4_bound(T, n, d, nl, B, C):
-    """(least ms, what bounds it) of one K4 launch: key, channels, bins
-    and the output moved once; T * n * d * C adds at the fp32 peak."""
-    moved = T * n * 4 + T * n * C * 4 + n * d * 4 + T * d * nl * B * C * 4
-    return bound(moved, T * n * d * C)
+def k4_bound(key, Xs, C, nl, B, d):
+    """(least ms, what bounds it) of one K4 launch on these inputs: every
+    key, the channels of the samples at the level (K4 reads no other),
+    the bins as given and the output, each moved once; one add per
+    channel of every (sample at the level, feature) at the fp32 peak."""
+    T, n = key.shape
+    live = int(((key >= 0) & (key < nl)).sum())
+    moved = (T * n * 4 + live * C * 4 + n * d * Xs.element_size()
+             + T * d * nl * B * C * 4)
+    return bound(moved, live * d * C)
+
+
+def k4_layouts(torch, kh, Xb, B):
+    """The bin layouts K4 takes, each a branch of its design: uint8 rows
+    padded to 16 bytes (what trees pass: 16-byte loads), unpadded uint8
+    rows and feature-major uint8 (one scalar load a feature), int32 rows
+    and an int32 view sliced out of a wider array (strides)."""
+    out = {"int32 rows": Xb}
+    if B <= 255:
+        out["uint8 rows padded"] = kh.kernel_bins(Xb, B)
+        u8 = torch.where((Xb >= 0) & (Xb < B), Xb, 255).to(torch.uint8)
+        out["uint8 rows"] = u8
+        out["uint8 feature-major"] = u8.t().contiguous().t()
+    wide = torch.zeros((Xb.shape[0], Xb.shape[1] + 3), dtype=torch.int32,
+                       device=Xb.device)
+    wide[:, 2:2 + Xb.shape[1]] = Xb
+    out["int32 sliced"] = wide[:, 2:2 + Xb.shape[1]]
+    return out
+
+
+def k4_yardstick(torch, Xb, key, Y, nl, B, src):
+    """K4's function as one PyTorch call, ``index_add_``, into a
+    ``(T*d*(nl*B+1), C)`` buffer whose last slot of every (tree, feature)
+    absorbs samples off the level; the index over (tree, feature, sample)
+    is built here, outside the timed call, as torch.sparse.mm's operand is
+    for K1 and K2. ``src`` is the channels repeated for every feature.
+    Returns (call, its result as (T, d, nl, B, C)). The port never calls
+    it."""
+    T, n = key.shape
+    d, C, S = Xb.shape[1], Y.shape[-1], nl * B + 1
+    idx = torch.empty((T, d, n), dtype=torch.int32, device=Xb.device)
+    xt = Xb.t().long()
+    for t0 in range(0, T, 16):
+        k = key[t0:t0 + 16].long()
+        valid = ((k >= 0) & (k < nl))[:, None, :]
+        ok = valid & (xt >= 0)[None] & (xt < B)[None]
+        slot = torch.where(ok, k[:, None, :] * B + xt[None], S - 1)
+        tf = (torch.arange(t0, min(T, t0 + 16), device=Xb.device)[:, None] * d
+              + torch.arange(d, device=Xb.device)[None])
+        idx[t0:t0 + 16] = (slot + (tf * S)[..., None]).to(torch.int32)
+    idx = idx.reshape(-1)
+    buf = torch.zeros((T * d * S, C), dtype=torch.float32, device=Xb.device)
+
+    def call():
+        buf.zero_()
+        buf.index_add_(0, idx, src)
+
+    def result():
+        return buf.reshape(T, d, S, C)[:, :, :S - 1].reshape(T, d, nl, B, C)
+
+    return call, result
 
 
 def phase_k4(torch, X, y):
-    """Phase 5: K4 against its plain version, then its times at the
-    forest's shapes. Returns (max error, times, bound)."""
+    """Phase 5: K4 against its plain version at ragged shapes, at every
+    branch of its design and at every level of the forest, then its times
+    there beside the bound, the plain version and the index_add_ yardstick.
+    Returns (max error, times, bound at the deepest level)."""
     import torch.nn.functional as F
 
     from skdist_tpu_torch.models.tree import classification_channels
@@ -399,6 +472,14 @@ def phase_k4(torch, X, y):
 
     say("phase 5: K4 level_histogram against plain PyTorch on the card")
     errs = []
+
+    def channel_sets(g, T, n, C):
+        Yi = torch.randint(0, 3, (T, n, C), generator=g, device="cuda").float()
+        Yf = torch.rand((T, n, C), generator=g, device="cuda")
+        Ym = Yi.clone()
+        Ym[..., 0] = Yf[..., 0]  # channel 0 fractional, the rest integer
+        return {"integer": Yi, "fractional": Yf, "mixed": Ym}
+
     for i, (T, n, d, nl, B, C) in enumerate([
             (1, 37, 3, 3, 4, 3), (3, 1001, 5, 1, 32, 4),
             (2, 5003, 7, 128, 32, 3), (4, 3001, 3, 3, 256, 4),
@@ -406,43 +487,110 @@ def phase_k4(torch, X, y):
         g = torch.Generator(device="cuda").manual_seed(i)
         Xb = torch.randint(0, B, (n, d), generator=g, device="cuda",
                            dtype=torch.int32)
+        if B < 255:
+            Xb[::7, 0] = B + 3  # a bin outside [0, B) adds nothing
         # a third of the keys past nl: samples not at this level
         key = torch.randint(0, nl + max(1, nl // 2), (T, n), generator=g,
                             device="cuda", dtype=torch.int32)
-        Yi = torch.randint(0, 3, (T, n, C), generator=g, device="cuda").float()
-        Yf = torch.rand((T, n, C), generator=g, device="cuda")
-        for Y in (Yi, Yf):
-            errs.append(check_k4(torch, kh, Xb, key, Y, nl, B,
-                                 f"ragged case {i}"))
+        layouts = k4_layouts(torch, kh, Xb, B)
+        case = []
+        for name, Y in channel_sets(g, T, n, C).items():
+            for lay, Xs in layouts.items():
+                case.append(check_k4(torch, kh, Xs, Xb, key, Y, nl, B,
+                                     f"ragged case {i}, {name}, {lay}"))
+        errs += [e for e, _ in case]
+        say(f"  ragged case {i}: T={T} n={n} d={d} nl={nl} B={B} C={C}, "
+            f"{len(layouts)} bin layouts ({', '.join(layouts)}) x integer, "
+            f"fractional, mixed channels: max err "
+            f"{max(e for e, _ in case):.3e}; whole channels bitwise equal "
+            f"and repeatable")
 
-    # the forest's deepest level on the real data: binned X, bootstrap
-    # channels of 256 trees, every sample at one of 128 nodes
+    # each branch of the design: lane-private copies (float cells, all
+    # lanes on one node at nl = 1 and 2) with the sample axis cut into
+    # chunks flushed by global atomics; every feature with node blocks;
+    # feature groups with every node; one feature and node blocks; more
+    # than 4 channels (read per update)
+    for label, (T, n, d, nl, B, C, node) in {
+            "copies, one node of nl=1, chunked flush": (2, 70001, 28, 1, 32, 3, 0),
+            "copies, one node of nl=2, chunked flush": (2, 70001, 28, 2, 32, 3, 1),
+            "every feature, node blocks": (2, 20011, 3, 128, 256, 4, None),
+            "feature groups, every node": (2, 20011, 60, 2, 256, 4, None),
+            "one feature, node blocks": (2, 20011, 60, 128, 256, 4, None),
+            "11 channels": (3, 3001, 4, 5, 16, 11, None)}.items():
+        g = torch.Generator(device="cuda").manual_seed(n + d)
+        Xb = torch.randint(0, B, (n, d), generator=g, device="cuda",
+                           dtype=torch.int32)
+        if node is None:
+            key = torch.randint(0, nl + 1, (T, n), generator=g, device="cuda",
+                                dtype=torch.int32)
+        else:
+            key = torch.full((T, n), node, dtype=torch.int32, device="cuda")
+        layouts = k4_layouts(torch, kh, Xb, B)
+        Xs = layouts.get("uint8 rows padded", Xb)
+        case = [check_k4(torch, kh, Xs, Xb, key, Y, nl, B, f"{label}, {name}")
+                for name, Y in channel_sets(g, T, n, C).items()]
+        case.append(check_k4(torch, kh, Xs, Xb, key,
+                              channel_sets(g, T, n, C)["integer"], nl, B,
+                              f"{label}, integer, no proof", proof=False))
+        errs += [e for e, _ in case]
+        say(f"  {label}: T={T} n={n} d={d} nl={nl} B={B} C={C}, bins "
+            f"{Xs.dtype} strides {tuple(Xs.stride())}, integer (with and "
+            f"without the proof), fractional, mixed channels: max err "
+            f"{max(e for e, _ in case):.3e}; whole channels bitwise equal "
+            f"and repeatable")
+
+    # every level of the forest on the real data: binned X in the layout
+    # trees pass (uint8 rows padded to 16 bytes), bootstrap channels of 256
+    # trees, random keys with the zero-weight samples folded out as trees
+    # fold them; integer channels with their proof (the forest's path) and
+    # fractional ones (weights 1.3 / 0.7 by class: channel 0 and 1
+    # fractional, the count channel integer)
     T, (n, d), B, C, D = 256, X.shape, FOREST["n_bins"], 3, FOREST["max_depth"]
     edges = quantile_bin_edges(X, B)
     Xb = apply_bins(torch.as_tensor(X).cuda(), edges)
-    XbF = Xb.t().contiguous().t()
+    Xs = kh.kernel_bins(Xb, B)
     seeds = torch.arange(T, device="cuda")
     counts = draws.bootstrap_counts(seeds, n)
     y_t = torch.as_tensor(y).cuda()
     Yi = classification_channels(y_t, counts, 2)
     Yf = classification_channels(
         y_t, counts * torch.where(y_t == 1, 1.3, 0.7)[None], 2)
+    pi, pf = kh.integer_channels(Yi), kh.integer_channels(Yf)
+    live = counts > 0
+    src = Yi[:, None].expand(T, d, n, C).reshape(-1, C)  # the yardstick's
     g = torch.Generator(device="cuda").manual_seed(9)
-    nl = 2 ** (D - 1)
-    # every level's shape, each held to the plain version before it is
-    # timed: the shallow levels split the sample axis into chunks and
-    # flush with global atomics, the deep ones write their tile once
     times = {"per_level": {}}
     for level in range(D):
-        nl_l = 2 ** level
-        key = torch.randint(0, nl_l, (T, n), generator=g, device="cuda",
+        nl = 2 ** level
+        key = torch.randint(0, nl, (T, n), generator=g, device="cuda",
                             dtype=torch.int32)
-        for Y in (Yi, Yf):
-            errs.append(check_k4(torch, kh, Xb, key, Y, nl_l, B,
-                                 f"forest level {level}"))
-        times["per_level"][nl_l] = cuda_ms(
-            torch, lambda: kh.level_histogram(XbF, key, Yi, nl_l, B), 5)
-    times["K4"] = times["per_level"][nl]
+        key = torch.where(live, key, nl).to(torch.int32)
+        (ei, xi), (ef, xf) = (check_k4(torch, kh, Xs, Xb, key, Y, nl, B,
+                                       f"forest level {level}")
+                              for Y in (Yi, Yf))
+        errs += [ei, ef]
+        say(f"  forest level {level} (nl={nl}): integer channels {xi} bitwise "
+            f"equal and repeatable (err {ei:.3e}); fractional: channels "
+            f"{xf} bitwise, max err {ef:.3e}")
+        k4_int = cuda_ms(torch, lambda: kh.level_histogram(
+            Xs, key, Yi, nl, B, integer=pi), 5)
+        k4_frac = cuda_ms(torch, lambda: kh.level_histogram(
+            Xs, key, Yf, nl, B, integer=pf), 5)
+        lib_call, lib_result = k4_yardstick(torch, Xb, key, Yi, nl, B, src)
+        lib_ms = cuda_ms(torch, lib_call, 2)
+        if not torch.equal(lib_result(), kh.level_histogram_ref(
+                Xb, key, Yi, nl, B)):
+            raise AssertionError(f"the index_add_ yardstick disagrees with "
+                                 f"K4's plain version at nl={nl}")
+        del lib_call, lib_result
+        times["per_level"][nl] = {
+            "ms": k4_int, "frac_ms": k4_frac, "library_ms": lib_ms,
+            "bound_ms": k4_bound(key, Xs, C, nl, B, d)}
+    del src
+    torch.cuda.empty_cache()
+    deepest = times["per_level"][2 ** (D - 1)]
+    times["K4"], times["K4_library"] = deepest["ms"], deepest["library_ms"]
+    nl = 2 ** (D - 1)
     times["K4_plain"] = cuda_ms(
         torch, lambda: kh.level_histogram_ref(Xb, key, Yi, nl, B), 2)
 
@@ -454,7 +602,7 @@ def phase_k4(torch, X, y):
     Tm = max(1, min(T, int(0.5 * free) // per_tree))
 
     def matmul_engine():
-        level_oh = F.one_hot(key[:Tm].long(), nl).float()
+        level_oh = F.one_hot(key[:Tm].long(), nl + 1)[..., :nl].float()
         NW = (level_oh[..., None] * Yi[:Tm, :, None, :]).reshape(Tm, n, nl * C)
         return torch.matmul(XohT, NW)
 
@@ -468,16 +616,26 @@ def phase_k4(torch, X, y):
     times["matmul_engine_trees"] = Tm
     del XohT
     torch.cuda.empty_cache()
-    bnd = k4_bound(T, n, d, nl, B, C)
-    say("  K4 ms per level (T=256, n=200000, d=28, B=32, C=3): " + ", ".join(
-        f"nl={k} {v:.3f} (bound {k4_bound(T, n, d, k, B, C)[0]:.3f})"
-        for k, v in times["per_level"].items()))
+    say("  K4 ms per level (T=256, n=200000, d=28, B=32, C=3; uint8 rows, "
+        "zero weights folded out of the keys):")
+    for k, v in times["per_level"].items():
+        b_ms, b_by = v["bound_ms"]
+        say(f"    nl={k}: integer channels {v['ms']:.3f} ms, fractional "
+            f"{v['frac_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+            f"{v['ms'] / b_ms:.1f}x), index_add_ {v['library_ms']:.3f} ms "
+            f"({v['library_ms'] / v['ms']:.1f}x K4)")
+    total = sum(v["ms"] for v in times["per_level"].values())
+    total_frac = sum(v["frac_ms"] for v in times["per_level"].values())
+    say(f"  the 8 levels: integer channels {total:.3f} ms, fractional "
+        f"{total_frac:.3f} ms, bound "
+        f"{sum(v['bound_ms'][0] for v in times['per_level'].values()):.3f} ms"
+        f", index_add_ "
+        f"{sum(v['library_ms'] for v in times['per_level'].values()):.3f} ms")
     say(f"  deepest level: K4 {times['K4']:.3f} ms, plain "
         f"{times['K4_plain']:.3f} ms, matmul engine "
         f"{times['matmul_engine_per_tree']:.3f} ms per tree (timed at "
-        f"{Tm} trees; x256 = {256 * times['matmul_engine_per_tree']:.3f} ms)"
-        f", bound {bnd[0]:.3f} ms ({bnd[1]})")
-    return max(errs), times, bnd
+        f"{Tm} trees; x256 = {256 * times['matmul_engine_per_tree']:.3f} ms)")
+    return max(errs), times, deepest["bound_ms"]
 
 
 def profile_device_split(torch, fn, kernels, top=0, window=False):
@@ -1538,7 +1696,8 @@ def main():
          "replaces": "skdist_tpu/ops/pallas_hist.py:124",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_times["K4"], "plain_ms": k4_times["K4_plain"],
-         "bound_ms": k4_bound_ms, "bound_by": k4_by, "library_ms": None},
+         "bound_ms": k4_bound_ms, "bound_by": k4_by,
+         "library_ms": k4_times["K4_library"]},
     ]
     for kk in kernels:
         for key, v in kk.items():

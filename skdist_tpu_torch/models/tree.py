@@ -40,7 +40,8 @@ import torch.nn.functional as F
 
 from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
 from ..ops.binning import apply_bins, quantile_bin_edges
-from ..ops.hist import level_histogram, level_histogram_ref
+from ..ops.hist import (integer_channels, kernel_bins, level_histogram,
+                        level_histogram_ref)
 from ..utils import draws
 from ..utils.device import exact_matmuls, resolve_device
 from .linear import as_dense_f32, encode_labels, prepare_sample_weight
@@ -254,8 +255,12 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
             # every level's contraction
             XohT = F.one_hot(Xb.long(), B).to(Ych.dtype).reshape(n, d * B).T
         elif mode == "pallas":
-            # feature-major bins: K4's warps read one feature contiguously
-            Xb_k4 = Xb.T.contiguous().T
+            # once a round: K4's bin layout, the proof of which channels
+            # are integral (K4 sums those exactly in int32), and which
+            # samples weigh anything (K4 skips the others by their key)
+            Xb_k4 = kernel_bins(Xb, B)
+            int_ch = integer_channels(Ych)
+            live = torch.any(Ych != 0, dim=-1)
         row_off = torch.arange(n, device=dev) * d
         Xb_flat = Xb.reshape(-1)
 
@@ -292,12 +297,13 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
                     T, n, nl * C)
                 hist = torch.matmul(XohT, NW).reshape(
                     T, d, B, nl, C).permute(0, 1, 3, 2, 4)
+            elif mode == "pallas":
+                node_key = torch.where(at_level & live, rel, nl).to(torch.int32)
+                hist = level_histogram(Xb_k4, node_key, Ych, nl, B,
+                                       integer=int_ch)
             else:
                 node_key = torch.where(at_level, rel, nl).to(torch.int32)
-                if mode == "pallas":
-                    hist = level_histogram(Xb_k4, node_key, Ych, nl, B)
-                else:
-                    hist = level_histogram_ref(Xb, node_key, Ych, nl, B)
+                hist = level_histogram_ref(Xb, node_key, Ych, nl, B)
             cum = torch.cumsum(hist, dim=3)
             gain, cnt_l, cnt_r, tot = node_scores(cum, lam)
 

@@ -253,6 +253,120 @@ def test_level_histogram_matches_plain_version(cuda, T, n, d, nl, B, C):
     assert one.shape == (d, nl, B, C)
 
 
+def _hist_layouts(Xb, B):
+    """The bin layouts K4 takes: uint8 rows padded to 16 bytes (what trees
+    pass: 16-byte loads), unpadded uint8 rows, feature-major uint8, int32
+    rows and an int32 view sliced out of a wider array."""
+    out = {"int32 rows": Xb}
+    if B <= 255:
+        out["uint8 rows padded"] = kh.kernel_bins(Xb, B)
+        u8 = torch.where((Xb >= 0) & (Xb < B), Xb, 255).to(torch.uint8)
+        out["uint8 rows"] = u8
+        out["uint8 feature-major"] = u8.t().contiguous().t()
+    wide = torch.zeros((Xb.shape[0], Xb.shape[1] + 3), dtype=torch.int32,
+                       device=Xb.device)
+    wide[:, 2:2 + Xb.shape[1]] = Xb
+    out["int32 sliced"] = wide[:, 2:2 + Xb.shape[1]]
+    return out
+
+
+def _hold_hist(Xs, Xb, key, Y, nl, B, proof):
+    """K4 with ``proof`` against the plain version: channels of whole
+    numbers bitwise equal and repeatable, the rest within 2 * c * u *
+    sum|terms|."""
+    out = kh.level_histogram(Xs, key, Y, nl, B, integer=proof)
+    again = kh.level_histogram(Xs, key, Y, nl, B, integer=proof)
+    ref = kh.level_histogram_ref(Xb, key, Y, nl, B)
+    whole = kh.integer_channels(Y)
+    mask = whole.mask if whole is not None else 0
+    for c in range(Y.shape[-1]):
+        if mask >> c & 1:
+            assert torch.equal(out[..., c], ref[..., c])
+            assert torch.equal(again[..., c], ref[..., c])
+        else:
+            cnt = kh.level_histogram_ref(Xb, key, torch.ones_like(Y[..., :1]),
+                                         nl, B)[..., 0]
+            tol = 2 * cnt * U * kh.level_histogram_ref(
+                Xb, key, Y[..., c:c + 1].abs(), nl, B)[..., 0]
+            assert bool(((out[..., c] - ref[..., c]).abs() <= tol).all())
+            assert bool(((again[..., c] - ref[..., c]).abs() <= tol).all())
+
+
+HIST_BRANCHES = {  # label: (T, n, d, nl, B, C, node every key is on)
+    "copies, one node of nl=1, chunked flush": (2, 70001, 28, 1, 32, 3, 0),
+    "copies, one node of nl=2, chunked flush": (2, 70001, 28, 2, 32, 3, 1),
+    "every feature, node blocks": (2, 20011, 3, 128, 256, 4, None),
+    "feature groups, every node": (2, 20011, 60, 2, 256, 4, None),
+    "one feature, node blocks (B=256, C=4, nl=128)": (2, 20011, 60, 128, 256,
+                                                      4, None),
+    "11 channels": (3, 3001, 4, 5, 16, 11, None),
+    "ragged, bins outside [0, B)": (3, 5003, 7, 128, 32, 3, None),
+}
+
+
+@pytest.mark.parametrize("channels", ["integer", "fractional", "mixed"])
+@pytest.mark.parametrize("branch", list(HIST_BRANCHES))
+def test_level_histogram_branches(cuda, branch, channels):
+    """Each branch of K4's design, in every bin layout it takes: integer
+    channels through int32 cells (with the proof), fractional through
+    float cells, mixed (channel 0 fractional) through both in one tile."""
+    T, n, d, nl, B, C, node = HIST_BRANCHES[branch]
+    g = torch.Generator(device=cuda).manual_seed(n + d + C)
+    Xb = torch.randint(0, B, (n, d), generator=g, device=cuda,
+                       dtype=torch.int32)
+    if branch.startswith("ragged"):
+        Xb[::7, 0] = B + 3
+        Xb[::5, 1] = -1
+    if node is None:
+        key = torch.randint(0, nl + max(1, nl // 2), (T, n), generator=g,
+                            device=cuda, dtype=torch.int32)
+    else:
+        key = torch.full((T, n), node, dtype=torch.int32, device=cuda)
+    Yi = torch.randint(0, 3, (T, n, C), generator=g, device=cuda).float()
+    Yf = torch.rand((T, n, C), generator=g, device=cuda)
+    Y = {"integer": Yi, "fractional": Yf}.get(channels)
+    if Y is None:
+        Y = Yi.clone()
+        Y[..., 0] = Yf[..., 0]
+    proof = kh.integer_channels(Y)
+    assert (proof is None) == (channels == "fractional")
+    before = kh.level_histogram.launches
+    layouts = _hist_layouts(Xb, B)
+    for Xs in layouts.values():
+        _hold_hist(Xs, Xb, key, Y, nl, B, proof)
+    assert kh.level_histogram.launches == before + 2 * len(layouts)
+
+
+def test_level_histogram_integer_path_refuses_fractional_channels(cuda):
+    """A fractional Ych never takes the integer path: it gets no proof
+    (or a proof for its whole channels only), and a proof made for other
+    channels, or for these before an in-place change, is refused before
+    any launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    T, n, d, nl, B, C = 2, 3001, 5, 4, 32, 3
+    Xb = torch.randint(0, B, (n, d), generator=g, device=cuda,
+                       dtype=torch.int32)
+    key = torch.randint(0, nl, (T, n), generator=g, device=cuda,
+                        dtype=torch.int32)
+    Yi = torch.randint(0, 3, (T, n, C), generator=g, device=cuda).float()
+    Yf = Yi * 0.75 + 0.125
+    assert kh.integer_channels(Yf) is None
+    proof = kh.integer_channels(Yi)
+    before = kh.level_histogram.launches
+    with pytest.raises(ValueError, match="another channels tensor"):
+        kh.level_histogram(Xb, key, Yf, nl, B, integer=proof)
+    Yi[0, 0, 0] += 0.5
+    with pytest.raises(ValueError, match="changed in place"):
+        kh.level_histogram(Xb, key, Yi, nl, B, integer=proof)
+    with pytest.raises(TypeError, match="IntegerChannels"):
+        kh.level_histogram(Xb, key, Yf, nl, B, integer=True)
+    assert kh.level_histogram.launches == before
+    Ym = Yi.clone()  # channel 0 now holds a fraction: only 1 and 2 proven
+    assert kh.integer_channels(Ym).mask == 0b110
+    _hold_hist(kh.kernel_bins(Xb, B), Xb, key, Ym, nl, B,
+               kh.integer_channels(Ym))
+
+
 def test_small_forest_on_card_equals_cpu(cuda):
     """Same seeds on the card and on the CPU: the shared counter-hash
     draws and the exact integer histograms grow the same forest."""

@@ -183,3 +183,56 @@ def test_hist_modes_resolve_and_native_raises():
     X, y, _sw, _e, _Xb = _problem("clf")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.DecisionTreeClassifier(hist_mode="native", device="cpu").fit(X, y)
+
+
+@pytest.mark.parametrize("kind", ["clf", "reg"])
+def test_pallas_engine_hands_k4_its_layout_proof_and_live_keys(kind,
+                                                               monkeypatch):
+    """Under ``hist_mode="pallas"`` the tree kernel gives K4, once a round,
+    uint8 rows padded to 16 bytes and the proof of which channels are
+    integral (classification: all of them, bootstrap counts times unit
+    weights; regression: w and the count, not w*y or w*y**2), and marks a
+    sample whose channels are all 0 as off the level; the tree is the
+    scatter engine's."""
+    calls = []
+
+    def spy(Xb, node_key, Ych, nl, n_bins, integer=None):
+        calls.append((Xb, node_key, Ych, nl, integer))
+        return tt.level_histogram_ref(Xb, node_key, Ych, nl, n_bins)
+
+    monkeypatch.setattr(tt, "level_histogram", spy)
+    X, y, sw, edges, Xb = _problem(kind, seed=3)
+    Ych = torch.as_tensor(_channels(kind, y, sw))[None]
+    cfg = _cfg(kind, X.shape[1])
+    ours = tt.build_tree_kernel(hist_mode="pallas", **cfg)(
+        torch.as_tensor(Xb), Ych, torch.tensor([0]))
+    plain = tt.build_tree_kernel(hist_mode="scatter", **cfg)(
+        torch.as_tensor(Xb), Ych, torch.tensor([0]))
+    for k in ours:
+        torch.testing.assert_close(ours[k], plain[k], rtol=0, atol=0)
+    assert len(calls) == cfg["max_depth"]
+    dead = (Ych == 0).all(dim=-1)
+    assert bool(dead.any())  # zero bootstrap counts
+    for Xk, key, Yk, nl, proof in calls:
+        assert Xk.dtype == torch.uint8 and Xk.stride() == (16, 1)
+        assert torch.equal(Xk.long(), torch.as_tensor(Xb).long())
+        assert Yk is Ych and proof is not None and proof.matches(Ych)
+        assert proof.mask == (0b1111 if kind == "clf" else 0b1001)
+        assert bool((key[dead] == nl).all())
+    assert calls[0][4] is calls[-1][4]  # one proof a round
+
+
+def test_pallas_engine_gives_no_proof_for_fractional_channels(monkeypatch):
+    seen = []
+
+    def spy(Xb, node_key, Ych, nl, n_bins, integer=None):
+        seen.append(integer)
+        return tt.level_histogram_ref(Xb, node_key, Ych, nl, n_bins)
+
+    monkeypatch.setattr(tt, "level_histogram", spy)
+    X, y, sw, edges, Xb = _problem("clf", seed=4)
+    Ych = torch.as_tensor(_channels("clf", y, sw * 0.75))[None]
+    Ych[..., -1] += 0.5  # no channel is whole: no proof at all
+    tt.build_tree_kernel(hist_mode="pallas", **_cfg("clf", X.shape[1]))(
+        torch.as_tensor(Xb), Ych, torch.tensor([0]))
+    assert seen and all(p is None for p in seen)
