@@ -25,16 +25,31 @@ result line:
 3. The sparse main path at full size: ``DistGridSearchCV(
    LogisticRegression(max_iter=100), {"C": logspace(-3, 2, 96)}, cv=5,
    scoring="f1_weighted")`` on a 20news-shaped hashed-text CSR (n=11314,
-   d=2**18, 20 classes), 480 fits on the card. The kernels' launch
-   counters are zeroed just before it and read just after; both must be
-   > 0. The pickled ``best_estimator_`` must predict as the live one,
-   and one refit on the card is held to the same refit on the CPU (to
-   10x the gap one ulp of input noise opens on the card). Then one
-   round of the grid (19 C x 5 folds, ``max_iter`` cut to 20) timed
-   alone and then under ``torch.profiler``: device time in K1, K2 and
-   the rest, and the device's idle share of the round's wall.
+   d=2**18, 20 classes), 480 fits on the card, on the search's default
+   convergence-compacted path (the refill regime: the lanes do not all
+   fit on the card at once). The kernels' launch counters are zeroed
+   just before it and read just after; both must be > 0. Printed: the
+   wall, the scheduler's regime, chunk, slices and refills, the lanes'
+   ``n_iter`` (min, median, p90, max), how many stopped at ``max_iter``
+   or stalled, and the lane-iterations carried against those used. The
+   pickled ``best_estimator_`` must predict as the live one, and one
+   refit on the card is held to the same refit on the CPU (to 10x the
+   gap one ulp of input noise opens on the card). Then one round of the
+   grid (19 C x 5 folds, ``max_iter`` cut to 20, one chunk) timed alone
+   and then under ``torch.profiler``: device time in K1, K2 and the
+   rest, and the device's idle share of the round's wall.
+3b. Classic against compacted at full width: the sparse grid cut to 24
+   C (spanning it) x 5 folds, both ways at equal chunk in one process;
+   ``cv_results_`` and the refit ``coef_`` must be bitwise equal.
 4. The dense headline on the card: the same grid on the dense
-   11314 x 4096 problem (``torch.matmul``, no hand kernel).
+   11314 x 4096 problem (``torch.matmul``, no hand kernel), compacted
+   (every round resident), then on the classic path
+   (``SKDIST_COMPACTION=0``) at the compacted run's chunk: the two
+   ``cv_results_`` must be bitwise equal.
+4b. ASHA on the dense headline: ``adaptive=HalvingSpec(eta=inf)`` must
+   give phase 4's ``cv_results_`` bitwise; then ``eta=3``: its wall, its
+   kills at each rung, ``best_params_``/``best_score_`` beside the
+   exhaustive grid's, lanes retired by rung against by convergence.
 5. K4 ``level_histogram`` against its plain version on the card: ragged
    small shapes (n not a multiple of any chunk, nl in {1, 3, 128}, B in
    {4, 32, 256}, C in {3, 4}, sentinel keys, bins outside [0, B)) in every
@@ -101,7 +116,9 @@ result line:
     the result line ``{"ok": true, "device": {...}}``.
 
 ``--candidates N`` cuts the C and alpha grids to their first N points
-(never the data width); the cut is printed.
+(never the data width); the cut is printed. The compacted path's
+out-of-memory downgrade is an error in every phase: the up-front sizing
+must hold on the card.
 
 Imports torch, numpy, scipy and ``skdist_tpu_torch`` only; exits
 nonzero when there is no CUDA device or no ``skdist_tpu_torch`` beside
@@ -116,6 +133,7 @@ import pickle
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -692,6 +710,137 @@ def profile_device_split(torch, fn, kernels, top=0, window=False):
 #: L-BFGS iterations of the profiled LogReg round (the grid runs 100)
 ROUND_ITERS = 20
 
+#: the warning of the compacted path's out-of-memory downgrade; it is an
+#: error here, since the up-front sizing must hold on the card
+OOM_DOWNGRADE = "compacted iterative dispatch exhausted device memory"
+
+
+def lane_readout(st):
+    """A compacted run's scheduler and lane counts, on one line."""
+    n_iter = np.asarray(st["lane_n_iter"])
+    med, p90 = np.percentile(n_iter, [50, 90])
+    carried, used = st["lane_iters_carried"], st["lane_iters_used"]
+    return (
+        f"{st['mode']}, regime {st['regime']}, chunk {st['chunk']}, pool "
+        f"{st['pool_rounds']} round(s), slices {st['slices']}, refills "
+        f"{st['refills']} ({st['refilled_lanes']} lanes), compactions "
+        f"{st['compactions']}; lane n_iter min {n_iter.min()} median "
+        f"{med:.0f} p90 {p90:.0f} max {n_iter.max()}; at max_iter "
+        f"{st['lanes_max_iter']}, stalled {st['lanes_stalled']}, converged "
+        f"{st['lanes_converged']}, rung-killed {st['retired_rung']}; "
+        f"lane-iterations carried {carried} vs used {used} "
+        f"({carried / max(used, 1):.2f}x)")
+
+
+def differing_columns(a, b):
+    """The ``cv_results_`` columns (all but times and params) in which
+    two searches differ in any bit."""
+    return [c for c in a.cv_results_ if c != "params" and "_time" not in c
+            and not np.array_equal(np.asarray(a.cv_results_[c]),
+                                   np.asarray(b.cv_results_[c]))]
+
+
+def fit_grid(torch, X, y, Cs, backend, compaction=True, **kw):
+    """A timed ``DistGridSearchCV(LogisticRegression(max_iter=100))`` of
+    the main path's form, with the compacted path on or off; returns the
+    search and its wall."""
+    from skdist_tpu_torch import DistGridSearchCV, LogisticRegression
+
+    os.environ["SKDIST_COMPACTION"] = "1" if compaction else "0"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = DistGridSearchCV(
+            LogisticRegression(max_iter=100), {"C": Cs}, cv=5,
+            scoring="f1_weighted", backend=backend, **kw,
+        ).fit(X, y)
+        torch.cuda.synchronize()
+        return gs, time.perf_counter() - t0
+    finally:
+        del os.environ["SKDIST_COMPACTION"]
+
+
+def phase_sparse_ab(torch, X, y, Cs, backend):
+    """Phase 3b: the sparse grid cut to 24 C (spanning it) x 5 folds,
+    classic against compacted at equal chunk (two rounds' worth), in one
+    process: ``cv_results_`` and the refit ``coef_`` must be bitwise
+    equal, the card's proof that a lane's bits do not depend on its slot
+    at the main path's shapes (the refill regime restarts lanes in any
+    freed slot)."""
+    Cs_ab = Cs[::max(1, len(Cs) // 24)][:24]
+    n_fits = 5 * len(Cs_ab)
+    say(f"phase 3b: sparse grid, {len(Cs_ab)} C x 5 folds = {n_fits} fits, "
+        "compacted against classic at equal chunk")
+    comp, wall_c = fit_grid(torch, X, y, Cs_ab, backend, partitions=2)
+    st = comp.round_stats_[0]
+    say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
+    classic, wall_k = fit_grid(torch, X, y, Cs_ab, backend,
+                               compaction=False, partitions=2)
+    sk = classic.round_stats_[0]
+    say(f"  classic wall {wall_k:.1f}s: {sk['rounds']} rounds x "
+        f"{sk['tasks_per_round']} tasks")
+    if sk["tasks_per_round"] != st["chunk"]:
+        raise AssertionError(
+            f"unequal chunks: classic {sk['tasks_per_round']}, compacted "
+            f"{st['chunk']}")
+    diff = differing_columns(comp, classic)
+    if diff or not np.array_equal(comp.best_estimator_.coef_,
+                                  classic.best_estimator_.coef_):
+        raise AssertionError(
+            f"compacted and classic differ: columns {diff}, refit coef_ "
+            f"max|d| {np.abs(comp.best_estimator_.coef_ - classic.best_estimator_.coef_).max():.3e}")
+    say("  cv_results_ and the refit coef_ bitwise equal")
+
+
+def phase_asha(torch, Xd, yd, Cs, backend, exhaustive):
+    """Phase 4b: ASHA on the dense headline. ``eta=inf`` must give
+    phase 4's compacted ``cv_results_`` bitwise; then ``eta=3``: its
+    wall, its kills at each rung, its winner beside the exhaustive
+    grid's, and the lanes retired by rung against by convergence."""
+    from skdist_tpu_torch.distribute.adaptive import (
+        HalvingSpec,
+        RungKilledWarning,
+    )
+
+    say("phase 4b: adaptive (ASHA) search on the dense headline")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ginf, wall_inf = fit_grid(torch, Xd, yd, Cs, backend,
+                                  adaptive=HalvingSpec(eta=float("inf")))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RungKilledWarning)
+            g3, wall3 = fit_grid(torch, Xd, yd, Cs, backend,
+                                 adaptive=HalvingSpec(eta=3))
+    for w in caught:
+        if "could not engage" in str(w.message) or \
+                OOM_DOWNGRADE in str(w.message):
+            raise AssertionError(f"phase 4b: {w.message}")
+    si = ginf.round_stats_[0]
+    diff = differing_columns(exhaustive, ginf)
+    say(f"  eta=inf wall {wall_inf:.1f}s, {len(si['rung_history'])} rungs "
+        f"scored, regime {si['regime']}; cv_results_ against phase 4: "
+        + ("bitwise equal" if not diff else f"differ in {diff}"))
+    if diff:
+        raise AssertionError("eta=inf differs from adaptive=None")
+    s3 = g3.round_stats_[0]
+    rungs = np.asarray(g3.cv_results_["rung_"])
+    say(f"  eta=3 wall {wall3:.1f}s (eta=inf {wall_inf:.1f}s); kills: "
+        + ", ".join(
+            f"rung {h['rung']} slice {h['slice']}: {h['n_killed']} of "
+            f"{h['n_live']} lanes" for h in s3["rung_history"]
+            if h["n_killed"] or h["rung"] < 3))
+    say(f"  candidates killed {int((rungs >= 0).sum())} of {len(rungs)}; "
+        f"lanes retired by rung {s3['retired_rung']}, by convergence "
+        f"{s3['retired_convergence']}; " + lane_readout(s3))
+    rank = exhaustive.cv_results_["rank_test_score"][g3.best_index_]
+    say(f"  best_params_ {g3.best_params_} best_score_ {g3.best_score_:.6f}"
+        f" (rank {rank} of the exhaustive grid); exhaustive "
+        f"{exhaustive.best_params_} {exhaustive.best_score_:.6f}")
+    if s3["retired_rung"] <= 0:
+        raise AssertionError("eta=3 killed no lane")
+    if not np.isfinite(g3.best_score_):
+        raise AssertionError("eta=3 has no finite best_score_")
+
 
 def profile_logreg_round(torch, X, y, Cs, tasks_per_round, backend):
     """Phase 3's split of one round of the sparse grid: as many C values
@@ -708,9 +857,11 @@ def profile_logreg_round(torch, X, y, Cs, tasks_per_round, backend):
     lanes = max(1, tasks_per_round // 5)
 
     def one_round():
+        # partitions=1: the compacted path with one chunk of every task
         gs = DistGridSearchCV(
             LogisticRegression(max_iter=ROUND_ITERS), {"C": Cs[:lanes]},
             cv=5, refit=False, scoring="f1_weighted", backend=backend,
+            partitions=1,
         ).fit(X, y)
         torch.cuda.synchronize()
         return gs
@@ -733,7 +884,8 @@ def profile_logreg_round(torch, X, y, Cs, tasks_per_round, backend):
     busy, span = split["window"]
     rest = total - split["K1"] - split["K2"]
     say(f"  one round of {st['tasks_per_round']} tasks ({lanes} C x 5 folds, "
-        f"max_iter={ROUND_ITERS}, {st['rounds']} round): wall {wall:.3f} s "
+        f"max_iter={ROUND_ITERS}, {st['mode']}, {st['regime']}, "
+        f"{st['slices']} slices): wall {wall:.3f} s "
         f"alone, {t_prof:.3f} s under the profiler; device {total:.1f} ms = "
         f"K1 {split['K1']:.1f} ms ({100 * split['K1'] / total:.1f}%, "
         f"{ps.packed_matvec.launches} launches), K2 {split['K2']:.1f} ms "
@@ -1453,6 +1605,7 @@ def main():
     from skdist_tpu_torch.ops import packed_sparse as ps
 
     t_all = time.perf_counter()
+    warnings.filterwarnings("error", message=OOM_DOWNGRADE)
     # ---- phase 1: device and build -------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1558,9 +1711,8 @@ def main():
     launches = {"packed_matvec": ps.packed_matvec.launches,
                 "packed_rmatvec": ps.packed_rmatvec.launches}
     stats = gs.round_stats_[0]
-    say(f"  wall {wall:.1f}s, {n_fits / wall:.2f} fits/s, rounds "
-        f"{stats['rounds']} x {stats['tasks_per_round']} tasks, round walls "
-        + ", ".join(f"{w:.1f}" for w in stats["round_walls_s"]) + " s")
+    say(f"  wall {wall:.1f}s, {n_fits / wall:.2f} fits/s")
+    say("  " + lane_readout(stats))
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         f" GiB; estimate per task "
         f"{LogisticRegression._batched_task_bytes(meta, static, n) / 2**20:.0f}"
@@ -1610,24 +1762,33 @@ def main():
             "card and CPU refits differ by more than 10x what one ulp of "
             "input noise does")
     profile_logreg_round(torch, X, y, Cs, stats["tasks_per_round"], backend)
+    phase_sparse_ab(torch, X, y, Cs, backend)
 
     # ---- phase 4: the dense headline -----------------------------------
     Xd, yd = make_20news_shaped()
     say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {n_fits} fits")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gd = DistGridSearchCV(
-        LogisticRegression(max_iter=100), {"C": Cs}, cv=5,
-        scoring="f1_weighted", backend=backend,
-    ).fit(Xd, yd)
-    torch.cuda.synchronize()
-    wall_d = time.perf_counter() - t0
+    gd, wall_d = fit_grid(torch, Xd, yd, Cs, backend)
     sd = gd.round_stats_[0]
     if not np.all(np.isfinite(gd.cv_results_["mean_test_score"])):
         raise AssertionError("non-finite dense mean_test_score")
-    say(f"  wall {wall_d:.1f}s, {n_fits / wall_d:.2f} fits/s, rounds "
-        f"{sd['rounds']} x {sd['tasks_per_round']}, best_params_ "
+    say(f"  wall {wall_d:.1f}s, {n_fits / wall_d:.2f} fits/s, best_params_ "
         f"{gd.best_params_}, best_score_ {gd.best_score_:.6f}")
+    say("  " + lane_readout(sd))
+    # the classic path at the compacted run's chunk (by default it would
+    # run all 480 lanes as one round, another shape)
+    parts = -(-n_fits // sd["chunk"])
+    gk, wall_k = fit_grid(torch, Xd, yd, Cs, backend, compaction=False,
+                          partitions=parts)
+    sk = gk.round_stats_[0]
+    diff = differing_columns(gd, gk)
+    say(f"  classic (SKDIST_COMPACTION=0, partitions={parts}): wall "
+        f"{wall_k:.1f}s, {sk['rounds']} rounds x {sk['tasks_per_round']}; "
+        "cv_results_ against compacted: "
+        + ("bitwise equal" if not diff else f"differ in {diff}"))
+    if diff or sk["tasks_per_round"] != sd["chunk"]:
+        raise AssertionError("dense compacted and classic differ")
+    del gk
+    phase_asha(torch, Xd, yd, Cs, backend, gd)
 
     # ---- phases 5-8: K4 and the forest path ----------------------------
     del gs, gd

@@ -17,8 +17,11 @@ packed-CSR sparse X, with the packed matvec/rmatvec kernels; the
 histogram trees, forests and their ``Dist*`` wrappers, with the
 level-histogram kernel; the ridge family (``Ridge``,
 ``LinearRegression``, ``RidgeClassifier``) over dense or packed X, with
-the packed weighted-gram kernel. ROADMAP.md lists what is still to
-port.
+the packed weighted-gram kernel. The grid search's
+convergence-compacted path (iteration-sliced L-BFGS; on by default,
+``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
+halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
+to port.
 """
 
 __version__ = "0.1.0"
@@ -29,6 +32,8 @@ _EXPORTS = {
         "LogisticRegression", "Ridge", "LinearRegression",
         "RidgeClassifier")},
     "CUDABackend": "skdist_tpu_torch.parallel",
+    **{name: "skdist_tpu_torch.distribute.adaptive" for name in (
+        "HalvingSpec", "RungKilledWarning")},
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",
         "DistExtraTreesClassifier", "DistExtraTreesRegressor",

@@ -9,6 +9,7 @@ from .ensemble import (
     get_oof,
     get_single_oof,
 )
+from .adaptive import HalvingSpec, RungKilledWarning
 from .search import DistGridSearchCV
 
 __all__ = [
@@ -18,6 +19,8 @@ __all__ = [
     "DistRandomForestClassifier",
     "DistRandomForestRegressor",
     "DistRandomTreesEmbedding",
+    "HalvingSpec",
+    "RungKilledWarning",
     "get_oof",
     "get_single_oof",
 ]

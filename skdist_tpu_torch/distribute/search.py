@@ -10,6 +10,16 @@ the card.
 CV folds are 0/1 weight masks, and the scores of every task are computed
 on the device in the same round as its fit.
 
+A bucket of at least ``MIN_ITER_TASKS`` tasks of a family with
+iteration-sliced fits (``LogisticRegression``) takes the
+convergence-compacted path (``CUDABackend.batched_map_iterative``), as
+in the JAX package: its tasks are ordered by expected cost, solved in
+slices, and finished lanes leave their slots; ``SKDIST_COMPACTION=0``
+switches back to the classic path, and the results are the same bit for
+bit. ``adaptive=HalvingSpec(...)`` adds asynchronous successive halving
+on that path, where every round fits on the card at once; elsewhere the
+search runs exhaustively and warns.
+
 ``cv_results_`` has sklearn's schema: ``split{i}_test_*``,
 ``mean/std/rank_test_*`` (rank by the min method, failed fits last),
 masked ``param_*`` arrays and fit/score times. The best candidate is
@@ -19,8 +29,9 @@ pickles clean.
 Not ported yet (ROADMAP): the generic per-task host path (estimators
 without a batched fit, host scorers, fit params other than
 ``sample_weight``), ``DistRandomizedSearchCV``/``DistMultiModelSearch``,
-checkpointing, out-of-fold ``preds``, adaptive (ASHA) search and
-streamed input.
+checkpointing (and so the journaling of rung kills), out-of-fold
+``preds``, streamed input and its streamed rungs, and fault retries of
+the compacted path.
 """
 
 import time
@@ -37,9 +48,15 @@ from ..metrics import (
     DeviceScorer,
     default_device_scorer,
     device_scorer_compatible,
+    resolve_rung_scorer,
     scorer_task_compatible,
 )
-from ..parallel import CUDABackend, parse_partitions
+from ..parallel import (
+    CUDABackend,
+    RungController,
+    iterative_fit_supported,
+    parse_partitions,
+)
 from ..utils.cv import ParameterGrid, check_cv
 from ..utils.validation import (
     check_error_score,
@@ -47,8 +64,15 @@ from ..utils.validation import (
     full_length_sample_weight,
     num_samples,
 )
+from .adaptive import (
+    RungKilledWarning,
+    check_adaptive,
+    rung_per_candidate,
+    warn_not_engaged,
+)
 
-__all__ = ["DistBaseSearchCV", "DistGridSearchCV", "FitFailedWarning"]
+__all__ = ["DistBaseSearchCV", "DistGridSearchCV", "FitFailedWarning",
+           "RungKilledWarning"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
 
@@ -74,14 +98,16 @@ def _nan_as_worst(scores):
     return np.where(nan_mask, worst, scores)
 
 
-def _quarantine_nonfinite(out_rows, error_score):
+def _quarantine_nonfinite(out_rows, error_score, exempt=()):
     """A non-finite score can only mean a numerically diverged fit lane;
     map it to sklearn ``error_score`` semantics: 'raise' raises, a
-    number substitutes with a :class:`FitFailedWarning`."""
+    number substitutes with a :class:`FitFailedWarning`. Rows in
+    ``exempt`` (rung kills, already mapped) are skipped."""
     bad = [
         i for i, row in enumerate(out_rows)
-        if any(k.startswith(("test_", "train_")) and not np.isfinite(v)
-               for k, v in row.items())
+        if i not in exempt
+        and any(k.startswith(("test_", "train_")) and not np.isfinite(v)
+                for k, v in row.items())
     ]
     if not bad:
         return
@@ -100,6 +126,45 @@ def _quarantine_nonfinite(out_rows, error_score):
         for k in out_rows[i]:
             if k.startswith(("test_", "train_")):
                 out_rows[i][k] = float(error_score)
+
+
+def _apply_rung_retirement(out_rows, killed, error_score):
+    """Map rung-killed lanes (``{task id: rung}``) to sklearn rows: a
+    numeric ``error_score`` substitutes for every test/train score, with
+    one :class:`RungKilledWarning`. ``error_score='raise'`` maps to NaN:
+    a kill is a scheduling decision, not a failed fit."""
+    if not killed:
+        return
+    es = float("nan") if error_score == "raise" else float(error_score)
+    warnings.warn(
+        f"{len(killed)} of {len(out_rows)} batched search fits were "
+        f"retired early by adaptive successive halving; their scores "
+        f"are recorded as error_score={es!r} and the rung_ column "
+        "records where each candidate died.",
+        RungKilledWarning,
+    )
+    for gid in killed:
+        row = out_rows[gid]
+        for k in row:
+            if k.startswith(("test_", "train_")):
+                row[k] = es
+
+
+def _cost_order(est_cls, task_hyper, split_ids):
+    """Cost-ordered packing of the compacted path: a permutation of the
+    task axis sorting by the family's convergence-cost heuristic
+    (ascending), fold id fastest. None when the family has no heuristic
+    or the order is already sorted."""
+    cost_fn = getattr(est_cls, "_batched_task_cost", None)
+    if cost_fn is None or len(split_ids) <= 1:
+        return None
+    cost = np.asarray(cost_fn(task_hyper), dtype=np.float64)
+    if cost.shape != (len(split_ids),):
+        return None
+    order = np.lexsort((np.asarray(split_ids), cost))
+    if np.array_equal(order, np.arange(len(order))):
+        return None
+    return order
 
 
 def _candidate_buckets(estimator, candidate_params):
@@ -147,39 +212,90 @@ def _resolve_device_scoring(estimator, scoring, classes):
     return specs, multimetric
 
 
-def _build_cv_kernel(est_cls, meta, static, scorer_specs, return_train_score):
-    """One round of (fold-masked batched fit + scores) over the tasks of
-    ``task``: ``hyper`` ``{name: (T,)}`` and ``split (T,)``."""
-    fit_kernel = est_cls._build_fit_kernel(meta, static)
+def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
+                rung_spec=None):
+    """``(scores, rung_score)``: ``scores(params, shared, task)`` scores
+    fitted params on the tasks' fold masks (the classic kernel and the
+    compacted finalize share it), ``rung_score(params, shared, task)``
+    the rung metric on the held-out folds (None without ``rung_spec``)."""
     decision_kernel = est_cls._build_decision_kernel(meta, static)
-    needs_proba = any(kind == "proba" for *_, kind in scorer_specs)
+    needs_proba = any(kind == "proba" for *_, kind in scorer_specs) or (
+        rung_spec is not None and rung_spec[3] == "proba")
     proba_kernel = (
         est_cls._build_proba_kernel(meta, static) if needs_proba else None
     )
 
-    def kernel(shared, task):
-        X, y, sw = shared["X"], shared["y"], shared["sw"]
-        # user sample_weight weights the FIT only; train/test scoring is
-        # over the raw fold masks, like sklearn scorers without weights
-        train_w = shared["train_masks"][task["split"]]
-        test_w = shared["test_masks"][task["split"]]
-        params = fit_kernel(shared["op"], y, sw * train_w, task["hyper"])
+    def model_outputs(params, X):
         outputs = {"decision": decision_kernel(params["W"], X)}
         outputs["predict"] = outputs["decision"]
         if proba_kernel is not None:
             outputs["proba"] = proba_kernel(params["W"], X)
-        scores = {}
+        return outputs
+
+    def scores(params, shared, task):
+        # user sample_weight weights the FIT only; train/test scoring is
+        # over the raw fold masks, like sklearn scorers without weights
+        y = shared["y"]
+        outputs = model_outputs(params, shared["X"])
+        train_w = shared["train_masks"][task["split"]]
+        test_w = shared["test_masks"][task["split"]]
+        out = {}
         for out_name, _metric, score_kernel, kind in scorer_specs:
-            scores[f"test_{out_name}"] = score_kernel(
+            out[f"test_{out_name}"] = score_kernel(
                 y, outputs[kind], test_w, meta
             )
             if return_train_score:
-                scores[f"train_{out_name}"] = score_kernel(
+                out[f"train_{out_name}"] = score_kernel(
                     y, outputs[kind], train_w, meta
                 )
-        return scores
+        return out
+
+    rung_score = None
+    if rung_spec is not None:
+        _out, _metric, rung_kernel, rung_kind = rung_spec
+
+        def rung_score(params, shared, task):
+            outputs = model_outputs(params, shared["X"])
+            test_w = shared["test_masks"][task["split"]]
+            return rung_kernel(shared["y"], outputs[rung_kind], test_w, meta)
+
+    return scores, rung_score
+
+
+def _cv_derive(shared, task):
+    """A task batch's fit sub-problem: the shared operator and labels,
+    the user weights times the tasks' train-fold masks, their hypers."""
+    fit_w = shared["sw"] * shared["train_masks"][task["split"]]
+    return shared["op"], shared["y"], fit_w, task["hyper"]
+
+
+def _build_cv_kernel(est_cls, meta, static, scorer_specs, return_train_score):
+    """One round of (fold-masked batched fit + scores) over the tasks of
+    ``task``: ``hyper`` ``{name: (T,)}`` and ``split (T,)``."""
+    fit_kernel = est_cls._build_fit_kernel(meta, static)
+    scores, _ = _cv_scoring(est_cls, meta, static, scorer_specs,
+                            return_train_score)
+
+    def kernel(shared, task):
+        return scores(fit_kernel(*_cv_derive(shared, task)), shared, task)
 
     return kernel
+
+
+def _cv_iterative_spec(est_cls, meta, static, scorer_specs,
+                       return_train_score, n_slice, fallback, rung_spec=None):
+    """The iteration-sliced CV kernels: the family's sliced fit on the
+    fold-masked weights; finalize scores as the classic kernel does;
+    with ``rung_spec`` (a device scorer tuple from
+    :func:`~skdist_tpu_torch.metrics.resolve_rung_scorer`), the rung
+    evaluator scores live carries on the held-out folds."""
+    from .multiclass import _iterative_fit_spec
+
+    scores, rung_score = _cv_scoring(est_cls, meta, static, scorer_specs,
+                                     return_train_score, rung_spec)
+    return _iterative_fit_spec(est_cls, meta, static, n_slice, _cv_derive,
+                               fallback, outputs=scores,
+                               rung_score=rung_score)
 
 
 class DistBaseSearchCV(BaseEstimator):
@@ -187,7 +303,7 @@ class DistBaseSearchCV(BaseEstimator):
 
     def __init__(self, estimator, backend=None, partitions="auto", cv=5,
                  scoring=None, refit=True, return_train_score=False,
-                 error_score=np.nan, verbose=0):
+                 error_score=np.nan, verbose=0, adaptive=None):
         self.estimator = estimator
         self.backend = backend
         self.partitions = partitions
@@ -197,6 +313,7 @@ class DistBaseSearchCV(BaseEstimator):
         self.return_train_score = return_train_score
         self.error_score = error_score
         self.verbose = verbose
+        self.adaptive = adaptive
 
     def _get_param_iterator(self):
         raise NotImplementedError
@@ -206,6 +323,7 @@ class DistBaseSearchCV(BaseEstimator):
         (``backend=None`` means ``CUDABackend`` on the estimator's
         ``device``), then refit the best candidate."""
         check_error_score(self.error_score)
+        check_adaptive(self.adaptive)
         estimator = self.estimator
         if not hasattr(type(estimator), "_build_fit_kernel"):
             raise _not_ported(f"{type(estimator).__name__} (no batched fit)")
@@ -237,11 +355,18 @@ class DistBaseSearchCV(BaseEstimator):
         if not sw_ok:
             raise _not_ported(f"fit params {sorted(fit_params)}")
 
-        out = self._run_batched(backend, estimator, X, y, candidate_params,
-                                splits, scorer_specs, sw)
+        out, killed, engaged = self._run_batched(
+            backend, estimator, X, y, candidate_params, splits, scorer_specs,
+            sw)
+        if self.adaptive is not None and not engaged:
+            warn_not_engaged("the search")
         results = self._format_results(
             candidate_params, [s[0] for s in scorer_specs], n_splits, out
         )
+        if self.adaptive is not None:
+            # the rung at which each candidate died (-1: ran to the end)
+            results["rung_"] = rung_per_candidate(
+                len(candidate_params), n_splits, killed)
         self.cv_results_ = results
         scorers = {name: DeviceScorer(metric)
                    for name, metric, _k, _kind in scorer_specs}
@@ -285,9 +410,10 @@ class DistBaseSearchCV(BaseEstimator):
 
     def _run_batched(self, backend, estimator, X, y, candidate_params,
                      splits, scorer_specs, sample_weight):
-        """Dispatch (candidate x fold) tasks bucket by bucket; returns the
+        """Dispatch (candidate x fold) tasks bucket by bucket. Returns the
         per-task score dicts in task order (candidate-major, split
-        fastest)."""
+        fastest), the rung kills ``{task id: rung}`` and whether an
+        adaptive search ran its rungs."""
         from ..models.linear import _freeze, hyper_float, prepare_fit_X
 
         X_arr = prepare_fit_X(X, estimator)
@@ -302,6 +428,9 @@ class DistBaseSearchCV(BaseEstimator):
         out = [None] * (len(candidate_params) * n_splits)
         est_cls = type(estimator)
         hyper_names = list(est_cls._hyper_names)
+        adaptive = self.adaptive
+        killed_gids = {}
+        engaged = False
         self.round_stats_ = []
         buckets = _candidate_buckets(estimator, candidate_params)
         for static_overrides, cand_indices in buckets.values():
@@ -330,28 +459,86 @@ class DistBaseSearchCV(BaseEstimator):
                 "split": np.asarray([g % n_splits for g in gids],
                                     dtype=np.int64),
             }
-            scores, round_timings = backend.batched_map(
-                kernel, task_args, shared,
+            sizes = dict(
                 bytes_per_task=est_cls._batched_task_bytes(meta, static, n),
                 bytes_per_round=est_cls._batched_round_bytes(meta, static, n),
-                round_size=parse_partitions(self.partitions, len(gids)),
                 return_timings=True,
             )
-            self.round_stats_.append(dict(backend.last_round_stats,
-                                          x_format=meta["x_format"]))
+            n_slice = iterative_fit_supported(
+                backend, est_cls, len(gids), dict(static).get("max_iter"))
+            inv = None
+            if n_slice is not None:
+                # the convergence-compacted path, tasks in ascending
+                # expected cost (a scheduler detail, undone below)
+                order = _cost_order(est_cls, task_args["hyper"],
+                                    task_args["split"])
+                disp_gids = np.asarray(gids)
+                if order is not None:
+                    task_args = {
+                        "hyper": {k: v[order]
+                                  for k, v in task_args["hyper"].items()},
+                        "split": task_args["split"][order],
+                    }
+                    inv = np.argsort(order)
+                    disp_gids = disp_gids[order]
+                # the rung groups each candidate's fold lanes, so they
+                # live and die together
+                rung_ctrl = rung_spec = None
+                if adaptive is not None:
+                    rung_spec = resolve_rung_scorer(
+                        adaptive.metric, scorer_specs, self.refit,
+                        np.unique(y), est_cls=est_cls)
+                    if rung_spec is not None:
+                        rung_ctrl = RungController(
+                            adaptive.eta, adaptive.min_slices,
+                            groups=disp_gids // n_splits)
+                spec = _cv_iterative_spec(
+                    est_cls, meta, static, scorer_specs,
+                    self.return_train_score, n_slice, fallback=kernel,
+                    rung_spec=rung_spec)
+                round_size = (
+                    None if self.partitions in ("auto", None)
+                    else parse_partitions(self.partitions, len(gids)))
+                scores, round_timings = backend.batched_map_iterative(
+                    spec, task_args, shared, round_size=round_size,
+                    rung=rung_ctrl, **sizes)
+                if rung_ctrl is not None:
+                    # a downgrade to the exhaustive path deactivates it
+                    engaged = engaged or rung_ctrl.active
+                    for disp_idx, r in rung_ctrl.killed.items():
+                        killed_gids[int(disp_gids[disp_idx])] = int(r)
+            else:
+                scores, round_timings = backend.batched_map(
+                    kernel, task_args, shared,
+                    round_size=parse_partitions(self.partitions, len(gids)),
+                    **sizes)
+            stats = dict(backend.last_round_stats, x_format=meta["x_format"])
             # per-task fit_time = its round's wall / tasks in that round
             # (fit and scoring run in one round: score_time is 0)
             per_task_time = np.concatenate([
                 np.full(count, wall / max(count, 1))
                 for wall, count in round_timings
             ])
+            if inv is not None:
+                # undo the cost permutation before unpacking, so rows keep
+                # candidate order
+                scores = {k: np.asarray(v)[inv] for k, v in scores.items()}
+                per_task_time = per_task_time[inv]
+                for key in ("lane_n_iter", "lane_status"):
+                    if key in stats:
+                        stats[key] = np.asarray(stats[key])[inv]
+            self.round_stats_.append(stats)
             for t, gid in enumerate(gids):
                 out[gid] = {k: float(v[t]) for k, v in scores.items()}
                 out[gid]["fit_time"] = float(per_task_time[t])
                 out[gid]["score_time"] = 0.0
             del shared
-        _quarantine_nonfinite(out, self.error_score)
-        return out
+        # rung kills map to error_score rows (one warning); the lane
+        # quarantine then handles genuinely diverged lanes only
+        _apply_rung_retirement(out, killed_gids, self.error_score)
+        _quarantine_nonfinite(out, self.error_score,
+                              exempt=set(killed_gids))
+        return out, killed_gids, engaged
 
     def _format_results(self, candidate_params, scorer_names, n_splits, out):
         """sklearn-schema ``cv_results_``."""
@@ -439,12 +626,12 @@ class DistGridSearchCV(DistBaseSearchCV):
 
     def __init__(self, estimator, param_grid, backend=None, partitions="auto",
                  cv=5, scoring=None, refit=True, return_train_score=False,
-                 error_score=np.nan, verbose=0):
+                 error_score=np.nan, verbose=0, adaptive=None):
         super().__init__(
             estimator, backend=backend, partitions=partitions, cv=cv,
             scoring=scoring, refit=refit,
             return_train_score=return_train_score, error_score=error_score,
-            verbose=verbose,
+            verbose=verbose, adaptive=adaptive,
         )
         self.param_grid = param_grid
 

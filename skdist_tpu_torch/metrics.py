@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils.device import lane_sum
+
 __all__ = [
     "accuracy",
     "f1_weighted",
@@ -35,6 +37,7 @@ __all__ = [
     "REGRESSION_ONLY_SCORERS",
     "default_device_scorer",
     "device_scorer_compatible",
+    "resolve_rung_scorer",
     "scorer_task_compatible",
     "accuracy_score",
     "DeviceScorer",
@@ -52,7 +55,7 @@ def _pred_idx(out, w):
 
 
 def _wsum(x, w):
-    return torch.sum(x * w, dim=-1)
+    return lane_sum(x * w) if w.ndim > 1 else torch.sum(x * w, dim=-1)
 
 
 def accuracy(y, out, w, meta):
@@ -232,6 +235,56 @@ def default_device_scorer(estimator):
     for regressors."""
     kind = getattr(estimator, "_estimator_type", None)
     return "accuracy" if kind == "classifier" else "r2"
+
+
+def resolve_rung_scorer(metric, scorer_specs, refit, classes=None,
+                        est_cls=None):
+    """Resolve a ``HalvingSpec.metric`` to the device scorer spec the
+    adaptive rung evaluator runs, or None when no device kernel can
+    serve it (the caller then warns and runs exhaustively).
+
+    ``'auto'`` follows the search's refit metric: the spec among the
+    resolved ``scorer_specs`` whose output name is ``refit`` (a
+    single-metric search has one, named 'score'). An explicit metric
+    must have a ``DEVICE_SCORERS`` kernel that holds for this label set
+    and estimator kind, and whose output kind the family can produce (a
+    proba metric needs ``_build_proba_kernel``). Returns an
+    ``(out_name, metric, kernel, kind)`` tuple, named ``'rung'`` for an
+    explicit metric."""
+    def producible(spec):
+        if spec is None or spec[3] != "proba" or est_cls is None:
+            return spec
+        if not hasattr(est_cls, "_build_proba_kernel"):
+            return None
+        return spec
+
+    if metric in (None, "auto"):
+        if not scorer_specs:
+            return None
+        want = refit if isinstance(refit, str) else "score"
+        for spec in scorer_specs:
+            if spec[0] == want:
+                return producible(spec)
+        if len(scorer_specs) > 1:
+            import warnings
+
+            warnings.warn(
+                "HalvingSpec(metric='auto') with multimetric scoring "
+                f"and refit={refit!r}: rung kills will rank candidates "
+                f"by {scorer_specs[0][1]!r} (the first resolved scoring "
+                "entry). Pass HalvingSpec(metric=...) to choose the "
+                "metric adaptive halving eliminates by.",
+                UserWarning,
+            )
+        return producible(scorer_specs[0])
+    if metric not in DEVICE_SCORERS:
+        return None
+    if est_cls is not None and not scorer_task_compatible(metric, est_cls):
+        return None
+    if not device_scorer_compatible(metric, classes):
+        return None
+    kernel, kind = DEVICE_SCORERS[metric]
+    return producible(("rung", metric, kernel, kind))
 
 
 def accuracy_score(y_true, y_pred, sample_weight=None):

@@ -29,8 +29,14 @@ from ..sparse import (
     pack_for_fit,
     sparse_to_dense_f32,
 )
-from ..utils.device import exact_matmuls, resolve_device
-from .solvers import lbfgs_minimize
+from ..utils.device import exact_matmuls, lane_sum, resolve_device
+from .solvers import (
+    carry_iterate,
+    lbfgs_carry_init,
+    lbfgs_carry_restart,
+    lbfgs_minimize,
+    lbfgs_resume,
+)
 
 __all__ = ["LogisticRegression", "Ridge", "LinearRegression",
            "RidgeClassifier"]
@@ -333,7 +339,103 @@ class _LinearClassifierBase(_LinearModelBase, ClassifierMixin):
 # LogisticRegression
 # --------------------------------------------------------------------------
 
-class LogisticRegression(_LinearClassifierBase):
+class _LbfgsFitMixin:
+    """Fit kernels for the L-BFGS family, all built from the one
+    ``_build_fit_problem(meta, static)`` definition of the objective:
+    ``problem(op, y_idx, sw, hyper) -> (loss, w0, unpack)``, where
+    ``unpack(w, n_iter)`` shapes the fitted params. The plain fit kernel
+    and the iteration-sliced kernels (:meth:`_build_fit_slice_kernels`,
+    the contract of the convergence-compacted scheduler) minimise the
+    same objective, so a sliced solve is bitwise the unsliced one."""
+
+    #: the scheduler gates' marker (``parallel.iterative_fit_supported``)
+    _supports_sliced_fit = True
+
+    @classmethod
+    def _batched_task_cost(cls, hyper):
+        """Per-task convergence-cost heuristic for ordering the task axis
+        (``hyper``: dict of per-task arrays). Weak regularisation (large
+        C) and a tight tolerance both mean more iterations, log-additive
+        so neither axis drowns the other; ``tol <= 0`` (``tol=None``)
+        never converges and sorts last."""
+        C = np.asarray(hyper.get("C", 1.0), dtype=np.float64)
+        tol = np.asarray(hyper.get("tol", 1e-4), dtype=np.float64)
+        cost = np.log(np.maximum(C, 1e-30)) - np.where(
+            tol > 0, np.log(np.where(tol > 0, tol, 1.0)), -np.inf
+        )
+        return np.broadcast_to(cost, np.broadcast_shapes(C.shape, tol.shape))
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        problem = cls._build_fit_problem(meta, static)
+        st = dict(static)
+        max_iter, hist = st["max_iter"], st["history"]
+
+        def kernel(op, y_idx, sw, hyper):
+            loss, w0, unpack = problem(op, y_idx, sw, hyper)
+            w, n_iter = lbfgs_minimize(loss, w0, tol=hyper["tol"],
+                                       max_iter=max_iter, history=hist)
+            return unpack(w.detach(), n_iter)
+
+        return kernel
+
+    @classmethod
+    def _build_fit_slice_kernels(cls, meta, static, n_slice):
+        """The iteration-sliced fit, each kernel over a batch of ``T``
+        lanes ``(op, y_idx, sw, hyper, ...)`` as the plain kernel:
+
+        - ``init(...) -> carry``: start every lane's solve (no iteration);
+        - ``restart(..., carry, slots)``: start the lanes at ``slots``
+          afresh in place, from the batch's rows at ``slots``;
+        - ``step(..., carry) -> carry``: advance by ``n_slice`` iterations;
+        - ``finalize(..., carry)``: the fitted params from the
+          ``finalize_keys`` leaves (``w``, ``it``) only, so retired lanes'
+          history never needs keeping; ``score_params`` is the same
+          function on a live carry (its iterate is a valid model);
+        - ``converged(..., carry) -> (T,) bool``: ``max|g| <= tol``, the
+          solver's own test, to tell converged lanes from stalled ones.
+
+        Unlike the JAX package's ``init``, this one runs no iteration:
+        the scheduler's first slice steps it, so a lane started by
+        ``restart`` runs exactly the iterations of one started by
+        ``init``."""
+        problem = cls._build_fit_problem(meta, static)
+        st = dict(static)
+        max_iter, hist = st["max_iter"], st["history"]
+        n_slice = int(n_slice)
+
+        def init(op, y_idx, sw, hyper):
+            loss, w0, _ = problem(op, y_idx, sw, hyper)
+            return lbfgs_carry_init(loss, w0, hyper["tol"],
+                                    max_iter=max_iter, history=hist)
+
+        def restart(op, y_idx, sw, hyper, carry, slots):
+            loss, w0, _ = problem(op, y_idx, sw, hyper)
+            return lbfgs_carry_restart(loss, carry, slots,
+                                       w0.index_select(0, slots),
+                                       hyper["tol"], max_iter=max_iter)
+
+        def step(op, y_idx, sw, hyper, carry):
+            loss, _, _ = problem(op, y_idx, sw, hyper)
+            return lbfgs_resume(loss, carry, n_slice, hyper["tol"],
+                                max_iter=max_iter, history=hist)
+
+        def finalize(op, y_idx, sw, hyper, carry):
+            _, _, unpack = problem(op, y_idx, sw, hyper)
+            return unpack(carry_iterate(carry), carry["it"])
+
+        def converged(op, y_idx, sw, hyper, carry):
+            return carry["g"].abs().amax(dim=1) <= hyper["tol"]
+
+        return {
+            "init": init, "restart": restart, "step": step,
+            "finalize": finalize, "finalize_keys": ("w", "it"),
+            "score_params": finalize, "converged": converged,
+            "max_iter": max_iter,
+        }
+
+
+class LogisticRegression(_LbfgsFitMixin, _LinearClassifierBase):
     """L2 multinomial / binary logistic regression via batched L-BFGS.
 
     The JAX package's constructor arguments, plus ``device`` (the card
@@ -410,15 +512,13 @@ class LogisticRegression(_LinearClassifierBase):
 
                 def loss(w):
                     z = op.matvec(w[:, :, None])[..., 0]  # (T, n)
-                    ce = torch.sum(
+                    ce = lane_sum(
                         sw * (torch.logaddexp(z, torch.zeros_like(z))
-                              - ypm * z),
-                        dim=1,
-                    )
+                              - ypm * z))
                     if unpenalized:
                         return ce
                     wd = w[:, :d]
-                    return ce + 0.5 / C * torch.sum(wd * wd, dim=1)
+                    return ce + 0.5 / C * lane_sum(wd * wd)
 
                 w0 = torch.zeros((T, p), dtype=op.dtype, device=sw.device)
 
@@ -433,13 +533,11 @@ class LogisticRegression(_LinearClassifierBase):
                 W = wflat.reshape(T, p, k)
                 logits = op.matvec(W)  # (T, n, k)
                 lse = torch.logsumexp(logits, dim=2)
-                ce = torch.sum(
-                    sw * (lse - torch.sum(onehot * logits, dim=2)), dim=1
-                )
+                ce = lane_sum(sw * (lse - torch.sum(onehot * logits, dim=2)))
                 if unpenalized:
                     return ce
                 Wd = W[:, :d]
-                return ce + 0.5 / C * torch.sum(Wd * Wd, dim=(1, 2))
+                return ce + 0.5 / C * lane_sum(Wd * Wd)
 
             w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
 
@@ -449,20 +547,6 @@ class LogisticRegression(_LinearClassifierBase):
             return loss, w0, unpack
 
         return problem
-
-    @classmethod
-    def _build_fit_kernel(cls, meta, static):
-        problem = cls._build_fit_problem(meta, static)
-        st = dict(static)
-        max_iter, hist = st["max_iter"], st["history"]
-
-        def kernel(op, y_idx, sw, hyper):
-            loss, w0, unpack = problem(op, y_idx, sw, hyper)
-            w, n_iter = lbfgs_minimize(loss, w0, tol=hyper["tol"],
-                                       max_iter=max_iter, history=hist)
-            return unpack(w.detach(), n_iter)
-
-        return kernel
 
     @classmethod
     def _build_proba_kernel(cls, meta, static):

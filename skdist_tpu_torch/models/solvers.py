@@ -24,6 +24,16 @@ forward matvec is the K2 kernel).
 
 State is updated in place where that saves device memory (the ``S``/
 ``Y``/``rho`` history ring).
+
+Resumable carry form (the convergence-compacted scheduler of
+``parallel/backend.py``): :func:`lbfgs_minimize` is
+:func:`lbfgs_carry_init` plus one full-length :func:`lbfgs_resume`, so
+chained shorter resumes are bitwise the same solve; they only change
+where the caller observes the carry. :func:`lbfgs_carry_restart` starts
+some lanes of a fixed-shape carry afresh in place (a freed slot taking a
+new task), and :func:`carry_iterate` is the live iterate a rung scores.
+Every per-lane value is computed on the carry's full ``(T, ...)``
+tensors, so a lane's bits do not depend on its slot or its neighbours.
 """
 
 import torch
@@ -32,6 +42,13 @@ _EPS = 1e-12
 
 #: order of the L-BFGS carry leaves (the JAX package's carry contract)
 LBFGS_CARRY_KEYS = ("w", "f", "g", "S", "Y", "rho", "k", "it", "done")
+
+
+def carry_iterate(carry):
+    """The current weight iterate of a carry: ``w`` is written only
+    after an accepted (or stalled-in-place) step, so it is a usable
+    model at every slice boundary (what an adaptive rung scores)."""
+    return carry["w"]
 
 
 def _dot(a, b):
@@ -98,6 +115,31 @@ def lbfgs_carry_init(fun, w0, tol, max_iter=100, history=10):
         torch.zeros(T, dtype=torch.int64, device=w0.device),
         done0,
     )))
+
+
+def lbfgs_carry_restart(fun, carry, slots, w0, tol, max_iter=100):
+    """Start the lanes at ``slots`` (an int64 tensor of slot ids) of a
+    batched carry afresh, in place: their weights become ``w0`` (one row
+    a slot), their loss and gradient are evaluated with the rest of the
+    carry's lanes (the full ``(T, P)`` batch, so the values are those a
+    fresh :func:`lbfgs_carry_init` gives), their history rows, ``k`` and
+    ``it`` are zeroed and ``done`` is set as at init. No second history
+    ring is allocated. ``fun`` must already be the objective of the
+    slots' new tasks; ``tol`` is a scalar or a ``(T,)`` tensor."""
+    w = carry["w"]
+    w.index_copy_(0, slots, w0.to(w.dtype))
+    f, g = _value_and_grad(fun)(w)
+    f, g = f.index_select(0, slots), g.index_select(0, slots)
+    carry["f"].index_copy_(0, slots, f)
+    carry["g"].index_copy_(0, slots, g)
+    for key in ("S", "Y", "rho", "k", "it"):
+        carry[key].index_fill_(0, slots, 0)
+    tol = torch.as_tensor(tol, dtype=w.dtype, device=w.device)
+    if tol.ndim:
+        tol = tol.index_select(0, slots)
+    carry["done"].index_copy_(
+        0, slots, (g.abs().amax(dim=1) <= tol) | (max_iter <= 0))
+    return carry
 
 
 def _lbfgs_step(carry, fun, vg, tol, max_iter, m, max_ls, active):

@@ -146,15 +146,35 @@ def _vector_width(x3):
 # K1: X @ W
 # ---------------------------------------------------------------------------
 
+#: PyTorch's CPU ``bmm`` sums a product of fewer multiply-adds than this
+#: (contraction x rows x columns) in plain loops, larger ones through BLAS
+_BMM_LOOP_LIMIT = 400
+
+#: columns of BLAS's full column blocks on the CPU: a trailing partial
+#: block is computed another way, with other bits
+_BLAS_COLUMN_BLOCK = 16
+
+
 def packed_matvec_ref(idx, val, W):
     """Plain ``X @ W``: gather the rows of W, then a row dot. ``W`` is
     ``(p,)``, ``(p, k)`` or ``(T, p, k)``; returns ``(n,)``, ``(n, k)`` or
-    ``(T, n, k)``."""
+    ``(T, n, k)``.
+
+    A task batch must give every task the bits it gets in any other slot
+    of the batch (as K1 does), which the compacted scheduler relies on.
+    Where the batched product goes through the CPU's BLAS, each task's
+    ``k`` columns are padded to whole column blocks, so no task falls in
+    the trailing partial block that BLAS sums another way; the padding
+    leaves the other tasks' bits as an unpadded batch gives them."""
     if W.ndim == 1:
         return torch.sum(val * W[idx], dim=1)
     if W.ndim == 2:
         return torch.einsum("nm,nmk->nk", val, W[idx])
-    return torch.einsum("nm,tnmk->tnk", val, W[:, idx])
+    k = W.shape[2]
+    if not W.is_cuda and val.shape[1] * W.shape[0] * k >= _BMM_LOOP_LIMIT:
+        kb = -(-k // _BLAS_COLUMN_BLOCK) * _BLAS_COLUMN_BLOCK
+        W = torch.nn.functional.pad(W, (0, kb - k))
+    return torch.einsum("nm,tnmk->tnk", val, W[:, idx])[..., :k]
 
 
 def packed_matvec(idx, val, W):
