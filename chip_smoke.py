@@ -113,10 +113,39 @@ result line:
 11. ``DistGridSearchCV(Ridge(), {"alpha": logspace(-2, 3, 16)}, cv=5)``
     (r2) on the same X and a real target made from the seed: 80 fits.
 12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4), then, last,
-    the result line ``{"ok": true, "device": {...}}``.
+    the result line ``{"ok": true, "device": {...}}``; both are printed
+    after phase 13c.
+13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
+    SGDClassifier(max_iter=20, random_state=0), {"alpha": logspace(-6,
+    -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` on
+    covtype's shape (``make_tabular(581012, 54, 7, seed=1)``), 300 fits
+    and the refit on the compacted path (mini-batch SGD through
+    ``torch.matmul``; no hand kernel is on this path). Printed: the
+    search's wall and fits/s, the refit's wall, the scheduler's counts
+    and the lanes' epochs (min, median, p90, max; stopped by ``tol``
+    against ``max_iter``), steps/s, a ``torch.profiler`` split of 50
+    steps of the 300-lane round (products, gathers, reductions, the
+    rest, the device's busy share), peak device memory, ``best_params_``
+    and ``best_score_`` and the candidates' first three alphas. Every
+    score must be finite, ``best_score_`` above the majority class's
+    share, and the pickled ``best_estimator_`` must predict as the live
+    one.
+13b. The same search on ``make_tabular(100000, 54, 7, seed=1)`` (the JAX
+    package's own benchmark size): compacted, then classic
+    (``SKDIST_COMPACTION=0``) at the same chunk, ``cv_results_`` and the
+    refit ``coef_`` bitwise equal; ``adaptive=HalvingSpec(eta=inf)``
+    bitwise equal to the exhaustive run; then ``eta=3``: its wall, kills
+    per rung, and its winner's rank in the exhaustive grid.
+13c. Card against CPU on 20000 rows of that data: ``SGDClassifier(
+    max_iter=3)`` with ``hinge`` and with ``log_loss`` (both draw the
+    same row orders), the card/CPU gap in the weights at most 10x what
+    one ulp of input noise moves the card's own fit (plus 1e-6 of
+    max|W|); then slot independence: a round of 300 lanes and the same
+    lanes in reverse slot order give every lane bitwise the same
+    weights.
 
-``--candidates N`` cuts the C and alpha grids to their first N points
-(never the data width); the cut is printed. The compacted path's
+``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
+to their first N points (never the data width); the cut is printed. The compacted path's
 out-of-memory downgrade is an error in every phase: the up-front sizing
 must hold on the card.
 
@@ -1580,6 +1609,255 @@ def phase_ridge_regressor(torch, X, alphas, backend):
         raise AssertionError("the ridge regressor path failed")
 
 
+# ---------------------------------------------------------------------------
+# phases 13-13c: BASELINE config 2, the SGD search
+# ---------------------------------------------------------------------------
+
+#: BASELINE config 2 (benchmarks/run_all.py:113-131): covtype's published
+#: shape, made by bench.py's make_tabular; the A/B phase runs at the JAX
+#: package's own benchmark size
+SGD_N, SGD_D, SGD_K = 581012, 54, 7
+SGD_AB_N = 100_000
+SGD_ALPHAS = list(np.logspace(-6, -2, 60))
+
+
+def sgd_search(torch, X, y, alphas, backend, compaction=True, **kw):
+    """A timed config-2 search (``n_iter`` = every alpha) with the
+    compacted path on or off; returns the search and its wall."""
+    from skdist_tpu_torch import DistRandomizedSearchCV, SGDClassifier
+
+    os.environ["SKDIST_COMPACTION"] = "1" if compaction else "0"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = DistRandomizedSearchCV(
+            SGDClassifier(max_iter=20, random_state=0), {"alpha": alphas},
+            n_iter=len(alphas), cv=5, scoring="accuracy", random_state=0,
+            backend=backend, **kw,
+        ).fit(X, y)
+        torch.cuda.synchronize()
+        return gs, time.perf_counter() - t0
+    finally:
+        del os.environ["SKDIST_COMPACTION"]
+
+
+def sgd_lane_problem(torch, X, y, alphas, max_iter=20):
+    """The SGD fit problem of a round of ``5 * len(alphas)`` lanes on the
+    card (alpha-major, lane t on fold mask ``t % 5``), for the step
+    profile and the slot check: ``(meta, static, op, y, sw, hyper)``."""
+    from skdist_tpu_torch import SGDClassifier
+    from skdist_tpu_torch.models.linear import _freeze, to_device_X
+
+    est = SGDClassifier(max_iter=max_iter, random_state=0)
+    data, meta = est._prep_fit_data(X, y)
+    static = _freeze(est._static_config(meta))
+    op = SGDClassifier._linear_op(to_device_X(X, "cuda"), static)
+    n, T = X.shape[0], 5 * len(alphas)
+    folds = torch.arange(n, device="cuda") % 5
+    sw = (folds[None, :] != torch.arange(T, device="cuda")[:, None] % 5
+          ).to(torch.float32)
+    full = dict(dtype=torch.float32, device="cuda")
+    hyper = {"alpha": torch.tensor(np.repeat(alphas, 5), **full),
+             "eta0": torch.full((T,), 0.01, **full),
+             "l1_ratio": torch.full((T,), 0.15, **full),
+             "tol": torch.full((T,), 1e-3, **full)}
+    return meta, static, op, torch.as_tensor(data["y"]).cuda(), sw, hyper
+
+
+def profile_sgd_steps(torch, X, y, alphas):
+    """Host microseconds a step of the 300-lane round's bare batch loop
+    (2000 steps) and a ``torch.profiler`` split of 50 of them."""
+    from skdist_tpu_torch import SGDClassifier
+    from skdist_tpu_torch.models import solvers
+    from skdist_tpu_torch.utils.draws import epoch_permutation
+
+    meta, static, op, yd, sw, hyper = sgd_lane_problem(torch, X, y, alphas)
+    pb = SGDClassifier._build_fit_problem(meta, static)(op, yd, sw, hyper)
+    T, n = sw.shape
+    padded = -(-n // 64) * 64
+    rows = epoch_permutation(0, 0, padded, n, "cuda").expand(T, padded)
+    n_batches, batch = pb["batches"](rows)
+    n_timed = min(2000, n_batches)
+    w0 = pb["W0"]
+    carry4 = (w0, (torch.zeros(T, device="cuda"), torch.zeros_like(w0)),
+              torch.zeros(T, dtype=torch.int64, device="cuda"),
+              torch.zeros(T, device="cuda"))
+
+    def run(k):
+        solvers.sgd_batch_scan(pb["grad_fn"], pb["lr_fn"], pb["post_step"],
+                               pb["loss_fn"], carry4, k, batch)
+        torch.cuda.synchronize()
+
+    run(min(60, n_batches))
+    t0 = time.perf_counter()
+    run(n_timed)
+    us = 1e6 * (time.perf_counter() - t0) / n_timed
+    split = profile_device_split(
+        torch, lambda: run(50),
+        {"products": ("gemm",), "gathers": ("index",),
+         "reductions": ("reduce_kernel",)}, window=True)
+    return us, split
+
+
+def phase_sgd(torch, backend, alphas):
+    """Phase 13: BASELINE config 2 at full width, 300 fits plus the
+    refit, on the compacted path."""
+    from skdist_tpu_torch import SGDClassifier  # noqa: F401
+
+    t0 = time.perf_counter()
+    X, y = make_tabular(SGD_N, SGD_D, SGD_K, seed=1)
+    n_fits = 5 * len(alphas)
+    say(f"phase 13: DistRandomizedSearchCV(SGDClassifier(max_iter=20), "
+        f"{len(alphas)} alpha, n_iter={len(alphas)}, cv=5, accuracy) on "
+        f"covtype-shaped {X.shape}, {SGD_K} classes: {n_fits} fits + refit "
+        f"(data {time.perf_counter() - t0:.1f}s)")
+    torch.cuda.reset_peak_memory_stats()
+    gs, wall = sgd_search(torch, X, y, alphas, backend)
+    st = gs.round_stats_[0]
+    search = wall - gs.refit_time_
+    n_batches = -(-SGD_N // 64)
+    epochs = int(np.max(st["lane_n_iter"]))
+    refit_epochs = int(gs.best_estimator_.n_iter_)
+    say(f"  wall {wall:.1f}s: search {search:.1f}s ({n_fits / search:.2f} "
+        f"fits/s), refit {gs.refit_time_:.1f}s ({refit_epochs} epochs)")
+    say("  " + lane_readout(st))
+    say(f"  steps: the round ran {epochs} epochs x {n_batches} batches = "
+        f"{epochs * n_batches} steps of {st['chunk']} lanes, "
+        f"{epochs * n_batches / search:.0f} steps/s with scoring; refit "
+        f"{refit_epochs * n_batches / gs.refit_time_:.0f} steps/s")
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    alphas_drawn = [float(c["alpha"]) for c in gs.cv_results_["params"][:3]]
+    say(f"  best_params_ {gs.best_params_}, best_score_ {gs.best_score_:.6f};"
+        f" first three candidates' alpha {alphas_drawn}")
+    if st["mode"] != "compacted" or st["tasks"] != n_fits:
+        raise AssertionError(f"phase 13 ran {st['mode']} over {st['tasks']}")
+    if not np.all(np.isfinite(gs.cv_results_["mean_test_score"])):
+        raise AssertionError("non-finite SGD mean_test_score")
+    majority = np.bincount(y).max() / len(y)
+    if not gs.best_score_ > majority:
+        raise AssertionError(
+            f"best_score_ {gs.best_score_:.4f} is not above the majority "
+            f"share {majority:.4f}")
+    live = gs.best_estimator_.predict(X)
+    loaded = pickle.loads(pickle.dumps(gs.best_estimator_))
+    if not np.array_equal(loaded.predict(X), live):
+        raise AssertionError("pickled SGD best_estimator_ predicts differently")
+    say(f"  majority share {majority:.4f}; refit accuracy on its training "
+        f"data {np.mean(live == y):.4f}; pickled artifact predicts the same")
+    us, split = profile_sgd_steps(torch, X, y, alphas)
+    line = f"  bare round steps: {us:.1f} us a step (host clock)"
+    if split is None:
+        line += "; the profiler saw no device time"
+    else:
+        busy, span = split["window"]
+        rest = split["total"] - split["products"] - split["gathers"] \
+            - split["reductions"]
+        line += (f"; 50 steps under the profiler: device {split['total']:.3f}"
+                 f" ms (products {split['products']:.3f}, gathers "
+                 f"{split['gathers']:.3f}, reductions "
+                 f"{split['reductions']:.3f}, elementwise {rest:.3f}), busy "
+                 f"{busy:.3f} of {span:.3f} ms ({100 * busy / span:.1f}%)")
+    say(line)
+
+
+def phase_sgd_ab(torch, backend, alphas):
+    """Phase 13b: compacted against classic at equal chunk, and ASHA,
+    on config 2 at the JAX package's benchmark size."""
+    from skdist_tpu_torch.distribute.adaptive import (
+        HalvingSpec,
+        RungKilledWarning,
+    )
+
+    X, y = make_tabular(SGD_AB_N, SGD_D, SGD_K, seed=1)
+    say(f"phase 13b: config 2 on {X.shape}, compacted against classic, "
+        "then ASHA")
+    comp, wall_c = sgd_search(torch, X, y, alphas, backend)
+    st = comp.round_stats_[0]
+    say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
+    classic, wall_k = sgd_search(torch, X, y, alphas, backend,
+                                 compaction=False,
+                                 partitions=-(-st["tasks"] // st["chunk"]))
+    sk = classic.round_stats_[0]
+    say(f"  classic wall {wall_k:.1f}s: {sk['rounds']} rounds x "
+        f"{sk['tasks_per_round']} tasks")
+    diff = differing_columns(comp, classic)
+    if (sk["tasks_per_round"] != st["chunk"] or diff
+            or not np.array_equal(comp.best_estimator_.coef_,
+                                  classic.best_estimator_.coef_)):
+        raise AssertionError(
+            f"SGD compacted and classic differ: chunks {st['chunk']}/"
+            f"{sk['tasks_per_round']}, columns {diff}")
+    say("  cv_results_ and the refit coef_ bitwise equal")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ginf, wall_inf = sgd_search(torch, X, y, alphas, backend,
+                                    refit=False,
+                                    adaptive=HalvingSpec(eta=float("inf")))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RungKilledWarning)
+            g3, wall3 = sgd_search(torch, X, y, alphas, backend, refit=False,
+                                   adaptive=HalvingSpec(eta=3))
+    for w in caught:
+        if "could not engage" in str(w.message) or \
+                OOM_DOWNGRADE in str(w.message):
+            raise AssertionError(f"phase 13b: {w.message}")
+    diff = differing_columns(comp, ginf)
+    say(f"  eta=inf wall {wall_inf:.1f}s, "
+        f"{len(ginf.round_stats_[0]['rung_history'])} rungs scored; "
+        "cv_results_ against compacted: "
+        + ("bitwise equal" if not diff else f"differ in {diff}"))
+    if diff:
+        raise AssertionError("SGD eta=inf differs from adaptive=None")
+    s3 = g3.round_stats_[0]
+    rank = comp.cv_results_["rank_test_score"][g3.best_index_]
+    say(f"  eta=3 wall {wall3:.1f}s; kills: " + ", ".join(
+        f"rung {h['rung']} slice {h['slice']}: {h['n_killed']} of "
+        f"{h['n_live']} lanes" for h in s3["rung_history"]))
+    say(f"  eta=3 best_params_ {g3.best_params_} best_score_ "
+        f"{g3.best_score_:.6f} (rank {rank} of the exhaustive run); "
+        f"exhaustive {comp.best_params_} {comp.best_score_:.6f}")
+    if s3["retired_rung"] <= 0 or not np.isfinite(g3.best_score_):
+        raise AssertionError("SGD eta=3 killed no lane or has no winner")
+
+
+def phase_sgd_card_vs_cpu(torch):
+    """Phase 13c: card against CPU, and slot independence."""
+    from skdist_tpu_torch import SGDClassifier
+
+    X, y = make_tabular(20000, SGD_D, SGD_K, seed=1)
+    X_ulp = X * np.float32(1 + 2.0 ** -23)
+    say(f"phase 13c: SGDClassifier(max_iter=3) card against CPU on {X.shape}")
+    for loss in ("hinge", "log_loss"):
+        kw = dict(loss=loss, max_iter=3, random_state=0)
+        card = SGDClassifier(**kw).fit(X, y)._params["W"]
+        cpu = SGDClassifier(device="cpu", **kw).fit(X, y)._params["W"]
+        card_ulp = SGDClassifier(**kw).fit(X_ulp, y)._params["W"]
+        dcoef = float(np.abs(card - cpu).max())
+        dulp = float(np.abs(card - card_ulp).max())
+        scale = float(np.abs(cpu).max())
+        say(f"  {loss}: max|W| {scale:.3e}, card vs cpu max|dW| {dcoef:.3e}, "
+            f"card vs card on X*(1+ulp) {dulp:.3e}")
+        if not dcoef <= 10 * dulp + 1e-6 * scale:
+            raise AssertionError(
+                f"SGD {loss}: card and CPU differ by more than 10x what one "
+                "ulp of input noise does")
+    from skdist_tpu_torch.utils.device import exact_matmuls
+
+    meta, static, op, yd, sw, hyper = sgd_lane_problem(
+        torch, X, y, SGD_ALPHAS, max_iter=3)
+    kernel = SGDClassifier._build_fit_kernel(meta, static)
+    rev = torch.arange(sw.shape[0] - 1, -1, -1, device="cuda")
+    with exact_matmuls(), torch.no_grad():
+        w1 = kernel(op, yd, sw, hyper)["W"]
+        w2 = kernel(op, yd, sw[rev], {k: v[rev] for k, v in hyper.items()})
+    same = torch.equal(w1, w2["W"][rev])
+    say(f"  slot independence, {sw.shape[0]} lanes against the same lanes "
+        "in reverse slots: " + ("bitwise equal" if same else "DIFFER"))
+    if not same:
+        raise AssertionError("an SGD lane's weights depend on its slot")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -1827,6 +2105,19 @@ def main():
     errs += ridge_errs
     r_launches = phase_ridge(torch, Xr, yr, alphas, backend)
     phase_ridge_regressor(torch, Xr, reg_alphas, backend)
+
+    # ---- phases 13-13c: BASELINE config 2, the SGD search --------------
+    del Xr, yr
+    torch.cuda.empty_cache()
+    sgd_alphas = SGD_ALPHAS
+    if args.candidates < len(sgd_alphas):
+        say(f"CUT: config 2's alphas (and n_iter) cut to the first "
+            f"{args.candidates}")
+        sgd_alphas = sgd_alphas[: args.candidates]
+    phase_sgd(torch, backend, sgd_alphas)
+    torch.cuda.empty_cache()
+    phase_sgd_ab(torch, backend, sgd_alphas)
+    phase_sgd_card_vs_cpu(torch)
 
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"

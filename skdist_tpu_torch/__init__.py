@@ -17,8 +17,10 @@ packed-CSR sparse X, with the packed matvec/rmatvec kernels; the
 histogram trees, forests and their ``Dist*`` wrappers, with the
 level-histogram kernel; the ridge family (``Ridge``,
 ``LinearRegression``, ``RidgeClassifier``) over dense or packed X, with
-the packed weighted-gram kernel. The grid search's
-convergence-compacted path (iteration-sliced L-BFGS; on by default,
+the packed weighted-gram kernel;
+``DistRandomizedSearchCV(SGDClassifier)`` over dense X (mini-batch SGD,
+no hand kernel). The searches' convergence-compacted path
+(iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
 halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
 to port.
@@ -27,9 +29,10 @@ to port.
 __version__ = "0.1.0"
 
 _EXPORTS = {
-    "DistGridSearchCV": "skdist_tpu_torch.distribute.search",
+    **{name: "skdist_tpu_torch.distribute.search" for name in (
+        "DistGridSearchCV", "DistRandomizedSearchCV")},
     **{name: "skdist_tpu_torch.models.linear" for name in (
-        "LogisticRegression", "Ridge", "LinearRegression",
+        "LogisticRegression", "SGDClassifier", "Ridge", "LinearRegression",
         "RidgeClassifier")},
     "CUDABackend": "skdist_tpu_torch.parallel",
     **{name: "skdist_tpu_torch.distribute.adaptive" for name in (

@@ -3,12 +3,12 @@
 ``forest_from_reference`` turns a fitted JAX forest or single tree into
 the port's (below); ``ridge_from_reference`` does the same for a fitted
 ``Ridge``, ``LinearRegression`` or ``RidgeClassifier``.
-``logistic_regression_from_reference`` takes the
-fitted state of a JAX ``skdist_tpu`` ``LogisticRegression`` as plain
-numpy (its ``_params`` and ``_meta``) and returns a fitted port
-``LogisticRegression`` that computes the same ``decision_function`` and
-``predict_proba``: the counterpart of ``_set_fitted`` in
-``skdist_tpu/models/linear.py``. The
+``logistic_regression_from_reference`` and ``sgd_from_reference`` take
+the fitted state of a JAX ``skdist_tpu`` ``LogisticRegression`` or
+``SGDClassifier`` as plain numpy (its ``_params`` and ``_meta``) and
+return the fitted port model, which computes the same
+``decision_function`` and ``predict_proba``: the counterpart of
+``_set_fitted`` in ``skdist_tpu/models/linear.py``. The
 two packages share the weight layout (``W`` is ``(p,)`` binary or
 ``(p, k)``, rows ``[:d]`` the coefficients and row ``d`` the intercept
 when fitted), so nothing is reshaped. Carrying weights the other way
@@ -19,10 +19,10 @@ import numpy as np
 
 from .base import BaseEstimator
 from .models import linear
-from .models.linear import LogisticRegression
+from .models.linear import LogisticRegression, SGDClassifier
 
 __all__ = ["forest_from_reference", "logistic_regression_from_reference",
-           "ridge_from_reference"]
+           "ridge_from_reference", "sgd_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
@@ -31,6 +31,21 @@ def logistic_regression_from_reference(params, meta, device=None):
     """A fitted port ``LogisticRegression`` from the JAX package's
     ``params`` (``{"W": ..., "n_iter": ...}``) and ``meta``
     (``classes``, ``n_features``, ``n_classes``; ``cw_arr`` optional)."""
+    return _linear_classifier_from_reference(LogisticRegression, params,
+                                             meta, device)
+
+
+def sgd_from_reference(params, meta, device=None, **est_params):
+    """A fitted port ``SGDClassifier`` from the JAX package's ``params``
+    and ``meta``, as :func:`logistic_regression_from_reference`;
+    ``est_params`` are the model's constructor arguments (``loss``
+    decides whether ``predict_proba`` is available)."""
+    return _linear_classifier_from_reference(SGDClassifier, params, meta,
+                                             device, **est_params)
+
+
+def _linear_classifier_from_reference(cls, params, meta, device,
+                                      **est_params):
     W = np.asarray(params["W"], dtype=np.float32)
     d = int(meta["n_features"])
     n_classes = int(meta["n_classes"])
@@ -49,8 +64,8 @@ def logistic_regression_from_reference(params, meta, device=None):
             f"W has {W.shape[0]} rows; expected {d} or {d + 1} for "
             f"{d} features"
         )
-    est = LogisticRegression(fit_intercept=W.shape[0] == d + 1,
-                             device=device)
+    est = cls(**{**est_params, "fit_intercept": W.shape[0] == d + 1,
+                 "device": device})
     fitted = {"W": W}
     if "n_iter" in params:
         fitted["n_iter"] = np.asarray(params["n_iter"])

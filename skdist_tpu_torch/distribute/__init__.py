@@ -10,7 +10,7 @@ from .ensemble import (
     get_single_oof,
 )
 from .adaptive import HalvingSpec, RungKilledWarning
-from .search import DistGridSearchCV
+from .search import DistGridSearchCV, DistRandomizedSearchCV
 
 __all__ = [
     "DistExtraTreesClassifier",
@@ -19,6 +19,7 @@ __all__ = [
     "DistRandomForestClassifier",
     "DistRandomForestRegressor",
     "DistRandomTreesEmbedding",
+    "DistRandomizedSearchCV",
     "HalvingSpec",
     "RungKilledWarning",
     "get_oof",

@@ -56,5 +56,5 @@ def _iterative_fit_spec(est_cls, meta, static, n_slice, derive,
     return IterativeKernelSpec(
         init, restart, step, finalize, ks["finalize_keys"],
         fallback=fallback_kernel, score=score, converged=converged,
-        max_iter=ks.get("max_iter"),
+        max_iter=ks.get("max_iter"), iter_key=ks.get("iter_key", "it"),
     )

@@ -1,5 +1,6 @@
 """
-Distributed hyperparameter search of the port: ``DistGridSearchCV``.
+Distributed hyperparameter search of the port: ``DistGridSearchCV`` and
+``DistRandomizedSearchCV``.
 
 Counterpart of ``skdist_tpu/distribute/search.py``'s batched device
 path. Candidates are bucketed by the params that shape the kernel;
@@ -11,12 +12,14 @@ CV folds are 0/1 weight masks, and the scores of every task are computed
 on the device in the same round as its fit.
 
 A bucket of at least ``MIN_ITER_TASKS`` tasks of a family with
-iteration-sliced fits (``LogisticRegression``) takes the
-convergence-compacted path (``CUDABackend.batched_map_iterative``), as
-in the JAX package: its tasks are ordered by expected cost, solved in
+iteration-sliced fits (``LogisticRegression``, ``SGDClassifier``) takes
+the convergence-compacted path (``CUDABackend.batched_map_iterative``),
+as in the JAX package: its tasks are ordered by expected cost, solved in
 slices, and finished lanes leave their slots; ``SKDIST_COMPACTION=0``
 switches back to the classic path, and the results are the same bit for
-bit. ``adaptive=HalvingSpec(...)`` adds asynchronous successive halving
+bit. A family may ask for fewer rounds than the backend's default
+(``_compacted_rounds``: SGD, whose step costs its launches whatever its
+lanes, runs one). ``adaptive=HalvingSpec(...)`` adds asynchronous successive halving
 on that path, where every round fits on the card at once; elsewhere the
 search runs exhaustively and warns.
 
@@ -28,7 +31,7 @@ pickles clean.
 
 Not ported yet (ROADMAP): the generic per-task host path (estimators
 without a batched fit, host scorers, fit params other than
-``sample_weight``), ``DistRandomizedSearchCV``/``DistMultiModelSearch``,
+``sample_weight``), ``DistMultiModelSearch``,
 checkpointing (and so the journaling of rung kills), out-of-fold
 ``preds``, streamed input and its streamed rungs, and fault retries of
 the compacted path.
@@ -54,13 +57,15 @@ from ..metrics import (
 from ..parallel import (
     CUDABackend,
     RungController,
+    iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
 )
-from ..utils.cv import ParameterGrid, check_cv
+from ..utils.cv import ParameterGrid, ParameterSampler, check_cv
 from ..utils.validation import (
     check_error_score,
     check_is_fitted,
+    check_n_iter,
     full_length_sample_weight,
     num_samples,
 )
@@ -71,8 +76,8 @@ from .adaptive import (
     warn_not_engaged,
 )
 
-__all__ = ["DistBaseSearchCV", "DistGridSearchCV", "FitFailedWarning",
-           "RungKilledWarning"]
+__all__ = ["DistBaseSearchCV", "DistGridSearchCV", "DistRandomizedSearchCV",
+           "FitFailedWarning", "RungKilledWarning"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
 
@@ -328,7 +333,7 @@ class DistBaseSearchCV(BaseEstimator):
         if not hasattr(type(estimator), "_build_fit_kernel"):
             raise _not_ported(f"{type(estimator).__name__} (no batched fit)")
         if y is None:
-            raise ValueError("DistGridSearchCV.fit needs y")
+            raise ValueError(f"{type(self).__name__}.fit needs y")
         backend = self.backend
         if backend is None:
             backend = CUDABackend(device=getattr(estimator, "device", None))
@@ -499,6 +504,9 @@ class DistBaseSearchCV(BaseEstimator):
                 round_size = (
                     None if self.partitions in ("auto", None)
                     else parse_partitions(self.partitions, len(gids)))
+                target = getattr(est_cls, "_compacted_rounds", None)
+                if round_size is None and target:
+                    round_size = iterative_chunk_size(len(gids), 1, target)
                 scores, round_timings = backend.batched_map_iterative(
                     spec, task_args, shared, round_size=round_size,
                     rung=rung_ctrl, **sizes)
@@ -637,3 +645,31 @@ class DistGridSearchCV(DistBaseSearchCV):
 
     def _get_param_iterator(self):
         return ParameterGrid(self.param_grid)
+
+
+class DistRandomizedSearchCV(DistBaseSearchCV):
+    """Randomized search with batched fits on the card; the contract of
+    sklearn's RandomizedSearchCV. ``n_iter`` candidates are drawn by the
+    port's :class:`~skdist_tpu_torch.utils.cv.ParameterSampler`, which
+    gives sklearn's candidates for the same ``random_state``
+    (``n_iter`` is capped at the grid's size when every distribution is
+    a list)."""
+
+    def __init__(self, estimator, param_distributions, backend=None,
+                 partitions="auto", n_iter=10, random_state=None, cv=5,
+                 scoring=None, refit=True, return_train_score=False,
+                 error_score=np.nan, verbose=0, adaptive=None):
+        super().__init__(
+            estimator, backend=backend, partitions=partitions, cv=cv,
+            scoring=scoring, refit=refit,
+            return_train_score=return_train_score, error_score=error_score,
+            verbose=verbose, adaptive=adaptive,
+        )
+        self.param_distributions = param_distributions
+        self.n_iter = n_iter
+        self.random_state = random_state
+
+    def _get_param_iterator(self):
+        n_iter = check_n_iter(self.n_iter, self.param_distributions)
+        return ParameterSampler(self.param_distributions, n_iter,
+                                random_state=self.random_state)

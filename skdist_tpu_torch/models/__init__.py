@@ -12,6 +12,7 @@ from .linear import (
     LogisticRegression,
     Ridge,
     RidgeClassifier,
+    SGDClassifier,
 )
 from .tree import (
     DecisionTreeClassifier,
@@ -34,4 +35,5 @@ __all__ = [
     "RandomTreesEmbedding",
     "Ridge",
     "RidgeClassifier",
+    "SGDClassifier",
 ]

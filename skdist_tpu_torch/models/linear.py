@@ -1,6 +1,7 @@
 """
-Linear estimator kernels of the port: logistic regression and the ridge
-family (``Ridge``, ``LinearRegression``, ``RidgeClassifier``).
+Linear estimator kernels of the port: logistic regression, the
+mini-batch SGD classifier and the ridge family (``Ridge``,
+``LinearRegression``, ``RidgeClassifier``).
 
 Counterpart of ``skdist_tpu/models/linear.py``. The estimator is built
 around batched fit kernels: ``_build_fit_kernel(meta, static)`` returns
@@ -36,10 +37,14 @@ from .solvers import (
     lbfgs_carry_restart,
     lbfgs_minimize,
     lbfgs_resume,
+    sgd_carry_init,
+    sgd_carry_restart,
+    sgd_minimize,
+    sgd_resume,
 )
 
-__all__ = ["LogisticRegression", "Ridge", "LinearRegression",
-           "RidgeClassifier"]
+__all__ = ["LogisticRegression", "SGDClassifier", "Ridge",
+           "LinearRegression", "RidgeClassifier"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
 
@@ -435,7 +440,33 @@ class _LbfgsFitMixin:
         }
 
 
-class LogisticRegression(_LbfgsFitMixin, _LinearClassifierBase):
+class _ProbaMixin:
+    """Probabilities from the decision: the sigmoid of a binary model's
+    one column, the softmax of a multiclass model's k columns (the JAX
+    package's ``_build_proba_kernel``)."""
+
+    @classmethod
+    def _build_proba_kernel(cls, meta, static):
+        decision = cls._build_decision_kernel(meta, static)
+        binary = meta["n_classes"] <= 2
+
+        def proba(W, X):
+            z = decision(W, X)
+            if binary:
+                p1 = torch.sigmoid(z)
+                return torch.stack([1.0 - p1, p1], dim=-1)
+            return torch.softmax(z, dim=-1)
+
+        return proba
+
+    def predict_proba(self, X):
+        return self._device_outputs(X, "proba")
+
+    def predict_log_proba(self, X):
+        return np.log(np.clip(self.predict_proba(X), 1e-15, None))
+
+
+class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
     """L2 multinomial / binary logistic regression via batched L-BFGS.
 
     The JAX package's constructor arguments, plus ``device`` (the card
@@ -548,27 +579,6 @@ class LogisticRegression(_LbfgsFitMixin, _LinearClassifierBase):
 
         return problem
 
-    @classmethod
-    def _build_proba_kernel(cls, meta, static):
-        decision = cls._build_decision_kernel(meta, static)
-        binary = meta["n_classes"] <= 2
-
-        def proba(W, X):
-            z = decision(W, X)
-            if binary:
-                p1 = torch.sigmoid(z)
-                return torch.stack([1.0 - p1, p1], dim=-1)
-            return torch.softmax(z, dim=-1)
-
-        return proba
-
-    def predict_proba(self, X):
-        return self._device_outputs(X, "proba")
-
-    def predict_log_proba(self, X):
-        return np.log(np.clip(self.predict_proba(X), 1e-15, None))
-
-
 def _check_static(st):
     """Reject the static settings whose engines are not ported yet (and
     invalid ones set through ``set_params``)."""
@@ -590,6 +600,359 @@ def _check_static(st):
             "engine='host' (the f64 host engine) is not ported to "
             f"skdist_tpu_torch yet ({_ROADMAP})"
         )
+
+
+# --------------------------------------------------------------------------
+# SGDClassifier (mini-batch SGD, epoch-sliced)
+# --------------------------------------------------------------------------
+
+#: float32 vectors of a dataset's length one SGD lane holds at its peak,
+#: beside its scoring pass: the fold-masked and class-weighted fit weights,
+#: the epoch's gathered weights, and its own row order (int64, two) when
+#: lanes read different epochs
+_SGD_ROW_VECTORS = 5
+
+#: how the losses' derivative in z and their value read, per element, with
+#: the targets ``ypm`` in {-1, +1}
+_SGD_LOSSES = {
+    "hinge": (
+        lambda z, ypm: torch.where(ypm * z < 1.0, -ypm, 0.0),
+        lambda z, ypm: torch.clamp(1.0 - ypm * z, min=0.0),
+    ),
+    "log_loss": (
+        lambda z, ypm: -ypm * torch.sigmoid(-ypm * z),
+        lambda z, ypm: F.softplus(-ypm * z),
+    ),
+    "squared_hinge": (
+        lambda z, ypm: torch.where(ypm * z < 1.0,
+                                   -2.0 * ypm * (1.0 - ypm * z), 0.0),
+        lambda z, ypm: torch.clamp(1.0 - ypm * z, min=0.0) ** 2,
+    ),
+}
+
+
+class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
+    """Mini-batch SGD linear classifier (hinge, log_loss, squared_hinge):
+    the JAX package's fixed-shape redesign of sklearn's sample-at-a-time
+    SGD, with its constructor arguments and defaults plus ``device`` (the
+    card unless ``"cpu"``).
+
+    ``alpha``, ``eta0``, ``l1_ratio`` and ``tol`` ride the task axis, so
+    a randomized search over them runs as one batch of lanes. Each epoch
+    visits ``ceil(n / batch_size)`` batches of ``batch_size`` rows (the
+    last wraps around to the first rows); a step is the weighted mean
+    gradient of its batch (a fold's held-out rows weigh 0 and keep their
+    slots; the mean divides by the batch's live weight, at least
+    1e-12), plus ``alpha * (1 - l1_ratio)`` (``alpha`` for ``"l2"``)
+    times the coefficients, at the schedule's rate:
+
+    - ``"optimal"``: ``1 / (1 + alpha * batch_size * (t + 1))`` after t
+      steps, in float32 from the integer step count;
+    - ``"invscaling"``: ``eta0 / sqrt(t + 1)``; otherwise ``eta0``.
+
+    L1 and elastic-net apply the truncated-gradient cumulative penalty
+    after each step (exact zeros stay zero). Early stopping follows the
+    JAX package: the epoch's mean batch loss, each read *after* its
+    batch's update, must beat ``best - tol`` within ``n_iter_no_change``
+    epochs or the lane stops; ``tol=None`` runs every epoch. ``n_iter_``
+    is the epochs run. The rows' order is drawn from the port's counter
+    hash (``utils/draws.py epoch_permutation``), not ``jax.random``, so
+    shuffled fits agree with the JAX package's statistically; with
+    ``shuffle=False`` (or the JAX permutation injected there) they agree
+    to float32 rounding. ``predict_proba`` (``loss="log_loss"`` only) is
+    the sigmoid, or for k > 2 classes the softmax of the k one-vs-all
+    decisions, as in the JAX package. SGD over packed sparse X is not
+    ported yet (ROADMAP.md).
+    """
+
+    _hyper_names = ("alpha", "eta0", "l1_ratio", "tol")
+    _static_names = (
+        "max_iter", "fit_intercept", "class_weight", "loss", "penalty",
+        "learning_rate", "batch_size", "random_state",
+        "n_iter_no_change", "shuffle",
+    )
+
+    #: the scheduler gates' marker (``parallel.iterative_fit_supported``)
+    _supports_sliced_fit = True
+
+    #: rounds the compacted path aims at: one. A step's cost is its
+    #: ~20 launches whatever the lanes, so the fewest rounds take the
+    #: least time
+    _compacted_rounds = 1
+
+    def __init__(self, loss="hinge", penalty="l2", alpha=1e-4, l1_ratio=0.15,
+                 max_iter=20, tol=1e-3, fit_intercept=True, eta0=0.01,
+                 learning_rate="optimal", class_weight=None, random_state=0,
+                 batch_size=64, n_iter_no_change=5, shuffle=True,
+                 device=None):
+        self.loss = loss
+        self.penalty = penalty
+        self.alpha = alpha
+        self.l1_ratio = l1_ratio
+        self.max_iter = max_iter
+        self.tol = tol
+        self.fit_intercept = fit_intercept
+        self.eta0 = eta0
+        self.learning_rate = learning_rate
+        self.class_weight = class_weight
+        self.random_state = random_state
+        self.batch_size = batch_size
+        self.n_iter_no_change = n_iter_no_change
+        self.shuffle = shuffle
+        self.device = device
+
+    def _check_supported(self):
+        _check_sgd_static(self._static_config({}))
+
+    @classmethod
+    def _flat_w_width(cls, meta, static):
+        st = dict(static)
+        p = meta["n_features"] + (1 if st["fit_intercept"] else 0)
+        k = meta.get("n_classes", 2)
+        return p if k <= 2 else p * k
+
+    @classmethod
+    def _batched_task_cost(cls, hyper):
+        """Per-task cost heuristic for ordering the task axis: weak
+        regularisation (small ``alpha``) and a tight ``tol`` both mean
+        more epochs before the no-improvement rule fires; ``tol <= 0``
+        (``tol=None``) never stops early and sorts last."""
+        alpha = np.asarray(hyper.get("alpha", 1e-4), dtype=np.float64)
+        tol = np.asarray(hyper.get("tol", 1e-3), dtype=np.float64)
+        cost = -np.log(np.maximum(alpha, 1e-30)) - np.where(
+            tol > 0, np.log(np.where(tol > 0, tol, 1.0)), -np.inf
+        )
+        return np.broadcast_to(
+            cost, np.broadcast_shapes(alpha.shape, tol.shape))
+
+    @classmethod
+    def _batched_task_bytes(cls, meta, static, n):
+        """Device bytes one lane of a round holds at its peak: its
+        dataset-length weight and order vectors, its flat weights and
+        penalty state, the ``(batch, k)`` step temporaries over its
+        gathered ``(batch, p)`` rows, and the ``(n, k)`` scoring pass."""
+        st = dict(static)
+        k = meta["n_classes"]
+        p = meta["n_features"] + (1 if st["fit_intercept"] else 0)
+        bs = int(st["batch_size"])
+        flat = cls._flat_w_width(meta, static) * 4
+        return (_SGD_ROW_VECTORS * n * 4 + 8 * flat
+                + bs * (p + 8 * max(k, 2)) * 4 + 10 * n * max(k, 2) * 4)
+
+    @classmethod
+    def _batched_round_bytes(cls, meta, static, n):
+        """Device bytes a round holds once: an epoch's row order and the
+        hash keys and sort it is drawn from (int64 over the padded
+        rows)."""
+        bs = int(dict(static)["batch_size"])
+        return 4 * (-(-n // bs) * bs) * 8
+
+    @classmethod
+    def _build_fit_problem(cls, meta, static):
+        """The SGD problem of a lane batch, built once per ``(meta,
+        static)``: ``problem(op, y_idx, sw, hyper)`` returns the dict
+        :func:`~skdist_tpu_torch.models.solvers.sgd_resume` reads (the
+        batches, gradient, loss, schedule and post-step of the lanes),
+        with ``W0`` and ``unpack``; the plain and the epoch-sliced
+        kernels consume the same one."""
+        st = dict(static)
+        _check_sgd_static(st)
+        if meta.get("x_format") == "packed":
+            raise NotImplementedError(
+                "SGDClassifier over packed sparse X is not ported to "
+                f"skdist_tpu_torch yet ({_ROADMAP})")
+        k = meta["n_classes"]
+        d = meta["n_features"]
+        fit_intercept = st["fit_intercept"]
+        penalty = st["penalty"]
+        lr_kind = st["learning_rate"]
+        bs = int(st["batch_size"])
+        class_weight, cw_arr = st["class_weight"], meta.get("cw_arr")
+        n_out = 1 if k <= 2 else k
+        dloss, ploss = _SGD_LOSSES[st["loss"]]
+
+        def problem(op, y_idx, sw, hyper):
+            alpha, eta0, l1_ratio = (hyper["alpha"], hyper["eta0"],
+                                     hyper["l1_ratio"])
+            T, p, n = sw.shape[0], op.p, op.n
+            n_batches = -(-n // bs)
+            sw_full = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
+            if n_out == 1:
+                Ypm = torch.where(y_idx == (k - 1), 1.0, -1.0)[:, None]
+            else:
+                Ypm = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
+            Ypm = Ypm.to(op.dtype)
+
+            def batches(rows):
+                # the epoch's gathered weights and each batch's live
+                # weight (a sum over one contiguous 64-float row)
+                rows = rows.reshape(T, n_batches, bs)
+                wts = sw_full.gather(1, rows.reshape(T, -1)).view(
+                    T, n_batches, bs)
+                denom = torch.clamp(wts.sum(2), min=1e-12)
+
+                def batch(b):
+                    idx = rows[:, b]
+                    return (op.row_batch(idx), Ypm[idx], wts[:, b],
+                            denom[:, b])
+
+                return n_batches, batch
+
+            def loss_fn(wflat, xb):
+                # weighted mean DATA loss of one batch (penalty
+                # excluded, as sklearn's no-validation early stopping
+                # tracks it); multiclass sums its k binary columns
+                rows, yb, wb, denom = xb
+                z = op.row_matvec(rows, wflat.view(T, p, n_out))
+                per = ploss(z, yb).sum(2) * wb
+                return per.sum(1) / denom
+
+            if penalty in ("l2", "elasticnet"):
+                l2 = alpha * (1.0 if penalty == "l2" else 1.0 - l1_ratio)
+            else:
+                l2 = None
+
+            def grad_fn(wflat, xb):
+                rows, yb, wb, denom = xb
+                W = wflat.view(T, p, n_out)
+                g_z = dloss(op.row_matvec(rows, W), yb) * wb[:, :, None]
+                g = op.row_rmatvec(rows, g_z) / denom[:, None, None]
+                if l2 is not None:
+                    g[:, :d] += l2[:, None, None] * W[:, :d]
+                return g.view(T, -1)
+
+            if lr_kind == "optimal":
+                # the JAX package's batch-adapted Bottou schedule: the
+                # step starts near 1 and decays in sample time
+                rate = alpha * bs
+
+                def lr_fn(t):
+                    return 1.0 / (1.0 + rate[:, None] * (t + 1.0))
+            elif lr_kind == "invscaling":
+                def lr_fn(t):
+                    return eta0[:, None] / (t + 1.0) ** 0.5
+            else:  # constant
+                def lr_fn(t):
+                    return eta0[:, None] * torch.ones_like(t, dtype=op.dtype)
+
+            post_step = None
+            if penalty in ("l1", "elasticnet"):
+                l1_mul = 1.0 if penalty == "l1" else l1_ratio
+
+                def post_step(wflat, state, lr):
+                    # truncated-gradient L1 (Tsuruoka et al.'s cumulative
+                    # penalty): u is the penalty rate accrued, q what each
+                    # weight has absorbed; weights are clipped toward zero
+                    # by the deficit, and exact zeros stay put (the
+                    # intercept row is not penalised)
+                    u, q = state
+                    u = u + lr * alpha * l1_mul
+                    W = wflat.view(T, p, n_out)
+                    Q = q.view(T, p, n_out).clone()
+                    z, uu, qd = W[:, :d], u[:, None, None], Q[:, :d]
+                    w_trunc = torch.where(
+                        z > 0, torch.clamp(z - (uu + qd), min=0.0),
+                        torch.where(z < 0,
+                                    torch.clamp(z + (uu - qd), max=0.0), z))
+                    qd += w_trunc - z
+                    z.copy_(w_trunc)
+                    return wflat, (u, Q.view(T, -1))
+
+            def unpack(w, n_epochs):
+                W = w.view(T, p, n_out)
+                return {"W": W[..., 0] if n_out == 1 else W,
+                        "n_iter": n_epochs}
+
+            return {
+                "n": n, "batches": batches, "grad_fn": grad_fn,
+                "loss_fn": loss_fn, "lr_fn": lr_fn, "post_step": post_step,
+                "W0": torch.zeros((T, p * n_out), dtype=op.dtype,
+                                  device=sw.device),
+                "unpack": unpack,
+            }
+
+        return problem
+
+    @classmethod
+    def _solve_args(cls, static):
+        st = dict(static)
+        return dict(max_epochs=st["max_iter"], batch_size=int(st["batch_size"]),
+                    seed=st["random_state"] or 0,
+                    shuffle=bool(st["shuffle"]),
+                    n_iter_no_change=int(st["n_iter_no_change"]))
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        problem = cls._build_fit_problem(meta, static)
+        args = cls._solve_args(static)
+
+        def kernel(op, y_idx, sw, hyper):
+            pb = problem(op, y_idx, sw, hyper)
+            w, n_epochs = sgd_minimize(pb, pb["W0"], hyper["tol"], **args)
+            return pb["unpack"](w, n_epochs)
+
+        return kernel
+
+    @classmethod
+    def _build_fit_slice_kernels(cls, meta, static, n_slice):
+        """The epoch-sliced fit (slice unit: one epoch), each kernel over
+        a batch of ``T`` lanes ``(op, y_idx, sw, hyper, ...)`` as the
+        plain kernel; the same contract as
+        :meth:`_LbfgsFitMixin._build_fit_slice_kernels`. ``init`` runs no
+        epoch, so a lane started by ``restart`` runs exactly the epochs
+        of one started by ``init``; chained ``step`` calls are bitwise
+        the unsliced solve. ``converged`` means the lane stopped by
+        ``tol`` before ``max_iter`` epochs, and the scheduler counts a
+        lane's epochs in ``n_done`` (``iter_key``): the epoch clock
+        ``it`` runs on in frozen lanes."""
+        problem = cls._build_fit_problem(meta, static)
+        args = cls._solve_args(static)
+        max_iter = args["max_epochs"]
+        n_slice = int(n_slice)
+
+        def init(op, y_idx, sw, hyper):
+            return sgd_carry_init(problem(op, y_idx, sw, hyper)["W0"])
+
+        def restart(op, y_idx, sw, hyper, carry, slots):
+            w0 = problem(op, y_idx, sw, hyper)["W0"]
+            return sgd_carry_restart(carry, slots, w0.index_select(0, slots))
+
+        def step(op, y_idx, sw, hyper, carry):
+            pb = problem(op, y_idx, sw, hyper)
+            return sgd_resume(pb, carry, n_slice, hyper["tol"], **args)
+
+        def finalize(op, y_idx, sw, hyper, carry):
+            pb = problem(op, y_idx, sw, hyper)
+            return pb["unpack"](carry_iterate(carry), carry["n_done"])
+
+        def converged(op, y_idx, sw, hyper, carry):
+            return carry["n_done"] < max_iter
+
+        return {
+            "init": init, "restart": restart, "step": step,
+            "finalize": finalize, "finalize_keys": ("w", "n_done"),
+            "score_params": finalize, "converged": converged,
+            "max_iter": max_iter, "iter_key": "n_done",
+        }
+
+    def predict_proba(self, X):
+        if self.loss != "log_loss":
+            raise AttributeError(
+                "predict_proba is only available with loss='log_loss'")
+        return super().predict_proba(X)
+
+
+def _check_sgd_static(st):
+    """Reject invalid SGD settings (also those set through
+    ``set_params``)."""
+    if st.get("loss", "hinge") not in _SGD_LOSSES:
+        raise ValueError(f"unsupported loss {st.get('loss')!r}")
+    if int(st.get("n_iter_no_change", 5)) < 1:
+        # sklearn raises for this too; freezing after the first epoch
+        # would under-train the model
+        raise ValueError(
+            "n_iter_no_change must be >= 1; got "
+            f"{st.get('n_iter_no_change')}")
 
 
 # --------------------------------------------------------------------------

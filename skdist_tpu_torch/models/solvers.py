@@ -1,5 +1,5 @@
 """
-Batched L-BFGS for the linear-model fits.
+Batched L-BFGS and mini-batch SGD for the linear-model fits.
 
 Counterpart of ``skdist_tpu/models/solvers.py``'s ``lbfgs_minimize``.
 The JAX package runs one fit per ``vmap`` lane of a ``lax.while_loop``;
@@ -34,9 +34,20 @@ some lanes of a fixed-shape carry afresh in place (a freed slot taking a
 new task), and :func:`carry_iterate` is the live iterate a rung scores.
 Every per-lane value is computed on the carry's full ``(T, ...)``
 tensors, so a lane's bits do not depend on its slot or its neighbours.
+
+The SGD half (:func:`sgd_minimize` and its carry form) is the counterpart
+of the JAX package's ``sgd_*`` solvers: the same per-lane update, epoch
+freeze and early-stopping rule, over a task axis written out. Each lane
+reads its own batch rows (an epoch's row order is keyed by the lane's
+global epoch index, which differs between lanes once a freed slot is
+restarted), so a step gathers a ``(T, batch, p)`` block; the products
+are batched matmuls.
 """
 
+import numpy as np
 import torch
+
+from ..utils import draws
 
 _EPS = 1e-12
 
@@ -232,3 +243,168 @@ def lbfgs_minimize(fun, w0, tol=1e-4, max_iter=100, history=10, max_ls=20):
     carry = lbfgs_resume(fun, carry, max_iter, tol, max_iter=max_iter,
                          history=history, max_ls=max_ls)
     return carry["w"], carry["it"]
+
+
+# ---------------------------------------------------------------------------
+# SGD
+# ---------------------------------------------------------------------------
+
+#: order of the SGD carry leaves: the JAX package's, with its post-step
+#: pytree ``pstate`` written out as ``u`` (the L1 penalty rate accrued,
+#: ``(T,)``) and ``q`` (what each weight has absorbed of it, ``(T, P)``);
+#: both stay zero without an L1 term
+SGD_CARRY_KEYS = ("w", "u", "q", "step", "best", "bad", "n_done", "it",
+                  "done")
+
+
+def sgd_batch_scan(grad_fn, learning_rate_fn, post_step, loss_fn, carry4,
+                   n_batches, batch):
+    """Advance the ``(w, pstate, step, acc)`` quadruple of a lane batch
+    over ``n_batches`` mini-batches, ``batch(b)`` giving the b-th: the
+    JAX package's inner loop. Each step is ``w - lr * grad``, then the
+    post-step (the L1 truncation), then the batch's loss after the
+    update added to ``acc``. The rates of the epoch's steps come from
+    one call of ``learning_rate_fn`` over the ``(T, n_batches)`` step
+    counts: the same elementwise float32 ops as one step at a time. No
+    host read."""
+    w, pstate, step, acc = carry4
+    counts = step[:, None] + torch.arange(n_batches, device=step.device)
+    rates = learning_rate_fn(counts)  # (T, n_batches)
+    for b in range(n_batches):
+        xb = batch(b)
+        lr = rates[:, b]
+        w = w - lr[:, None] * grad_fn(w, xb)
+        if post_step is not None:
+            w, pstate = post_step(w, pstate, lr)
+        acc = acc + loss_fn(w, xb)
+    return w, pstate, step + n_batches, acc
+
+
+def _lane_orders(carry, seed, n_samples, padded, max_epochs, shuffle):
+    """Each lane's row order for its next epoch, ``(T, padded)`` int64
+    (an expanded view when every lane reads one order), or None when no
+    lane is live. The one host read of an epoch: the lanes' epoch clocks
+    and done flags. A frozen lane borrows a live lane's order (its
+    update is discarded), so an epoch draws one order per distinct live
+    epoch; the resident regime's lanes share one."""
+    it, done = carry["it"], carry["done"]
+    T, device = it.shape[0], it.device
+    host = torch.stack([it, done.to(torch.int64)]).cpu().numpy()
+    live = (host[1] == 0) & (host[0] < max_epochs)
+    if not live.any():
+        return None
+    if not shuffle:
+        order = torch.arange(padded, device=device) % n_samples
+        return order.expand(T, padded)
+    epochs = np.where(live, host[0], host[0][live][0])
+    uniq, pos = np.unique(epochs, return_inverse=True)
+    orders = [draws.epoch_permutation(seed, e, padded, n_samples, device)
+              for e in uniq]
+    if len(orders) == 1:
+        return orders[0].expand(T, padded)
+    return torch.stack(orders).index_select(
+        0, torch.as_tensor(pos, device=device))
+
+
+def _sgd_epoch_body(problem, max_epochs, tol, n_iter_no_change):
+    """One SGD epoch on a carry, given each lane's row order: the JAX
+    package's epoch. Frozen lanes (stopped early, or at ``max_epochs``)
+    keep every leaf but their epoch clock ``it``; the mean post-update
+    batch loss of the epoch must beat ``best - tol`` within
+    ``n_iter_no_change`` epochs or the lane stops (a ``tol`` of -inf,
+    sklearn's ``tol=None``, never stops one)."""
+
+    def epoch(carry, rows):
+        w, u, q, step, best, bad, n_done, it, done = (
+            carry[key] for key in SGD_CARRY_KEYS)
+        n_batches, batch = problem["batches"](rows)
+        w_new, (u_new, q_new), step_new, acc = sgd_batch_scan(
+            problem["grad_fn"], problem["lr_fn"], problem["post_step"],
+            problem["loss_fn"], (w, (u, q), step, torch.zeros_like(best)),
+            n_batches, batch)
+        keep = done | (it >= max_epochs)
+        loss = acc / n_batches
+        bad_new = torch.where(loss < best - tol, 0, bad + 1)
+        stopped = bad_new >= n_iter_no_change
+        best_new = torch.minimum(best, loss)
+        it_new = torch.where(it >= max_epochs, it, it + 1)
+        col = keep[:, None]
+        return dict(zip(SGD_CARRY_KEYS, (
+            torch.where(col, w, w_new),
+            torch.where(keep, u, u_new),
+            torch.where(col, q, q_new),
+            torch.where(keep, step, step_new),
+            torch.where(keep, best, best_new),
+            torch.where(keep, bad, bad_new),
+            torch.where(keep, n_done, n_done + 1),
+            it_new,
+            keep | stopped | (it_new >= max_epochs),
+        )))
+
+    return epoch
+
+
+def sgd_carry_init(w0):
+    """Initial SGD carry (dict over :data:`SGD_CARRY_KEYS`) for the lane
+    weights ``w0 (T, P)``; no epoch is run."""
+    T, device = w0.shape[0], w0.device
+    count = torch.zeros(T, dtype=torch.int64, device=device)
+    return dict(zip(SGD_CARRY_KEYS, (
+        w0.clone(), torch.zeros(T, dtype=w0.dtype, device=device),
+        torch.zeros_like(w0), count,
+        torch.full((T,), float("inf"), dtype=w0.dtype, device=device),
+        count.clone(), count.clone(), count.clone(),
+        torch.zeros(T, dtype=torch.bool, device=device),
+    )))
+
+
+def sgd_carry_restart(carry, slots, w0):
+    """Start the lanes at ``slots`` (an int64 tensor of slot ids) of an
+    SGD carry afresh, in place: weights ``w0`` (one row a slot) and every
+    other leaf as :func:`sgd_carry_init` sets it (penalty state, step
+    and epoch counts zero, ``best`` infinite, not done). The counterpart
+    of :func:`lbfgs_carry_restart` for the refill regime."""
+    carry["w"].index_copy_(0, slots, w0.to(carry["w"].dtype))
+    for key in ("u", "q", "step", "bad", "n_done", "it"):
+        carry[key].index_fill_(0, slots, 0)
+    carry["best"].index_fill_(0, slots, float("inf"))
+    carry["done"].index_fill_(0, slots, False)
+    return carry
+
+
+def sgd_resume(problem, carry, n_steps, tol, max_epochs, batch_size, seed=0,
+               shuffle=True, n_iter_no_change=5):
+    """Advance an SGD carry by at most ``n_steps`` epochs; stopped lanes
+    (and lanes at ``max_epochs``) freeze in place, and the loop ends
+    early once no lane is live (no leaf but the frozen lanes' epoch
+    clock would change). Each epoch's row order is keyed by the lane's
+    global epoch index, so slice boundaries cannot change it. ``tol`` is
+    a scalar or a ``(T,)`` tensor.
+
+    ``problem`` is the dict of the fit problem: ``n`` (rows),
+    ``batches(rows) -> (n_batches, batch)`` (the epoch's batches from
+    the lanes' ``(T, padded)`` row orders), ``grad_fn(w, xb)``,
+    ``loss_fn(w, xb)`` (the weighted mean batch data loss, ``(T,)``),
+    ``lr_fn(step counts)`` and ``post_step(w, (u, q), lr)`` or None."""
+    n = problem["n"]
+    padded = -(-n // batch_size) * batch_size
+    epoch = _sgd_epoch_body(problem, max_epochs, tol, n_iter_no_change)
+    for _ in range(int(n_steps)):
+        rows = _lane_orders(carry, seed, n, padded, max_epochs, shuffle)
+        if rows is None:
+            break
+        carry = epoch(carry, rows)
+    return carry
+
+
+def sgd_minimize(problem, w0, tol, max_epochs, batch_size, seed=0,
+                 shuffle=True, n_iter_no_change=5):
+    """Mini-batch SGD of ``T`` independent lanes from ``w0 (T, P)``:
+    :func:`sgd_carry_init` plus one ``max_epochs``-long
+    :func:`sgd_resume`, so epoch-sliced runs share its exact sequence.
+    Fixed-shape batches: the ``n`` rows are padded up to whole batches
+    with wrap-around indices. Returns ``(w (T, P), n_epochs (T,))``."""
+    carry = sgd_resume(problem, sgd_carry_init(w0), max_epochs, tol,
+                       max_epochs, batch_size, seed=seed, shuffle=shuffle,
+                       n_iter_no_change=n_iter_no_change)
+    return carry["w"], carry["n_done"]

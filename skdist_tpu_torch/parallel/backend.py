@@ -107,7 +107,7 @@ class IterativeKernelSpec:
 
     - ``init(shared, task) -> carry``: start every lane's solve. The
       ``done_key`` leaf (bool) means "no further step changes this
-      lane", and the ``"it"`` leaf counts its iterations.
+      lane", and the ``iter_key`` leaf counts its iterations.
     - ``restart(shared, task, carry, slots) -> carry``: start the lanes
       at ``slots`` (an int64 tensor) afresh, in place, from ``task``'s
       rows there; the other lanes are untouched.
@@ -120,16 +120,20 @@ class IterativeKernelSpec:
     - ``converged(shared, task, carry) -> (chunk,) bool`` and
       ``max_iter`` (optional): tell a lane that converged from one that
       stalled or ran out of iterations, for the round stats.
+    - ``iter_key``: the carry leaf that counts a lane's iterations
+      (``"it"``; SGD's epoch clock runs on in frozen lanes, so it names
+      ``"n_done"``), read for the round stats.
     - ``fallback``: the classic all-iterations kernel with the same
       outputs, run when the slice loop cannot be.
     """
 
     __slots__ = ("init", "restart", "step", "finalize", "finalize_keys",
-                 "done_key", "fallback", "score", "converged", "max_iter")
+                 "done_key", "fallback", "score", "converged", "max_iter",
+                 "iter_key")
 
     def __init__(self, init, restart, step, finalize, finalize_keys,
                  done_key="done", fallback=None, score=None, converged=None,
-                 max_iter=None):
+                 max_iter=None, iter_key="it"):
         self.init = init
         self.restart = restart
         self.step = step
@@ -140,6 +144,7 @@ class IterativeKernelSpec:
         self.score = score
         self.converged = converged
         self.max_iter = max_iter
+        self.iter_key = iter_key
 
 
 class RungController:
@@ -632,7 +637,8 @@ class _SliceLoop:
         """The one host copy of a round a slice: done flags, iteration
         counts and (where the spec has it) the convergence test."""
         spec, c = self.spec, r.carry
-        parts = [c[spec.done_key].to(torch.int64), c["it"].to(torch.int64)]
+        parts = [c[spec.done_key].to(torch.int64),
+                 c[spec.iter_key].to(torch.int64)]
         if spec.converged is not None:
             parts.append(spec.converged(self.shared, r.task, c)
                          .to(torch.int64))

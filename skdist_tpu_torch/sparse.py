@@ -326,6 +326,32 @@ class LinearOperator:
         return packed_rmatvec(self.pidx, self.pval, r, self.p,
                               columns=self.columns)
 
+    def row_batch(self, idx):
+        """The rows ``idx`` of ``X~`` (an index tensor of any shape, such
+        as one ``(T, B)`` mini-batch a lane) as one gathered block, which
+        :meth:`row_matvec` and :meth:`row_rmatvec` take: the SGD step
+        gathers its batch once for its three products. Dense X only: SGD
+        over packed X is not ported yet (ROADMAP.md, queue 1, with
+        config 3)."""
+        if self.Xa is None:
+            raise NotImplementedError(
+                "mini-batch rows of packed X (SGD over sparse input) are "
+                "not ported to skdist_tpu_torch yet (see ROADMAP.md, "
+                "queue 1)"
+            )
+        return self.Xa[idx]
+
+    @staticmethod
+    def row_matvec(rows, W):
+        """``X~[idx] @ W`` of a :meth:`row_batch` block; ``(T, B, p)``
+        rows take ``(T, p, k)`` weights."""
+        return rows @ W
+
+    @staticmethod
+    def row_rmatvec(rows, g):
+        """``X~[idx].T @ g`` of a :meth:`row_batch` block."""
+        return rows.mT @ g
+
     def gram_pairs(self):
         """The pair table K3 reads (packed X on the card), built once per
         operator at the first call; None for dense X or on the CPU."""

@@ -1,20 +1,29 @@
-"""CV splitters and the parameter grid of the search.
+"""CV splitters, the parameter grid and the parameter sampler of the
+searches.
 
 The card's machine has no scikit-learn, so the port carries the pieces
-of ``sklearn.model_selection`` that ``DistGridSearchCV`` uses:
-:class:`KFold`, :class:`StratifiedKFold`, :func:`check_cv` and
-:class:`ParameterGrid`. They give the same splits and the same candidate
-order as scikit-learn 1.x (with ``shuffle=False``, and with an integer
-``random_state`` when shuffling). Any object with a ``split`` method, or
-an iterable of ``(train, test)`` pairs, is accepted as ``cv``.
+of ``sklearn.model_selection`` that ``DistGridSearchCV`` and
+``DistRandomizedSearchCV`` use: :class:`KFold`, :class:`StratifiedKFold`,
+:func:`check_cv`, :class:`ParameterGrid` and :class:`ParameterSampler`
+(with ``sample_without_replacement`` of ``sklearn.utils.random``). They
+give the same splits, the same candidate order and the same sampled
+candidates as scikit-learn 1.9 (with ``shuffle=False``, and with an
+integer ``random_state`` when shuffling): the sampler makes the same
+``numpy.random.RandomState`` calls in the same order. Any object with a
+``split`` method, or an iterable of ``(train, test)`` pairs, is accepted
+as ``cv``.
 """
 
+import numbers
 import warnings
+from collections.abc import Iterable, Mapping
 from itertools import product
 
 import numpy as np
 
-__all__ = ["KFold", "StratifiedKFold", "check_cv", "ParameterGrid"]
+__all__ = ["KFold", "StratifiedKFold", "check_cv", "ParameterGrid",
+           "ParameterSampler", "check_random_state",
+           "sample_without_replacement"]
 
 
 def _is_discrete_target(y):
@@ -211,3 +220,150 @@ class ParameterGrid:
                 size *= len(v)
             total += size
         return total
+
+    def __getitem__(self, ind):
+        """The ``ind``-th candidate of the iteration order, without
+        building the others (how the sampler draws without
+        replacement)."""
+        for grid in self.param_grid:
+            if not grid:
+                if ind == 0:
+                    return {}
+                ind -= 1
+                continue
+            # the last sorted key cycles fastest
+            keys, values = zip(*sorted(grid.items())[::-1])
+            sizes = [len(v) for v in values]
+            total = int(np.prod(sizes))
+            if ind >= total:
+                ind -= total
+                continue
+            out = {}
+            for key, vals, size in zip(keys, values, sizes):
+                ind, offset = divmod(ind, size)
+                out[key] = vals[offset]
+            return out
+        raise IndexError("ParameterGrid index out of range")
+
+
+def check_random_state(seed):
+    """``None`` (numpy's global RandomState), an int or a RandomState ->
+    a ``numpy.random.RandomState``, as scikit-learn's."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, numbers.Integral):
+        return np.random.RandomState(seed)
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(
+        f"{seed!r} cannot be used to seed a numpy.random.RandomState "
+        "instance"
+    )
+
+
+def sample_without_replacement(n_population, n_samples, random_state=None):
+    """``n_samples`` distinct integers of ``[0, n_population)``, drawn as
+    scikit-learn's ``method="auto"`` draws them: a permutation when the
+    ratio ``n_samples / n_population`` lies strictly between 0.01 and
+    0.99, else tracking selection below a ratio of 0.2 and reservoir
+    sampling from it."""
+    n_population, n_samples = int(n_population), int(n_samples)
+    if n_population < 0:
+        raise ValueError(
+            f"n_population should be greater than 0, got {n_population}.")
+    if n_samples > n_population:
+        raise ValueError(
+            "n_population should be greater or equal than n_samples, got "
+            f"n_samples > n_population ({n_samples} > {n_population})")
+    rng = check_random_state(random_state)
+    ratio = n_samples / n_population if n_population != 0 else 1.0
+    if 0.01 < ratio < 0.99:
+        return rng.permutation(n_population)[:n_samples]
+    out = np.empty(n_samples, dtype=int)
+    if ratio < 0.2:  # tracking selection
+        selected = set()
+        for i in range(n_samples):
+            j = rng.randint(n_population)
+            while j in selected:
+                j = rng.randint(n_population)
+            selected.add(j)
+            out[i] = j
+    else:  # reservoir sampling
+        out[:] = np.arange(n_samples)
+        for i in range(n_samples, n_population):
+            j = rng.randint(0, i + 1)
+            if j < n_samples:
+                out[j] = i
+    return out
+
+
+class ParameterSampler:
+    """``n_iter`` candidates drawn from a dict (or list of dicts) of
+    value lists and distributions (objects with ``rvs``), as
+    scikit-learn's ``ParameterSampler``: when every value is a list,
+    ``n_iter`` distinct grid points (capped at the grid's size, with a
+    warning) through :func:`sample_without_replacement`; otherwise, per
+    candidate, a dict drawn uniformly, then its keys in sorted order,
+    ``v.rvs(random_state=rng)`` for a distribution and
+    ``v[rng.randint(len(v))]`` for a list."""
+
+    def __init__(self, param_distributions, n_iter, *, random_state=None):
+        if not isinstance(param_distributions, (Mapping, Iterable)):
+            raise TypeError(
+                "Parameter distribution is not a dict or a list, got: "
+                f"{param_distributions!r} of type "
+                f"{type(param_distributions).__name__}"
+            )
+        if isinstance(param_distributions, Mapping):
+            param_distributions = [param_distributions]
+        for dist in param_distributions:
+            if not isinstance(dist, dict):
+                raise TypeError(f"Parameter distribution is not a dict ({dist!r})")
+            for key, value in dist.items():
+                if not isinstance(value, Iterable) and not hasattr(value, "rvs"):
+                    raise TypeError(
+                        f"Parameter grid for parameter {key!r} is not "
+                        f"iterable or a distribution (value={value})"
+                    )
+        self.n_iter = n_iter
+        self.random_state = random_state
+        self.param_distributions = param_distributions
+
+    def _is_all_lists(self):
+        return all(not hasattr(v, "rvs")
+                   for dist in self.param_distributions
+                   for v in dist.values())
+
+    def __iter__(self):
+        rng = check_random_state(self.random_state)
+        if self._is_all_lists():
+            grid = ParameterGrid(self.param_distributions)
+            grid_size = len(grid)
+            n_iter = self.n_iter
+            if grid_size < n_iter:
+                warnings.warn(
+                    f"The total space of parameters {grid_size} is smaller "
+                    f"than n_iter={self.n_iter}. Running {grid_size} "
+                    "iterations. For exhaustive searches, use "
+                    "GridSearchCV.",
+                    UserWarning,
+                )
+                n_iter = grid_size
+            for i in sample_without_replacement(grid_size, n_iter,
+                                                random_state=rng):
+                yield grid[i]
+            return
+        for _ in range(self.n_iter):
+            dist = rng.choice(self.param_distributions)
+            params = {}
+            for key, value in sorted(dist.items()):
+                if hasattr(value, "rvs"):
+                    params[key] = value.rvs(random_state=rng)
+                else:
+                    params[key] = value[rng.randint(len(value))]
+            yield params
+
+    def __len__(self):
+        if self._is_all_lists():
+            return min(self.n_iter, len(ParameterGrid(self.param_distributions)))
+        return self.n_iter

@@ -1,7 +1,9 @@
-"""Stateless counter-based random draws for the tree models.
+"""Stateless counter-based random draws for the tree models and the SGD
+shuffles.
 
 The JAX package draws bootstrap counts, ``max_features`` uniforms and
-ExtraTrees thresholds from ``jax.random`` keyed by each tree's seed.
+ExtraTrees thresholds from ``jax.random`` keyed by each tree's seed, and
+each SGD epoch's row order from ``jax.random.permutation``.
 The port cannot reproduce that stream; it draws from a hash of
 ``(seed, level, purpose, index)`` instead, in torch integer ops, so that
 
@@ -9,7 +11,10 @@ The port cannot reproduce that stream; it draws from a hash of
   one stream, not one per tree);
 - the CPU and the card draw identical numbers (integer ops only, and
   the one float conversion is exact);
-- OOB scoring regenerates each tree's bootstrap from its stored seed.
+- OOB scoring regenerates each tree's bootstrap from its stored seed;
+- an SGD epoch's row order is a function of ``(seed, epoch)`` alone
+  (:func:`epoch_permutation`), so slicing a solve into resumable parts,
+  or restarting a lane in another slot, cannot change it.
 
 The hash is the murmur3 32-bit finalizer chained over the key words.
 Values are uint32 held in int64 tensors: torch has no unsigned 64-bit
@@ -23,8 +28,10 @@ __all__ = [
     "BOOTSTRAP",
     "EXTRA_THRESHOLD",
     "FEATURE_SUBSET",
+    "SHUFFLE",
     "bits32",
     "bootstrap_counts",
+    "epoch_permutation",
     "uniform",
 ]
 
@@ -32,6 +39,8 @@ __all__ = [
 BOOTSTRAP = 1
 FEATURE_SUBSET = 2
 EXTRA_THRESHOLD = 3
+#: an SGD epoch's row order
+SHUFFLE = 4
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -91,3 +100,15 @@ def bootstrap_counts(seeds, n, dtype=torch.float32):
     flat = idx + torch.arange(T, device=seeds.device)[:, None] * n
     counts = torch.bincount(flat.reshape(-1), minlength=T * n)
     return counts.reshape(T, n).to(dtype)
+
+
+def epoch_permutation(seed, epoch, padded, n, device=None):
+    """The row order of SGD epoch ``epoch`` over ``padded`` slots (``n``
+    rows padded up to whole batches): the stable argsort of
+    :func:`bits32` over the slot counter, each slot then mapped to row
+    ``slot % n``, so the padding wraps around as in the JAX package.
+    Integer ops and a stable sort, so the CPU and the card give the same
+    order. Returns an int64 tensor of shape ``(padded,)``."""
+    keys = bits32(torch.tensor([int(seed)], device=device), int(epoch),
+                  SHUFFLE, torch.arange(padded, device=device))[0]
+    return torch.argsort(keys, stable=True) % n

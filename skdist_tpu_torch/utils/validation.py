@@ -1,10 +1,12 @@
 """Validation helpers (copies of the functions of
-``skdist_tpu/utils/validation.py`` that the search and the ensembles
+``skdist_tpu/utils/validation.py`` that the searches and the ensembles
 use)."""
 
 import numbers
 
 import numpy as np
+
+from .cv import ParameterGrid
 
 
 def full_length_sample_weight(fit_params, n):
@@ -32,6 +34,17 @@ def full_length_sample_weight(fit_params, n):
     if arr.ndim == 1 and arr.shape[0] == n:
         return arr, True
     return None, False
+
+
+def check_n_iter(n_iter, param_distributions):
+    """Cap ``n_iter`` at the size of the grid when every distribution is
+    a list (so the whole space can be enumerated); a dict or a list of
+    dicts."""
+    dists = ([param_distributions] if isinstance(param_distributions, dict)
+             else param_distributions)
+    if all(not hasattr(v, "rvs") for d in dists for v in d.values()):
+        return min(len(ParameterGrid(param_distributions)), n_iter)
+    return n_iter
 
 
 def check_is_fitted(estimator, attributes=None):
