@@ -2,6 +2,7 @@
 """Drive the PyTorch / H100 port (``skdist_tpu_torch``) on the card.
 
     python3 chip_smoke.py [--candidates N]
+    python3 chip_smoke.py --ab-sgd DIR [--pairs N] [--ab-rows N]
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -22,6 +23,22 @@ result line:
    ratio to the yardstick, and two readings of what sets each kernel's
    pace: K1 with every entry on one column (W in L2) and the time to
    write K2's output once, with K2's two passes split by the profiler.
+   Then K1 and K2 in per-lane row form (``packed_row_matvec``,
+   ``packed_row_rmatvec``, the SGD step's products) against their plain
+   versions: B not 64, m = 1, a row of padding only in every lane, T = 1
+   and T = 300, k = 1 and k = 20, a lane of more entries than one sorted
+   chunk, one column in every row (the Zipf head) and every entry on
+   column 0, integer data bitwise and fractional data to a summation-
+   order tolerance, the row rmatvec bitwise repeatable; then at the
+   one-vs-rest SGD step's shape (20 lanes, 64 of the main path's rows
+   with the intercept appended, m = 41, p = 2**18 + 1, k = 1, gathered
+   by the SGD operator's ``row_batch``), each lane's own rows and one
+   batch shared by every lane (read in place, as the step gives it),
+   with times of both kernels, their plain versions, the bound from
+   these inputs and one PyTorch call as the yardstick of each: an
+   ``embedding_bag`` (sum mode, the values as per-sample weights, over
+   the lanes' flattened (lane, column) cells) for the row matvec, an
+   ``index_add_`` for the row rmatvec.
 3. The sparse main path at full size: ``DistGridSearchCV(
    LogisticRegression(max_iter=100), {"C": logspace(-3, 2, 96)}, cv=5,
    scoring="f1_weighted")`` on a 20news-shaped hashed-text CSR (n=11314,
@@ -112,9 +129,10 @@ result line:
     ``torch.profiler`` split of one round.
 11. ``DistGridSearchCV(Ridge(), {"alpha": logspace(-2, 3, 16)}, cv=5)``
     (r2) on the same X and a real target made from the seed: 80 fits.
-12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4), then, last,
-    the result line ``{"ok": true, "device": {...}}``; both are printed
-    after phase 13c.
+12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4 and K1's and
+    K2's row forms, each launched on its path), then, last, the result
+    line ``{"ok": true, "device": {...}}``; both are printed after phase
+    14d.
 13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
     SGDClassifier(max_iter=20, random_state=0), {"alpha": logspace(-6,
     -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` on
@@ -143,11 +161,43 @@ result line:
     max|W|); then slot independence: a round of 300 lanes and the same
     lanes in reverse slot order give every lane bitwise the same
     weights.
+14. BASELINE config 3 as ``benchmarks/run_all.py:149-183`` defines it:
+    ``DistOneVsRestClassifier(LinearSVC(C=1.0, max_iter=100))`` on the
+    dense 20news-shaped 11314 x 4096 problem (20 classes, 20 binary fits
+    as one classic round), fitted cold and then warm. Printed: both
+    walls, binary fits/s (20 / warm), train accuracy, the classes'
+    ``n_iter``. The pickled model must predict as the live one, and
+    class 0's binary fit on the card is held to the same fit on the CPU
+    (10x the one-ulp gap, plus 1e-6 of max|W|).
+14b. The same on config 3's packed stand-in (the main path's hashed
+    text, d = 2**18): K1's and K2's launch counters are zeroed before
+    the cold fit and must be > 0 after it; the same gates.
+14c. ``DistOneVsOneClassifier(LinearSVC(C=1.0, max_iter=100))`` on that
+    packed X, 190 pairs: compacted (the default; its regime, slices and
+    refills are printed), then classic (``SKDIST_COMPACTION=0``) at the
+    compacted run's chunk; every pair's weights must be bitwise equal,
+    and the pickled model must predict as the live one.
+14d. ``DistOneVsRestClassifier(SGDClassifier(loss="hinge", max_iter=20,
+    random_state=0))`` on that packed X: SGD over packed X through the
+    row kernels. Their launch counters are zeroed before the fit and
+    must equal the steps' (two row matvecs and one row rmatvec a step);
+    the wall, steps/s and the lanes' epochs are printed. Then card
+    against CPU on the first 2000 rows with ``max_iter=3`` (the gate of
+    13c over every class's weights), and the 20 class lanes against the
+    same lanes in reverse slots, bitwise.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
 out-of-memory downgrade is an error in every phase: the up-front sizing
 must hold on the card.
+
+``--ab-sgd DIR`` runs none of the phases above: it times phase 13b's
+compacted search (on ``--ab-rows`` rows, 100000 by default) in turns on
+the checkout at DIR (a parent commit, unpacked with ``git archive``) and
+on this one, ``--pairs`` pairs (default 6) ordered parent, this, this,
+parent, one process a run, and
+prints each run and every tree's median, least and largest walls; the
+runs must agree on epochs and ``best_score_``.
 
 Imports torch, numpy, scipy and ``skdist_tpu_torch`` only; exits
 nonzero when there is no CUDA device or no ``skdist_tpu_torch`` beside
@@ -392,6 +442,163 @@ def time_kernels(torch, ps, idx, val, p, T, k, X_csr):
         f"{ps.SEGMENT_ENTRIES} entries over "
         f"{int((cols.col_seg[1:] > cols.col_seg[:-1]).sum())} long columns")
     return t, bound(k1_bytes, flops), bound(k2_bytes, flops)
+
+
+def row_case(torch, rng, T, B, p, m, k, integer=False, column=None):
+    """Gathered packed rows ``(T, B, m)`` (row 0 of every lane padding
+    only, ~30% padding elsewhere), ``W (T, p, k)`` and ``g (T, B, k)``:
+    small whole numbers with ``integer``, else normal. ``column``: that
+    column in slot 0 of every row (the Zipf head)."""
+    idx = rng.randint(0, p, size=(T, B, m)).astype(np.int32)
+    if integer:
+        val = rng.randint(-3, 4, size=(T, B, m)).astype(np.float32)
+        W = rng.randint(-4, 5, size=(T, p, k)).astype(np.float32)
+        g = rng.randint(-4, 5, size=(T, B, k)).astype(np.float32)
+    else:
+        val = rng.randn(T, B, m).astype(np.float32)
+        W = rng.randn(T, p, k).astype(np.float32)
+        g = rng.randn(T, B, k).astype(np.float32)
+    pad = rng.rand(T, B, m) < 0.3
+    pad[:, 0] = True
+    idx[pad] = 0
+    val[pad] = 0.0
+    if column is not None:
+        idx[:, :, 0] = column
+        val[:, :, 0] = np.where(val[:, :, 0] == 0, 1.0, val[:, :, 0])
+    return tuple(torch.as_tensor(a).cuda() for a in (idx, val, W, g))
+
+
+def check_rows(torch, ps, idx, val, W, g, p, integer, label):
+    """Hold K1's and K2's row forms to their plain versions at one
+    shape; returns the largest errors. Integer data: bitwise. Fractional:
+    each output is a sum of c products (c = m for the row matvec, the
+    column's entries in the lane's batch for the row rmatvec), held to
+    2 * c * u * sum|terms|. The row rmatvec must repeat bitwise."""
+    out = ps.packed_row_matvec(idx, val, W)
+    ref = ps.packed_row_matvec_ref(idx, val, W)
+    back = ps.packed_row_rmatvec(idx, val, g, p)
+    if not torch.equal(back, ps.packed_row_rmatvec(idx, val, g, p)):
+        raise AssertionError(f"row rmatvec is not bitwise repeatable at {label}")
+    ref2 = ps.packed_row_rmatvec_ref(idx, val, g, p)
+    e1 = float((out - ref).abs().max())
+    e2 = float((back - ref2).abs().max())
+    if integer:
+        if not (torch.equal(out, ref) and torch.equal(back, ref2)):
+            raise AssertionError(f"row kernels differ from the plain versions "
+                                 f"on integer data at {label}: {e1}, {e2}")
+    else:
+        m = idx.shape[2]
+        tol1 = 2 * m * U32 * ps.packed_row_matvec_ref(idx, val.abs(), W.abs())
+        counts = ps.packed_row_rmatvec_ref(idx, (val != 0).float(),
+                                           torch.ones_like(g), p)
+        tol2 = 2 * counts * U32 * ps.packed_row_rmatvec_ref(
+            idx, val.abs(), g.abs(), p)
+        if not bool(((out - ref).abs() <= tol1).all()):
+            raise AssertionError(f"row matvec disagrees at {label}: {e1:.3e}")
+        if not bool(((back - ref2).abs() <= tol2).all()):
+            raise AssertionError(f"row rmatvec disagrees at {label}: {e2:.3e}")
+    T, B, m = idx.shape
+    say(f"  rows {label}: T={T} B={B} m={m} p={p} k={W.shape[2]} "
+        f"({'integer' if integer else 'fractional'}): row matvec err {e1:.3e}, "
+        f"row rmatvec err {e2:.3e}, bitwise repeatable")
+    return e1, e2
+
+
+def phase_row_kernels(torch, ps, idx, val, p):
+    """Phase 2's row forms: ragged shapes, the Zipf head and column 0,
+    then the one-vs-rest SGD step's shape: the main path's packed rows
+    with the intercept appended, gathered by the SGD operator's own
+    ``row_batch`` (20 lanes sharing one batch of 64, as the step reads
+    it), with times of both kernels, their plain versions, the bound
+    from these inputs and the yardsticks: ``embedding_bag`` for the row
+    matvec, ``index_add_`` for the row rmatvec."""
+    import torch.nn.functional as F
+
+    from skdist_tpu_torch.sparse import LinearOperator, PackedX
+
+    rng = np.random.RandomState(5)
+    errs = []
+    for (T, B, pp, m, k) in [(1, 37, 53, 5, 3), (3, 64, 300, 1, 1),
+                             (300, 16, 900, 7, 1), (4, 64, 2000, 41, 20),
+                             (2, 300, 5000, 41, 4)]:
+        for integer in (True, False):
+            errs.append(check_rows(torch, ps, *row_case(
+                torch, rng, T, B, pp, m, k, integer), pp, integer,
+                f"ragged T={T}"))
+    for column in (7, 0):
+        for integer in (True, False):
+            i_, v_, W_, g_ = row_case(torch, rng, 6, 64, 400, 9, 2, integer,
+                                      column=column)
+            if column == 0:
+                i_.zero_()
+            errs.append(check_rows(torch, ps, i_, v_, W_, g_, 400, integer,
+                                   f"every row on column {column}"))
+    T, B, k = 20, 64, 1
+    n = idx.shape[0]
+    # phase 2's plane carries the intercept column last; the SGD
+    # operator appends it itself, to the rows without it
+    op = LinearOperator(PackedX(idx[:, :-1], val[:, :-1], p - 1),
+                        fit_intercept=True)
+    if not (torch.equal(op.pidx, idx) and torch.equal(op.pval, val)):
+        raise AssertionError("the SGD operator's packed plane is not phase "
+                             "2's")
+    g_ = torch.Generator(device="cuda").manual_seed(9)
+    rows = torch.randperm(n, generator=g_, device="cuda")[:B]
+    si, sv = op.row_batch(rows.expand(T, -1))
+    W = torch.randn((T, p, k), generator=g_, device="cuda")
+    g = torch.randn((T, B, k), generator=g_, device="cuda")
+    own = torch.randint(0, n, (T, B), generator=g_, device="cuda")
+    errs.append(check_rows(torch, ps, *op.row_batch(own), W, g, p, False,
+                           "SGD step shape, own rows"))
+    errs.append(check_rows(torch, ps, si, sv, W, g, p, False,
+                           "SGD step shape, shared batch"))
+    # the yardsticks' flat (lane, column) cells, built outside the timed
+    # calls: sum_q val * W[t, idx] is one embedding_bag over (T*p, k)
+    m = si.shape[2]
+    bag_idx = (torch.arange(T, device="cuda")[:, None, None] * p
+               + si.long()).reshape(T * B, m)
+    bag_w = sv.reshape(T * B, m)
+    W_flat = W.reshape(T * p, k)
+    bag = F.embedding_bag(bag_idx, W_flat, per_sample_weights=bag_w,
+                          mode="sum").reshape(T, B, k)
+    tol = 2 * m * U32 * ps.packed_row_matvec_ref(si, sv.abs(), W.abs())
+    if not bool(((bag - ps.packed_row_matvec_ref(si, sv, W)).abs()
+                 <= tol).all()):
+        raise AssertionError("the embedding_bag yardstick disagrees with the "
+                             "row matvec's plain version")
+    cell = bag_idx.reshape(-1)
+    contrib = (sv[..., None] * g[:, :, None, :]).reshape(-1, k)
+    plane = torch.zeros((T * p, k), device="cuda")
+    t = {
+        "row_matvec": cuda_ms(torch, lambda: ps.packed_row_matvec(si, sv, W),
+                              50),
+        "row_matvec_plain": cuda_ms(
+            torch, lambda: ps.packed_row_matvec_ref(si, sv, W), 20),
+        "row_matvec_library": cuda_ms(
+            torch, lambda: F.embedding_bag(bag_idx, W_flat,
+                                           per_sample_weights=bag_w,
+                                           mode="sum"), 50),
+        "row_rmatvec": cuda_ms(
+            torch, lambda: ps.packed_row_rmatvec(si, sv, g, p), 50),
+        "row_rmatvec_plain": cuda_ms(
+            torch, lambda: ps.packed_row_rmatvec_ref(si, sv, g, p), 20),
+        "row_rmatvec_library": cuda_ms(
+            torch, lambda: plane.index_add_(0, cell, contrib), 50),
+    }
+    distinct = int(torch.unique(si[0]).numel())
+    pair_bytes = B * m * 8  # one batch, read once by every lane
+    flops = 2 * T * B * m * k
+    mv_bound = bound(pair_bytes + T * distinct * k * 4 + T * B * k * 4, flops)
+    rmv_bound = bound(pair_bytes + T * B * k * 4 + T * p * k * 4, flops)
+    say(f"  SGD step shape T={T} B={B} m={m} p={p} k={k}: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in t.items()))
+    say(f"  bounds: row matvec {mv_bound[0]:.4f} ms ({mv_bound[1]}), row "
+        f"rmatvec {rmv_bound[0]:.4f} ms ({rmv_bound[1]}); row matvec "
+        f"against embedding_bag (flat cells given): "
+        f"{t['row_matvec'] / t['row_matvec_library']:.2f}x; row rmatvec "
+        f"against index_add_ (products given, no zeroing): "
+        f"{t['row_rmatvec'] / t['row_rmatvec_library']:.2f}x")
+    return errs, t, mv_bound, rmv_bound
 
 
 # ---------------------------------------------------------------------------
@@ -1821,6 +2028,72 @@ def phase_sgd_ab(torch, backend, alphas):
         raise AssertionError("SGD eta=3 killed no lane or has no winner")
 
 
+def card_line():
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+#: one run of ``--ab-sgd``: config 2's compacted search on argv[2] rows,
+#: after a short warm-up search, in the tree given as argv[1] (its own
+#: chip_smoke.py and package), printed as one JSON line
+AB_SGD_RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as cs
+from skdist_tpu_torch import CUDABackend
+X, y = cs.make_tabular(int(sys.argv[2]), cs.SGD_D, cs.SGD_K, seed=1)
+b = CUDABackend()
+cs.sgd_search(torch, X[:20000], y[:20000], cs.SGD_ALPHAS[:6], b)
+gs, wall = cs.sgd_search(torch, X, y, cs.SGD_ALPHAS, b)
+print(json.dumps({"wall": wall, "refit": gs.refit_time_,
+                  "epochs": int(np.max(gs.round_stats_[0]["lane_n_iter"])),
+                  "best": float(gs.best_score_)}))
+"""
+
+
+def ab_sgd(parent, pairs, rows):
+    """``--ab-sgd``: config 2's compacted search on ``rows`` rows (phase
+    13b's 100000 by default, phase 13's 581012 at full size) in turns on
+    the tree at ``parent`` and on this checkout, ``pairs`` pairs ordered
+    parent, this, this, parent, ..., one process a run. Prints every run and each tree's median, least and largest
+    search and refit walls; every run must give the same epochs and
+    ``best_score_``. Returns the exit code."""
+    import statistics
+
+    say(card_line())
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    order = (["parent", "change", "change", "parent"] * pairs)[:2 * pairs]
+    runs = {"parent": [], "change": []}
+    for name in order:
+        r = subprocess.run([sys.executable, "-c", AB_SGD_RUN, trees[name],
+                            str(rows)],
+                           capture_output=True, text=True, cwd=trees[name])
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr)
+            return 1
+        run = json.loads(r.stdout.strip().splitlines()[-1])
+        runs[name].append(run)
+        say(f"  ab-sgd {name}: search {run['wall']:.3f} s, refit "
+            f"{run['refit']:.3f} s, epochs {run['epochs']}, best_score_ "
+            f"{run['best']:.6f}")
+    for name, rs in runs.items():
+        for key in ("wall", "refit"):
+            v = [r[key] for r in rs]
+            say(f"  ab-sgd {name} {key}: median {statistics.median(v):.3f} s,"
+                f" least {min(v):.3f}, largest {max(v):.3f} over {len(v)}")
+    seen = {(r["epochs"], r["best"]) for rs in runs.values() for r in rs}
+    if len(seen) != 1:
+        print(f"chip_smoke: the A/B runs disagree: {seen}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def phase_sgd_card_vs_cpu(torch):
     """Phase 13c: card against CPU, and slot independence."""
     from skdist_tpu_torch import SGDClassifier
@@ -1858,10 +2131,264 @@ def phase_sgd_card_vs_cpu(torch):
         raise AssertionError("an SGD lane's weights depend on its slot")
 
 
+# ---------------------------------------------------------------------------
+# phases 14-14d: BASELINE config 3, one-vs-rest and one-vs-one
+# ---------------------------------------------------------------------------
+
+def svc_ovr(torch, X, y, backend, **kw):
+    """A timed ``DistOneVsRestClassifier(LinearSVC(C=1.0, max_iter=100))``
+    (BASELINE config 3's estimator); returns the model and its wall."""
+    from skdist_tpu_torch import DistOneVsRestClassifier, LinearSVC
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ovr = DistOneVsRestClassifier(LinearSVC(C=1.0, max_iter=100, **kw),
+                                  backend=backend).fit(X, y)
+    torch.cuda.synchronize()
+    return ovr, time.perf_counter() - t0
+
+
+def hold_binary_fit(torch, X, y, cls, label):
+    """One class's binary ``LinearSVC`` fit on the card against the same
+    fit on the CPU, held to 10x the gap one ulp of input noise opens on
+    the card (plus 1e-6 of max|W|), as phase 3 holds its refit."""
+    from skdist_tpu_torch import LinearSVC
+
+    yb = (y == cls).astype(np.int64)
+    if hasattr(X, "tocsr"):
+        X_ulp = X.copy()
+        X_ulp.data *= np.float32(1 + 2.0 ** -23)
+    else:
+        X_ulp = X * np.float32(1 + 2.0 ** -23)
+    kw = dict(C=1.0, max_iter=100)
+    card = LinearSVC(**kw).fit(X, yb)
+    cpu = LinearSVC(device="cpu", **kw).fit(X, yb)
+    card_ulp = LinearSVC(**kw).fit(X_ulp, yb)
+    dW = float(np.abs(card._params["W"] - cpu._params["W"]).max())
+    dulp = float(np.abs(card._params["W"] - card_ulp._params["W"]).max())
+    scale = float(np.abs(cpu._params["W"]).max())
+    say(f"  {label}: class {cls} card ({int(card.n_iter_)} it) vs cpu "
+        f"({int(cpu.n_iter_)} it): max|W| {scale:.3e}, card vs cpu max|dW| "
+        f"{dW:.3e}, card vs card on X*(1+ulp) {dulp:.3e}")
+    if not dW <= 10 * dulp + 1e-6 * scale:
+        raise AssertionError(
+            f"{label}: card and CPU binary fits differ by more than 10x what "
+            "one ulp of input noise does")
+
+
+def ovr_readout(torch, ovr, X, y, wall_cold, wall_warm, label):
+    """Walls, binary fits/s, train accuracy, the classes' n_iter, and the
+    pickled model's predictions against the live one's."""
+    n_iter = np.asarray([int(e.n_iter_) for e in ovr.estimators_])
+    live = ovr.predict(X)
+    acc = float(np.mean(live == y))
+    loaded = pickle.loads(pickle.dumps(ovr))
+    if not np.array_equal(loaded.predict(X), live):
+        raise AssertionError(f"{label}: the pickled model predicts differently")
+    st = ovr.round_stats_[0]
+    say(f"  cold {wall_cold:.2f}s, warm {wall_warm:.2f}s: "
+        f"{len(ovr.estimators_) / wall_warm:.2f} binary fits/s warm; "
+        f"{st['mode']} path, {st.get('rounds', 1)} round(s) of "
+        f"{st.get('tasks_per_round', st.get('chunk'))}; train accuracy "
+        f"{acc:.4f}; classes' n_iter min {n_iter.min()} median "
+        f"{np.median(n_iter):.0f} max {n_iter.max()}; pickled model "
+        "predicts the same")
+    if not np.all(np.isfinite(ovr.decision_function(X[:100]))):
+        raise AssertionError(f"{label}: non-finite decisions")
+    return acc
+
+
+def phase_config3(torch, backend):
+    """Phase 14: BASELINE config 3 as benchmarks/run_all.py:149-183
+    defines it, dense 20-class text, cold then warm."""
+    Xd, yd = make_20news_shaped()
+    say(f"phase 14: BASELINE config 3, DistOneVsRestClassifier(LinearSVC("
+        f"C=1.0, max_iter=100)) on 20news-shaped {Xd.shape}, 20 classes")
+    _, cold = svc_ovr(torch, Xd, yd, backend)
+    ovr, warm = svc_ovr(torch, Xd, yd, backend)
+    ovr_readout(torch, ovr, Xd, yd, cold, warm, "phase 14")
+    hold_binary_fit(torch, Xd, yd, 0, "phase 14")
+    return {"cold": cold, "warm": warm}
+
+
+def phase_config3_packed(torch, X, y, backend):
+    """Phase 14b: config 3's packed stand-in (the main path's hashed
+    text, d = 2**18), the same one-vs-rest; K1 and K2 must launch."""
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    say(f"phase 14b: the same one-vs-rest on the packed stand-in {X.shape}")
+    ps.packed_matvec.launches = ps.packed_rmatvec.launches = 0
+    _, cold = svc_ovr(torch, X, y, backend)
+    launches = {"packed_matvec": ps.packed_matvec.launches,
+                "packed_rmatvec": ps.packed_rmatvec.launches}
+    ovr, warm = svc_ovr(torch, X, y, backend)
+    say(f"  launches of the cold fit {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 14b: a kernel never launched: {launches}")
+    if ovr.round_stats_[0]["x_format"] != "packed":
+        raise AssertionError("phase 14b did not run packed")
+    ovr_readout(torch, ovr, X, y, cold, warm, "phase 14b")
+    hold_binary_fit(torch, X, y, 0, "phase 14b")
+    return {"cold": cold, "warm": warm}
+
+
+def phase_ovo(torch, X, y, backend):
+    """Phase 14c: ``DistOneVsOneClassifier(LinearSVC(C=1.0,
+    max_iter=100))`` on the packed X, 190 pairs: compacted (the default),
+    then classic at the compacted run's chunk; every pair's W bitwise
+    equal."""
+    from skdist_tpu_torch import DistOneVsOneClassifier, LinearSVC
+
+    say("phase 14c: DistOneVsOneClassifier(LinearSVC(C=1.0, max_iter=100)) "
+        f"on the packed {X.shape}")
+
+    def fit(compaction, **kw):
+        os.environ["SKDIST_COMPACTION"] = "1" if compaction else "0"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ovo = DistOneVsOneClassifier(LinearSVC(C=1.0, max_iter=100),
+                                         backend=backend, **kw).fit(X, y)
+            torch.cuda.synchronize()
+            return ovo, time.perf_counter() - t0
+        finally:
+            del os.environ["SKDIST_COMPACTION"]
+
+    comp, wall_c = fit(True)
+    st = comp.round_stats_[0]
+    n_pairs = len(comp.pairs_)
+    say(f"  compacted wall {wall_c:.1f}s ({n_pairs / wall_c:.2f} pair fits/s): "
+        + lane_readout(st))
+    if st["mode"] != "compacted" or st["tasks"] != n_pairs:
+        raise AssertionError(f"phase 14c ran {st['mode']} over {st['tasks']}")
+    parts = -(-n_pairs // st["chunk"])
+    classic, wall_k = fit(False, partitions=parts)
+    sk = classic.round_stats_[0]
+    say(f"  classic (SKDIST_COMPACTION=0, partitions={parts}) wall "
+        f"{wall_k:.1f}s: {sk['rounds']} rounds x {sk['tasks_per_round']}")
+    differ = [t for t, (a, b) in enumerate(zip(comp.estimators_,
+                                               classic.estimators_))
+              if not np.array_equal(a._params["W"], b._params["W"])]
+    if sk["tasks_per_round"] != st["chunk"] or differ:
+        raise AssertionError(
+            f"OvO compacted and classic differ: chunks {st['chunk']}/"
+            f"{sk['tasks_per_round']}, pairs {differ[:5]} ({len(differ)})")
+    live = comp.predict(X)
+    loaded = pickle.loads(pickle.dumps(comp))
+    if not np.array_equal(loaded.predict(X), live):
+        raise AssertionError("phase 14c: the pickled model predicts differently")
+    say(f"  every pair's W bitwise equal; train accuracy "
+        f"{np.mean(live == y):.4f}; pickled model predicts the same")
+    return {"compacted": wall_c, "classic": wall_k}
+
+
+def sgd_ovr_lanes(torch, X, y, max_iter):
+    """The one-vs-rest SGD fit problem of the 20 class lanes on the card:
+    ``(kernel, op, y_bin (20, n), sw, hyper)``."""
+    from skdist_tpu_torch import SGDClassifier
+    from skdist_tpu_torch.distribute.multiclass import _binary_prep
+    from skdist_tpu_torch.models.linear import _freeze, to_device_X
+
+    est = SGDClassifier(loss="hinge", max_iter=max_iter, random_state=0)
+    X_arr, meta = _binary_prep(est, X)
+    static = _freeze(est._static_config(meta))
+    op = SGDClassifier._linear_op(to_device_X(X_arr, "cuda"), static)
+    classes = np.unique(y)
+    yb = torch.as_tensor((y[None, :] == classes[:, None]).astype(np.int32)).cuda()
+    T, n = yb.shape
+    sw = torch.ones((T, n), device="cuda")
+    full = dict(dtype=torch.float32, device="cuda")
+    hyper = {"alpha": torch.full((T,), 1e-4, **full),
+             "eta0": torch.full((T,), 0.01, **full),
+             "l1_ratio": torch.full((T,), 0.15, **full),
+             "tol": torch.full((T,), 1e-3, **full)}
+    return SGDClassifier._build_fit_kernel(meta, static), op, yb, sw, hyper
+
+
+def phase_ovr_sgd(torch, X, y, backend):
+    """Phase 14d: ``DistOneVsRestClassifier(SGDClassifier(loss="hinge",
+    max_iter=20, random_state=0))`` on the packed X: SGD over packed X
+    through the row kernels; card against CPU; slot independence."""
+    from skdist_tpu_torch import DistOneVsRestClassifier, SGDClassifier
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.utils.device import exact_matmuls
+
+    say("phase 14d: DistOneVsRestClassifier(SGDClassifier(loss='hinge', "
+        f"max_iter=20)) on the packed {X.shape}")
+    ps.packed_row_matvec.launches = ps.packed_row_rmatvec.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ovr = DistOneVsRestClassifier(
+        SGDClassifier(loss="hinge", max_iter=20, random_state=0),
+        backend=backend).fit(X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"packed_row_matvec": ps.packed_row_matvec.launches,
+                "packed_row_rmatvec": ps.packed_row_rmatvec.launches}
+    epochs = np.asarray([int(e.n_iter_) for e in ovr.estimators_])
+    n_batches = -(-X.shape[0] // 64)
+    steps = int(epochs.max()) * n_batches
+    say(f"  wall {wall:.2f}s; lanes' epochs min {epochs.min()} median "
+        f"{np.median(epochs):.0f} max {epochs.max()}; the round ran "
+        f"{epochs.max()} epochs x {n_batches} batches = {steps} steps, "
+        f"{steps / wall:.0f} steps/s; launches {launches}")
+    if launches != {"packed_row_matvec": 2 * steps,
+                    "packed_row_rmatvec": steps}:
+        raise AssertionError(
+            f"phase 14d: the row kernels' launches {launches} are not the "
+            f"steps' ({steps}: two row matvecs and one row rmatvec a step)")
+    live = ovr.predict(X)
+    loaded = pickle.loads(pickle.dumps(ovr))
+    if not np.array_equal(loaded.predict(X), live):
+        raise AssertionError("phase 14d: the pickled model predicts differently")
+    say(f"  train accuracy {np.mean(live == y):.4f}; pickled model predicts "
+        "the same")
+
+    Xs, ys = X[:2000], y[:2000]
+    X_ulp = Xs.copy()
+    X_ulp.data *= np.float32(1 + 2.0 ** -23)
+    kw = dict(loss="hinge", max_iter=3, random_state=0)
+
+    def stacked(device, Xi):
+        m = DistOneVsRestClassifier(SGDClassifier(device=device, **kw)).fit(
+            Xi, ys)
+        return np.stack([e._params["W"] for e in m.estimators_])
+
+    card, cpu, card_ulp = stacked(None, Xs), stacked("cpu", Xs), \
+        stacked(None, X_ulp)
+    dW = float(np.abs(card - cpu).max())
+    dulp = float(np.abs(card - card_ulp).max())
+    scale = float(np.abs(cpu).max())
+    say(f"  card against CPU on {Xs.shape}, max_iter=3: max|W| {scale:.3e}, "
+        f"card vs cpu max|dW| {dW:.3e}, card vs card on X*(1+ulp) {dulp:.3e}")
+    if not dW <= 10 * dulp + 1e-6 * scale:
+        raise AssertionError(
+            "phase 14d: card and CPU differ by more than 10x what one ulp of "
+            "input noise does")
+    kernel, op, yb, sw, hyper = sgd_ovr_lanes(torch, X, y, max_iter=3)
+    rev = torch.arange(yb.shape[0] - 1, -1, -1, device="cuda")
+    with exact_matmuls(), torch.no_grad():
+        w1 = kernel(op, yb, sw, hyper)["W"]
+        w2 = kernel(op, yb[rev], sw[rev], {k: v[rev] for k, v in hyper.items()})
+    same = torch.equal(w1, w2["W"][rev])
+    say(f"  slot independence, {yb.shape[0]} class lanes against the same "
+        "lanes in reverse slots: " + ("bitwise equal" if same else "DIFFER"))
+    if not same:
+        raise AssertionError("an OvR SGD lane's weights depend on its slot")
+    return {"wall": wall, "steps": steps}, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
                     help="C and alpha candidates of the grids (default: all)")
+    ap.add_argument("--ab-sgd", metavar="DIR",
+                    help="run only an A/B of phase 13b's compacted search "
+                    "between the checkout at DIR and this one")
+    ap.add_argument("--pairs", type=int, default=6,
+                    help="parent/change pairs of --ab-sgd (default 6)")
+    ap.add_argument("--ab-rows", type=int, default=SGD_AB_N,
+                    help="rows of --ab-sgd's data (default: phase 13b's)")
     args = ap.parse_args()
 
     import torch
@@ -1875,6 +2402,8 @@ def main():
         print(f"chip_smoke: skdist_tpu_torch is not importable ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
         return 2
+    if args.ab_sgd:
+        return ab_sgd(args.ab_sgd, args.pairs, args.ab_rows)
     import scipy.sparse as sp
 
     from skdist_tpu_torch import CUDABackend, DistGridSearchCV, LogisticRegression
@@ -1885,12 +2414,7 @@ def main():
     t_all = time.perf_counter()
     warnings.filterwarnings("error", message=OOM_DOWNGRADE)
     # ---- phase 1: device and build -------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    say(smi)
+    say(card_line())
     kind = torch.cuda.get_device_name(0)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} x{torch.cuda.device_count()}")
@@ -1971,6 +2495,8 @@ def main():
         f"{times['K2'] / times['K2_library']:.2f}x (1.00x = as fast)")
     del X_csr
     torch.cuda.empty_cache()
+    row_errs, row_times, row_mv_bound, row_rmv_bound = phase_row_kernels(
+        torch, ps, idx, val, p)
 
     # ---- phase 3: the sparse main path at full size --------------------
     say(f"phase 3: sparse DistGridSearchCV, {len(Cs)} C x 5 folds = "
@@ -2119,6 +2645,13 @@ def main():
     phase_sgd_ab(torch, backend, sgd_alphas)
     phase_sgd_card_vs_cpu(torch)
 
+    # ---- phases 14-14d: BASELINE config 3, one-vs-rest and one-vs-one --
+    torch.cuda.empty_cache()
+    phase_config3(torch, backend)
+    phase_config3_packed(torch, X, y, backend)
+    phase_ovo(torch, X, y, backend)
+    _sgd, row_launches = phase_ovr_sgd(torch, X, y, backend)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -2150,11 +2683,29 @@ def main():
          "ms": k4_times["K4"], "plain_ms": k4_times["K4_plain"],
          "bound_ms": k4_bound_ms, "bound_by": k4_by,
          "library_ms": k4_times["K4_library"]},
+        {"name": "packed_row_matvec", "route": "cuda", "source": source,
+         "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
+         "launches": row_launches["packed_row_matvec"],
+         "max_abs_err": max(e[0] for e in row_errs),
+         "ms": row_times["row_matvec"],
+         "plain_ms": row_times["row_matvec_plain"],
+         "bound_ms": row_mv_bound[0], "bound_by": row_mv_bound[1],
+         "library_ms": row_times["row_matvec_library"]},
+        {"name": "packed_row_rmatvec", "route": "cuda", "source": source,
+         "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
+         "launches": row_launches["packed_row_rmatvec"],
+         "max_abs_err": max(e[1] for e in row_errs),
+         "ms": row_times["row_rmatvec"],
+         "plain_ms": row_times["row_rmatvec_plain"],
+         "bound_ms": row_rmv_bound[0], "bound_by": row_rmv_bound[1],
+         "library_ms": row_times["row_rmatvec_library"]},
     ]
     for kk in kernels:
         for key, v in kk.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{kk['name']} {key} is not finite")
+        if kk["launches"] <= 0:
+            raise AssertionError(f"{kk['name']} never launched on its path")
     say(f"total seconds {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,11 @@ histogram trees, forests and their ``Dist*`` wrappers, with the
 level-histogram kernel; the ridge family (``Ridge``,
 ``LinearRegression``, ``RidgeClassifier``) over dense or packed X, with
 the packed weighted-gram kernel;
-``DistRandomizedSearchCV(SGDClassifier)`` over dense X (mini-batch SGD,
-no hand kernel). The searches' convergence-compacted path
+``DistRandomizedSearchCV(SGDClassifier)`` (mini-batch SGD; over packed X
+its steps run the packed kernels in per-lane row form); ``LinearSVC``
+and the multiclass meta-estimators ``DistOneVsRestClassifier`` and
+``DistOneVsOneClassifier`` (the class or class-pair axis as one batched
+fit). The searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
 halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
@@ -32,8 +35,10 @@ _EXPORTS = {
     **{name: "skdist_tpu_torch.distribute.search" for name in (
         "DistGridSearchCV", "DistRandomizedSearchCV")},
     **{name: "skdist_tpu_torch.models.linear" for name in (
-        "LogisticRegression", "SGDClassifier", "Ridge", "LinearRegression",
-        "RidgeClassifier")},
+        "LogisticRegression", "LinearSVC", "SGDClassifier", "Ridge",
+        "LinearRegression", "RidgeClassifier")},
+    **{name: "skdist_tpu_torch.distribute.multiclass" for name in (
+        "DistOneVsRestClassifier", "DistOneVsOneClassifier")},
     "CUDABackend": "skdist_tpu_torch.parallel",
     **{name: "skdist_tpu_torch.distribute.adaptive" for name in (
         "HalvingSpec", "RungKilledWarning")},

@@ -2,11 +2,13 @@
 
 ``forest_from_reference`` turns a fitted JAX forest or single tree into
 the port's (below); ``ridge_from_reference`` does the same for a fitted
-``Ridge``, ``LinearRegression`` or ``RidgeClassifier``.
-``logistic_regression_from_reference`` and ``sgd_from_reference`` take
-the fitted state of a JAX ``skdist_tpu`` ``LogisticRegression`` or
-``SGDClassifier`` as plain numpy (its ``_params`` and ``_meta``) and
-return the fitted port model, which computes the same
+``Ridge``, ``LinearRegression`` or ``RidgeClassifier``, and
+``multiclass_from_reference`` for a fitted ``DistOneVsRestClassifier``
+or ``DistOneVsOneClassifier`` (each binary estimator converted).
+``logistic_regression_from_reference``, ``linear_svc_from_reference``
+and ``sgd_from_reference`` take the fitted state of a JAX ``skdist_tpu``
+``LogisticRegression``, ``LinearSVC`` or ``SGDClassifier`` as plain
+numpy (its ``_params`` and ``_meta``) and return the fitted port model, which computes the same
 ``decision_function`` and ``predict_proba``: the counterpart of
 ``_set_fitted`` in ``skdist_tpu/models/linear.py``. The
 two packages share the weight layout (``W`` is ``(p,)`` binary or
@@ -18,10 +20,12 @@ waits for a later slice.
 import numpy as np
 
 from .base import BaseEstimator
+from .distribute import multiclass
 from .models import linear
-from .models.linear import LogisticRegression, SGDClassifier
+from .models.linear import LinearSVC, LogisticRegression, SGDClassifier
 
-__all__ = ["forest_from_reference", "logistic_regression_from_reference",
+__all__ = ["forest_from_reference", "linear_svc_from_reference",
+           "logistic_regression_from_reference", "multiclass_from_reference",
            "ridge_from_reference", "sgd_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
@@ -42,6 +46,13 @@ def sgd_from_reference(params, meta, device=None, **est_params):
     decides whether ``predict_proba`` is available)."""
     return _linear_classifier_from_reference(SGDClassifier, params, meta,
                                              device, **est_params)
+
+
+def linear_svc_from_reference(params, meta, device=None, **est_params):
+    """A fitted port ``LinearSVC`` from the JAX package's ``params`` and
+    ``meta``, as :func:`logistic_regression_from_reference`."""
+    return _linear_classifier_from_reference(LinearSVC, params, meta, device,
+                                             **est_params)
 
 
 def _linear_classifier_from_reference(cls, params, meta, device,
@@ -167,4 +178,64 @@ def forest_from_reference(ref, device=None):
     if hasattr(ref, "classes_"):
         est.classes_ = np.asarray(ref.classes_)
         est._meta.update(classes=est.classes_, n_classes=len(est.classes_))
+    return est
+
+
+#: the JAX package's linear classifiers that a multiclass model may hold
+_LINEAR_CLASSIFIERS = {"LogisticRegression": LogisticRegression,
+                       "LinearSVC": LinearSVC, "SGDClassifier": SGDClassifier}
+
+
+def _port_params(cls, ref):
+    """``ref``'s constructor parameters that ``cls`` takes, but the
+    runtime ones (``backend``, ``device``) and nested estimators."""
+    names = cls._get_param_names()
+    return {k: v for k, v in ref.get_params(deep=False).items()
+            if k in names and k not in ("backend", "device", "estimator",
+                                        "fit_intercept")}
+
+
+def _binary_from_reference(ref, device):
+    """The port's counterpart of one fitted binary estimator of a JAX
+    multiclass model."""
+    name = type(ref).__name__
+    if name == "_ConstantPredictor":
+        out = multiclass._ConstantPredictor()
+        out.y_ = np.asarray(ref.y_)
+        return out
+    if name in _LINEAR_CLASSIFIERS:
+        cls = _LINEAR_CLASSIFIERS[name]
+        return _linear_classifier_from_reference(
+            cls, ref._params, ref._meta, device, **_port_params(cls, ref))
+    raise ValueError(f"{name} inside a multiclass model has no converter")
+
+
+def multiclass_from_reference(ref, device=None):
+    """A fitted port ``DistOneVsRestClassifier`` or
+    ``DistOneVsOneClassifier`` from a fitted JAX one: every entry of
+    ``estimators_`` (``LogisticRegression``, ``LinearSVC``,
+    ``SGDClassifier`` or the constant-column fallback) is converted, and
+    ``classes_``, ``pairs_``, ``binary_``, ``multilabel_`` and the
+    parameters (``norm`` among them) are copied; the template estimator
+    becomes the port's class with the same parameters."""
+    name = type(ref).__name__
+    if name not in ("DistOneVsRestClassifier", "DistOneVsOneClassifier"):
+        raise ValueError(f"{name} is not a multiclass meta-estimator")
+    if not hasattr(ref, "estimators_"):
+        raise ValueError(f"{name} is not fitted")
+    cls = getattr(multiclass, name)
+    base = ref.estimator
+    base_cls = _LINEAR_CLASSIFIERS.get(type(base).__name__)
+    if base_cls is None:
+        raise ValueError(
+            f"{type(base).__name__} inside a multiclass model has no converter")
+    template = base_cls(**_port_params(base_cls, base),
+                        fit_intercept=base.fit_intercept, device=device)
+    est = cls(template, **_port_params(cls, ref))
+    est.estimators_ = [_binary_from_reference(e, device)
+                       for e in ref.estimators_]
+    est.classes_ = np.asarray(ref.classes_)
+    for attr in ("pairs_", "binary_", "multilabel_"):
+        if hasattr(ref, attr):
+            setattr(est, attr, getattr(ref, attr))
     return est

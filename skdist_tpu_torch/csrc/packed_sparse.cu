@@ -62,6 +62,35 @@
 // Every output is a fixed-order sum, so two launches on the same inputs
 // are bitwise equal.
 //
+// K1 and K2 in per-lane row form (packed_row_matvec, packed_row_rmatvec):
+// the SGD mini-batch contractions, which the JAX package runs through
+// _matvec_2d/_rmatvec_2d on each lane's gathered rows under its lane vmap
+// (skdist_tpu/sparse.py row_matvec/row_rmatvec). Lane t owns B gathered
+// packed rows (idx, val of (T, B, m), read through lane and row strides,
+// so one batch shared by every lane is read in place) and its own
+// operand. Neither builds the column copy K2 reads: a mini-batch is new
+// at every step.
+//   row matvec: one thread per (lane, row, j vector); it sums its row's m
+//     entries in stored order, ROW_UNROLL gathers in flight, as K1 does.
+//   row rmatvec: the output is each lane's dense (n_cols, k) plane, zeroed
+//     on the stream first. One block per (lane, chunk of RRM_KCHUNK j)
+//     loads the lane's B * m entries as 64-bit keys (column << 32 | its
+//     position b * m + q) into shared memory, sorts them (bitonic), and
+//     sums each touched column's run in position order, starting from
+//     the column's value in the plane, so the sum is the plain
+//     version's index_add_ order exactly. A lane of more than
+//     RRM_MAX_KEYS entries is taken in chunks of positions, in order.
+//     Zipf-shaped text puts one popular column in most rows of a batch:
+//     float atomics would serialise on it and make the bits depend on
+//     timing; the sorted runs do neither, so the result is bitwise
+//     repeatable and independent of the lane's slot.
+// What bounds them: the row matvec's T * B * m gathers of k floats (a few
+// MB at the SGD path's shape, well inside L2); the row rmatvec's dense
+// output write, T * n_cols * k * 4 bytes (21 MB for 20 lanes at
+// n_cols = 2**18 + 1, k = 1), which the zeroing pass pays once. Both are
+// small next to a launch at that shape; fusing the L2 decay and the
+// update into a sparse write is later work.
+//
 // Plain C entry points, bound with ctypes; each returns cudaGetLastError()
 // after its launches and launches on the caller's stream.
 
@@ -373,6 +402,119 @@ packed_rmatvec_tile_kernel(const int64_t* __restrict__ col_ptr,
     }
 }
 
+constexpr int ROW_THREADS = 128;      // threads of a row-matvec block
+constexpr int ROW_UNROLL = 8;         // row-matvec gathers in flight a thread
+constexpr int RRM_THREADS = 1024;     // threads of a row-rmatvec block
+constexpr int RRM_MAX_KEYS = 8192;    // keys a row-rmatvec block sorts at once
+constexpr int RRM_KCHUNK = 32;        // output j a row-rmatvec block owns
+
+// K1 row form. Block (lane, tile of ROW_THREADS (row, j vector) outputs).
+template <int V>
+__global__ void __launch_bounds__(ROW_THREADS)
+packed_row_matvec_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
+                         int64_t i_rs, const float* __restrict__ val,
+                         int64_t v_ls, int64_t v_rs, int B, int m,
+                         const float* __restrict__ W, int64_t w_row_stride,
+                         int64_t w_batch_stride, float* __restrict__ out,
+                         int k, int kv) {
+    using F = typename Vec<V>::T;
+    const int64_t t = blockIdx.x;
+    const int64_t u = (int64_t)blockIdx.y * ROW_THREADS + threadIdx.x;
+    if (u >= (int64_t)B * kv) return;
+    const int b = (int)(u / kv);
+    const int jv = (int)(u - (int64_t)b * kv);
+    const int32_t* ir = idx + t * i_ls + (int64_t)b * i_rs;
+    const float* vr = val + t * v_ls + (int64_t)b * v_rs;
+    const float* Wt = W + t * w_batch_stride + (int64_t)jv * V;
+    F acc = zero<V>();
+    int q = 0;
+    for (; q + ROW_UNROLL <= m; q += ROW_UNROLL) {
+        F x[ROW_UNROLL];
+#pragma unroll
+        for (int e = 0; e < ROW_UNROLL; ++e)
+            x[e] = load<V>(Wt + (int64_t)__ldg(ir + q + e) * w_row_stride);
+#pragma unroll
+        for (int e = 0; e < ROW_UNROLL; ++e) acc = fma_v(__ldg(vr + q + e), x[e], acc);
+    }
+    for (; q < m; ++q)
+        acc = fma_v(__ldg(vr + q), load<V>(Wt + (int64_t)__ldg(ir + q) * w_row_stride),
+                    acc);
+    store(out + (t * B + b) * k + (int64_t)jv * V, acc);
+}
+
+// Ascending bitonic sort of the n (a power of two) keys of s, by the
+// whole block.
+__device__ __forceinline__ void bitonic_sort(unsigned long long* s, int n) {
+    for (int size = 2; size <= n; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+                const int lo = 2 * i - (i & (stride - 1));
+                const int hi = lo + stride;
+                const unsigned long long a = s[lo], c = s[hi];
+                if ((a > c) == ((lo & size) == 0)) {
+                    s[lo] = c;
+                    s[hi] = a;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// K2 row form. Block (lane, chunk of RRM_KCHUNK j); dynamic shared memory
+// holds `chunk` keys. The lane's plane out[t] is already zeroed.
+__global__ void __launch_bounds__(RRM_THREADS)
+packed_row_rmatvec_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
+                          int64_t i_rs, const float* __restrict__ val,
+                          int64_t v_ls, int64_t v_rs, int B, int m,
+                          const float* __restrict__ g, int64_t g_ls,
+                          int64_t g_rs, float* __restrict__ out,
+                          int64_t n_cols, int k, int chunk) {
+    extern __shared__ unsigned long long s_key[];
+    const int64_t t = blockIdx.x;
+    const int j0 = blockIdx.y * RRM_KCHUNK;
+    const int kc = min(RRM_KCHUNK, k - j0);
+    const int E = B * m;
+    const int32_t* it = idx + t * i_ls;
+    const float* vt = val + t * v_ls;
+    const float* gt = g + t * g_ls + j0;
+    float* ot = out + t * n_cols * k + j0;
+    for (int e0 = 0; e0 < E; e0 += chunk) {
+        const int ec = min(chunk, E - e0);
+        int n = 1;
+        while (n < ec) n <<= 1;
+        for (int i = threadIdx.x; i < n; i += RRM_THREADS) {
+            unsigned long long key = ~0ull;
+            if (i < ec) {
+                const int e = e0 + i;
+                const int b = e / m;
+                const uint32_t col = (uint32_t)__ldg(it + (int64_t)b * i_rs + (e - b * m));
+                key = ((unsigned long long)col << 32) | (unsigned)e;
+            }
+            s_key[i] = key;
+        }
+        __syncthreads();
+        bitonic_sort(s_key, n);
+        // each run's first key sums the run, one thread per (run, j)
+        for (int u = threadIdx.x; u < ec * kc; u += RRM_THREADS) {
+            const int i = u / kc;
+            const int jj = u - i * kc;
+            const uint32_t col = (uint32_t)(s_key[i] >> 32);
+            if (i > 0 && (uint32_t)(s_key[i - 1] >> 32) == col) continue;
+            float* o = ot + (int64_t)col * k + jj;
+            float acc = *o;
+            for (int s = i; s < ec && (uint32_t)(s_key[s] >> 32) == col; ++s) {
+                const int e = (int)(s_key[s] & 0xffffffffu);
+                const int b = e / m;
+                const float v = __ldg(vt + (int64_t)b * v_rs + (e - b * m));
+                acc = __fadd_rn(acc, __fmul_rn(v, __ldg(gt + (int64_t)b * g_rs + jj)));
+            }
+            *o = acc;
+        }
+        __syncthreads();
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -467,6 +609,69 @@ int skdist_packed_rmatvec_f32(const int64_t* col_ptr, const int32_t* col_seg,
             col_ptr, col_seg, rows, vals, partial, r, r_row_stride,
             r_batch_stride, out, out_row_stride, out_batch_stride, n_cols, T, k,
             tw, kvc);
+    return (int)cudaGetLastError();
+}
+
+// out[t, i, j] = sum_q val[t, i, q] * W[t, idx[t, i, q], j] for i < B,
+// t < T, j < k; idx/val element (t, i, q) at t * ls + i * rs + q. vec as
+// for the matvec, for W (out is contiguous (T, B, k)).
+int skdist_packed_row_matvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
+                                 const float* val, int64_t v_ls, int64_t v_rs,
+                                 int32_t T, int32_t B, int32_t m, const float* W,
+                                 int64_t w_row_stride, int64_t w_batch_stride,
+                                 float* out, int32_t k, int32_t vec,
+                                 void* stream) {
+    if (T <= 0 || B <= 0 || k <= 0) return (int)cudaSuccess;
+    if ((vec != 1 && vec != 4) || k % vec || m < 0) return (int)cudaErrorInvalidValue;
+    const int kv = k / vec;
+    const int64_t gy = ((int64_t)B * kv + ROW_THREADS - 1) / ROW_THREADS;
+    if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidConfiguration;
+    dim3 grid((unsigned)T, (unsigned)gy);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (vec == 4)
+        packed_row_matvec_kernel<4><<<grid, ROW_THREADS, 0, s>>>(
+            idx, i_ls, i_rs, val, v_ls, v_rs, B, m, W, w_row_stride,
+            w_batch_stride, out, k, kv);
+    else
+        packed_row_matvec_kernel<1><<<grid, ROW_THREADS, 0, s>>>(
+            idx, i_ls, i_rs, val, v_ls, v_rs, B, m, W, w_row_stride,
+            w_batch_stride, out, k, kv);
+    return (int)cudaGetLastError();
+}
+
+// out[t, c, j] = sum over the entries (i, q) of lane t with idx[t, i, q] == c
+// of val[t, i, q] * g[t, i, j], in (i, q) order; out is contiguous
+// (T, n_cols, k) and zeroed here first. g element (t, i, j) at
+// t * g_ls + i * g_rs + j.
+int skdist_packed_row_rmatvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
+                                  const float* val, int64_t v_ls, int64_t v_rs,
+                                  int32_t T, int32_t B, int32_t m, const float* g,
+                                  int64_t g_ls, int64_t g_rs, float* out,
+                                  int64_t n_cols, int32_t k, void* stream) {
+    if (T <= 0 || n_cols <= 0 || k <= 0) return (int)cudaSuccess;
+    if (B < 0 || m < 0 || (int64_t)B * m > 0x7fffffffLL || n_cols > 0xffffffffLL)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, (size_t)T * (size_t)n_cols * (size_t)k * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+    const int E = B * m;
+    if (E == 0) return (int)cudaGetLastError();
+    int chunk = 1;
+    while (chunk < E && chunk < RRM_MAX_KEYS) chunk <<= 1;
+    const size_t smem = (size_t)chunk * sizeof(unsigned long long);
+    if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(packed_row_rmatvec_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int64_t gy = ((int64_t)k + RRM_KCHUNK - 1) / RRM_KCHUNK;
+    if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidConfiguration;
+    dim3 grid((unsigned)T, (unsigned)gy);
+    packed_row_rmatvec_kernel<<<grid, RRM_THREADS, smem, s>>>(
+        idx, i_ls, i_rs, val, v_ls, v_rs, B, m, g, g_ls, g_rs, out, n_cols, k,
+        chunk);
     return (int)cudaGetLastError();
 }
 

@@ -10,12 +10,15 @@ from .ensemble import (
     get_single_oof,
 )
 from .adaptive import HalvingSpec, RungKilledWarning
+from .multiclass import DistOneVsOneClassifier, DistOneVsRestClassifier
 from .search import DistGridSearchCV, DistRandomizedSearchCV
 
 __all__ = [
     "DistExtraTreesClassifier",
     "DistExtraTreesRegressor",
     "DistGridSearchCV",
+    "DistOneVsOneClassifier",
+    "DistOneVsRestClassifier",
     "DistRandomForestClassifier",
     "DistRandomForestRegressor",
     "DistRandomTreesEmbedding",

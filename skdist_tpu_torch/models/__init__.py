@@ -9,6 +9,7 @@ from .forest import (
 )
 from .linear import (
     LinearRegression,
+    LinearSVC,
     LogisticRegression,
     Ridge,
     RidgeClassifier,
@@ -29,6 +30,7 @@ __all__ = [
     "ExtraTreesClassifier",
     "ExtraTreesRegressor",
     "LinearRegression",
+    "LinearSVC",
     "LogisticRegression",
     "RandomForestClassifier",
     "RandomForestRegressor",

@@ -1,7 +1,7 @@
 """
-Linear estimator kernels of the port: logistic regression, the
-mini-batch SGD classifier and the ridge family (``Ridge``,
-``LinearRegression``, ``RidgeClassifier``).
+Linear estimator kernels of the port: logistic regression, the linear
+SVM (``LinearSVC``), the mini-batch SGD classifier and the ridge family
+(``Ridge``, ``LinearRegression``, ``RidgeClassifier``).
 
 Counterpart of ``skdist_tpu/models/linear.py``. The estimator is built
 around batched fit kernels: ``_build_fit_kernel(meta, static)`` returns
@@ -10,6 +10,9 @@ around batched fit kernels: ``_build_fit_kernel(meta, static)`` returns
 ``hyper`` value is a ``(T,)`` tensor. The distributed search stacks its
 (candidate x fold) tasks on that axis; a single ``fit`` is a batch of
 one. Folds are selected by sample-weight masking, never by slicing rows.
+The classifiers marked ``_lane_labels`` also take one label vector a
+lane, ``y_idx`` of shape ``(T, n)``: the binary sub-problems of
+one-vs-rest and one-vs-one (:mod:`skdist_tpu_torch.distribute.multiclass`).
 
 The logistic objective is the JAX package's (and sklearn's):
 ``sum_i s_i * ce_i + 0.5 / C * ||w||^2``, intercept unpenalised. The
@@ -43,7 +46,7 @@ from .solvers import (
     sgd_resume,
 )
 
-__all__ = ["LogisticRegression", "SGDClassifier", "Ridge",
+__all__ = ["LogisticRegression", "LinearSVC", "SGDClassifier", "Ridge",
            "LinearRegression", "RidgeClassifier"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
@@ -138,18 +141,24 @@ def class_weight_vector(class_weight, classes):
 def _apply_class_weight(sw, y_idx, n_classes, class_weight, cw_arr):
     """Class weighting of ``sw (..., n)`` on its device. 'balanced' uses
     the weighted class counts of the current (fold-masked) weights of
-    each task: sklearn's n / (k * count_c)."""
+    each task: sklearn's n / (k * count_c). ``y_idx`` is ``(n,)``, or
+    ``(T, n)`` with one label vector a lane."""
     if class_weight is None:
         return sw
     y_long = y_idx.long()
     if class_weight == "balanced":
         onehot = F.one_hot(y_long, n_classes).to(sw.dtype)
-        counts = sw @ onehot  # (..., k)
+        if y_long.ndim == 1:
+            counts = sw @ onehot  # (..., k)
+        else:
+            counts = (sw[..., None, :] @ onehot)[..., 0, :]  # (T, k)
         total = torch.sum(sw, dim=-1, keepdim=True)
         per_class = total / (n_classes * torch.clamp(counts, min=1e-12))
         per_class = torch.where(counts > 0, per_class, 0.0)
     else:
         per_class = torch.as_tensor(cw_arr, dtype=sw.dtype, device=sw.device)
+    if y_long.ndim == 2 and per_class.ndim == 2:
+        return sw * per_class.gather(-1, y_long)
     return sw * per_class[..., y_long]
 
 
@@ -323,6 +332,8 @@ class _LinearClassifierBase(_LinearModelBase, ClassifierMixin):
             ),
             "x_format": "packed" if isinstance(X, PackedX) else "dense",
         }
+        if isinstance(X, PackedX):
+            meta["packed_m"] = X.m
         return {"X": X, "y": y_idx, "sw": sw}, meta
 
     @classmethod
@@ -483,6 +494,9 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
         "matmul_dtype", "engine", "penalty",
     )
 
+    #: the binary fit takes one label vector a lane (one-vs-rest/-one)
+    _lane_labels = True
+
     def __init__(self, C=1.0, tol=1e-4, max_iter=100, fit_intercept=True,
                  class_weight=None, penalty="l2", random_state=None,
                  history=10, matmul_dtype=None, engine="auto", device=None):
@@ -603,6 +617,130 @@ def _check_static(st):
 
 
 # --------------------------------------------------------------------------
+# LinearSVC (squared hinge, primal, batched L-BFGS)
+# --------------------------------------------------------------------------
+
+class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
+    """L2-regularised squared-hinge linear SVM, primal, by batched L-BFGS:
+    ``0.5 * ||w||^2 + C * sum_i s_i * max(0, 1 - y_i z_i)^2`` with ``y``
+    in {-1, +1}, the intercept unpenalised. Multiclass is one-vs-all
+    with every class column solved jointly as one flattened ``(p, k)``
+    problem (the column objectives are separable, so the joint minimiser
+    is the per-class one). The JAX package's constructor arguments and
+    defaults (``max_iter=1000``), plus ``device`` (the card unless
+    ``"cpu"``). ``C`` and ``tol`` ride the task axis; ``engine='host'``
+    (the f64 host engine) raises ``NotImplementedError``. Over packed X
+    the loss runs K1 forward and K2 backward, like
+    ``LogisticRegression``'s."""
+
+    _hyper_names = ("C", "tol")
+    _static_names = (
+        "max_iter", "fit_intercept", "class_weight", "history", "engine",
+        "loss",
+    )
+
+    #: the binary fit takes one label vector a lane (one-vs-rest/-one)
+    _lane_labels = True
+
+    def __init__(self, C=1.0, tol=1e-4, max_iter=1000, fit_intercept=True,
+                 class_weight=None, loss="squared_hinge", random_state=None,
+                 history=10, engine="auto", device=None):
+        self.C = C
+        self.tol = tol
+        self.max_iter = max_iter
+        self.fit_intercept = fit_intercept
+        self.class_weight = class_weight
+        self.loss = loss
+        self.random_state = random_state
+        self.history = history
+        self.engine = engine
+        self.device = device
+        if loss != "squared_hinge":
+            raise ValueError("LinearSVC supports loss='squared_hinge'")
+        if engine not in ("auto", "host", "xla"):
+            raise ValueError("engine must be 'auto', 'host' or 'xla'")
+
+    def _check_supported(self):
+        _check_svc_static(self._static_config({}))
+
+    @classmethod
+    def _batched_task_bytes(cls, meta, static, n):
+        """Device bytes one task of a batched fit holds at its peak: the
+        L-BFGS state over its flat weights, and the per-row margins, loss
+        and gradient terms and scoring intermediates over ``(n, k)``."""
+        st = dict(static)
+        k = meta["n_classes"]
+        k_out = 1 if k <= 2 else k
+        p = meta["n_features"] + (1 if st["fit_intercept"] else 0)
+        return (2 * st["history"] + _LBFGS_WORK_VECTORS) * p * k_out * 4 \
+            + 10 * n * max(k, 2) * 4
+
+    @classmethod
+    def _build_fit_problem(cls, meta, static):
+        st = dict(static)
+        _check_svc_static(st)
+        k = meta["n_classes"]
+        d = meta["n_features"]
+        class_weight, cw_arr = st["class_weight"], meta.get("cw_arr")
+
+        def problem(op, y_idx, sw, hyper):
+            C = hyper["C"]
+            T = sw.shape[0]
+            p = op.p
+            sw = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
+            if k <= 2:
+                ypm = torch.where(y_idx == (k - 1), 1.0, -1.0).to(op.dtype)
+
+                def loss(w):
+                    z = op.matvec(w[:, :, None])[..., 0]  # (T, n)
+                    margin = torch.clamp(1.0 - ypm * z, min=0.0)
+                    wd = w[:, :d]
+                    return 0.5 * lane_sum(wd * wd) \
+                        + C * lane_sum(sw * (margin * margin))
+
+                w0 = torch.zeros((T, p), dtype=op.dtype, device=sw.device)
+
+                def unpack(w, n_iter):
+                    return {"W": w, "n_iter": n_iter}
+
+                return loss, w0, unpack
+
+            Ypm = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0,
+                              -1.0).to(op.dtype)
+
+            def loss(wflat):
+                W = wflat.reshape(T, p, k)
+                margins = torch.clamp(1.0 - Ypm * op.matvec(W), min=0.0)
+                Wd = W[:, :d]
+                return 0.5 * lane_sum(Wd * Wd) \
+                    + C * lane_sum(sw[..., None] * (margins * margins))
+
+            w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
+
+            def unpack(w, n_iter):
+                return {"W": w.reshape(T, p, k), "n_iter": n_iter}
+
+            return loss, w0, unpack
+
+        return problem
+
+
+def _check_svc_static(st):
+    """Reject invalid ``LinearSVC`` settings (also those set through
+    ``set_params``) and the engine that is not ported yet."""
+    if st.get("loss", "squared_hinge") != "squared_hinge":
+        raise ValueError("LinearSVC supports loss='squared_hinge'")
+    engine = st.get("engine", "auto")
+    if engine not in ("auto", "host", "xla"):
+        raise ValueError("engine must be 'auto', 'host' or 'xla'")
+    if engine == "host":
+        raise NotImplementedError(
+            "engine='host' (the f64 host engine) is not ported to "
+            f"skdist_tpu_torch yet ({_ROADMAP}, item 4)"
+        )
+
+
+# --------------------------------------------------------------------------
 # SGDClassifier (mini-batch SGD, epoch-sliced)
 # --------------------------------------------------------------------------
 
@@ -661,8 +799,10 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
     ``shuffle=False`` (or the JAX permutation injected there) they agree
     to float32 rounding. ``predict_proba`` (``loss="log_loss"`` only) is
     the sigmoid, or for k > 2 classes the softmax of the k one-vs-all
-    decisions, as in the JAX package. SGD over packed sparse X is not
-    ported yet (ROADMAP.md).
+    decisions, as in the JAX package. Over packed sparse X a step's
+    products run K1 and K2 in per-lane row form on the lanes' gathered
+    rows (``LinearOperator.row_batch``), and its gradient is a dense
+    ``(p, k)`` plane a lane, as in the JAX package.
     """
 
     _hyper_names = ("alpha", "eta0", "l1_ratio", "tol")
@@ -679,6 +819,9 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
     #: ~20 launches whatever the lanes, so the fewest rounds take the
     #: least time
     _compacted_rounds = 1
+
+    #: the binary fit takes one label vector a lane (one-vs-rest/-one)
+    _lane_labels = True
 
     def __init__(self, loss="hinge", penalty="l2", alpha=1e-4, l1_ratio=0.15,
                  max_iter=20, tol=1e-3, fit_intercept=True, eta0=0.01,
@@ -729,23 +872,37 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
     def _batched_task_bytes(cls, meta, static, n):
         """Device bytes one lane of a round holds at its peak: its
         dataset-length weight and order vectors, its flat weights and
-        penalty state, the ``(batch, k)`` step temporaries over its
-        gathered ``(batch, p)`` rows, and the ``(n, k)`` scoring pass."""
+        penalty state, the ``(batch, k)`` step temporaries, its gathered
+        rows (dense: ``(batch, p)``; packed: the ``(batch, m)`` int32
+        and float32 pair, and the dense ``(p, k)`` gradient plane that
+        the row rmatvec returns, beside its scaled and decayed copies),
+        and the ``(n, k)`` scoring pass."""
         st = dict(static)
         k = meta["n_classes"]
         p = meta["n_features"] + (1 if st["fit_intercept"] else 0)
         bs = int(st["batch_size"])
         flat = cls._flat_w_width(meta, static) * 4
-        return (_SGD_ROW_VECTORS * n * 4 + 8 * flat
-                + bs * (p + 8 * max(k, 2)) * 4 + 10 * n * max(k, 2) * 4)
+        if meta.get("x_format") == "packed":
+            m = meta["packed_m"] + (1 if st["fit_intercept"] else 0)
+            rows = bs * m * 8 + 3 * flat
+        else:
+            rows = bs * p * 4
+        return (_SGD_ROW_VECTORS * n * 4 + 8 * flat + rows
+                + bs * 8 * max(k, 2) * 4 + 10 * n * max(k, 2) * 4)
 
     @classmethod
     def _batched_round_bytes(cls, meta, static, n):
         """Device bytes a round holds once: an epoch's row order and the
         hash keys and sort it is drawn from (int64 over the padded
-        rows)."""
-        bs = int(dict(static)["batch_size"])
-        return 4 * (-(-n // bs) * bs) * 8
+        rows), and on packed X the one gathered ``(batch, m)`` pair that
+        lanes reading one epoch share."""
+        st = dict(static)
+        bs = int(st["batch_size"])
+        shared = 0
+        if meta.get("x_format") == "packed":
+            m = meta["packed_m"] + (1 if st["fit_intercept"] else 0)
+            shared = bs * m * 8
+        return 4 * (-(-n // bs) * bs) * 8 + shared
 
     @classmethod
     def _build_fit_problem(cls, meta, static):
@@ -757,10 +914,6 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
         kernels consume the same one."""
         st = dict(static)
         _check_sgd_static(st)
-        if meta.get("x_format") == "packed":
-            raise NotImplementedError(
-                "SGDClassifier over packed sparse X is not ported to "
-                f"skdist_tpu_torch yet ({_ROADMAP})")
         k = meta["n_classes"]
         d = meta["n_features"]
         fit_intercept = st["fit_intercept"]
@@ -778,10 +931,13 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
             n_batches = -(-n // bs)
             sw_full = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
             if n_out == 1:
-                Ypm = torch.where(y_idx == (k - 1), 1.0, -1.0)[:, None]
+                Ypm = torch.where(y_idx == (k - 1), 1.0, -1.0)[..., None]
             else:
                 Ypm = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
             Ypm = Ypm.to(op.dtype)
+            # one label vector a lane (y_idx (T, n)): each lane reads its own
+            lanes = (torch.arange(T, device=sw.device)[:, None]
+                     if Ypm.ndim == 3 else None)
 
             def batches(rows):
                 # the epoch's gathered weights and each batch's live
@@ -793,8 +949,8 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
 
                 def batch(b):
                     idx = rows[:, b]
-                    return (op.row_batch(idx), Ypm[idx], wts[:, b],
-                            denom[:, b])
+                    yb = Ypm[idx] if lanes is None else Ypm[lanes, idx]
+                    return op.row_batch(idx), yb, wts[:, b], denom[:, b]
 
                 return n_batches, batch
 
@@ -935,11 +1091,15 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
             "max_iter": max_iter, "iter_key": "n_done",
         }
 
-    def predict_proba(self, X):
+    @property
+    def predict_proba(self):
+        """Probabilities, with ``loss="log_loss"`` only: for another loss
+        the attribute does not exist (``hasattr`` is False, as with
+        scikit-learn's SGD), so a meta-estimator ranks by the decision."""
         if self.loss != "log_loss":
             raise AttributeError(
                 "predict_proba is only available with loss='log_loss'")
-        return super().predict_proba(X)
+        return super().predict_proba
 
 
 def _check_sgd_static(st):
@@ -1104,6 +1264,9 @@ class RidgeClassifier(_RidgeKernelMixin, _LinearClassifierBase):
     _hyper_names = ("alpha",)
     _static_names = ("fit_intercept", "class_weight")
 
+    #: the binary fit takes one label vector a lane (one-vs-rest/-one)
+    _lane_labels = True
+
     def __init__(self, alpha=1.0, fit_intercept=True, class_weight=None,
                  device=None):
         self.alpha = alpha
@@ -1126,7 +1289,7 @@ class RidgeClassifier(_RidgeKernelMixin, _LinearClassifierBase):
         def kernel(op, y_idx, sw, hyper):
             sw = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
             if k <= 2:
-                T = torch.where(y_idx == (k - 1), 1.0, -1.0)[:, None]
+                T = torch.where(y_idx == (k - 1), 1.0, -1.0)[..., None]
             else:
                 T = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
             W = cls._solve(op, T.to(op.dtype), sw, hyper["alpha"], d)

@@ -10,7 +10,12 @@ CUDA kernels replace its three Pallas kernels:
 - :func:`packed_weighted_gram` (K3, ``X.T S X``, ``csrc/packed_gram.cu``)
   replaces ``_gram_2d``;
 - :class:`PackedMatvec` ties K1 and K2 together as the counterpart of
-  ``matvec_with_vjp``: its forward is K1 and its backward is K2.
+  ``matvec_with_vjp``: its forward is K1 and its backward is K2;
+- :func:`packed_row_matvec` and :func:`packed_row_rmatvec` are K1 and K2
+  in per-lane row form (``csrc/packed_sparse.cu``): each lane of a task
+  batch multiplies its own gathered rows ``(T, B, m)``, the SGD
+  mini-batch contractions that the JAX package runs through
+  ``_matvec_2d``/``_rmatvec_2d`` under its lane ``vmap``.
 
 X is the padded-row packed pair ``idx (n, m) int32`` / ``val (n, m)
 float32`` whose padding entries ``(0, 0.0)`` add exactly 0. The operand
@@ -50,6 +55,10 @@ __all__ = [
     "build_pairs",
     "PackedMatvec",
     "matvec_with_vjp",
+    "packed_row_matvec",
+    "packed_row_rmatvec",
+    "packed_row_matvec_ref",
+    "packed_row_rmatvec_ref",
 ]
 
 
@@ -66,6 +75,14 @@ def _lib():
         I32, P,
     ]
     lib.skdist_packed_rmatvec_f32.restype = ctypes.c_int
+    lib.skdist_packed_row_matvec_f32.argtypes = [
+        P, I64, I64, P, I64, I64, I32, I32, I32, P, I64, I64, P, I32, I32, P,
+    ]
+    lib.skdist_packed_row_matvec_f32.restype = ctypes.c_int
+    lib.skdist_packed_row_rmatvec_f32.argtypes = [
+        P, I64, I64, P, I64, I64, I32, I32, I32, P, I64, I64, P, I64, I32, P,
+    ]
+    lib.skdist_packed_row_rmatvec_f32.restype = ctypes.c_int
     lib.skdist_cuda_error_string.argtypes = [ctypes.c_int]
     lib.skdist_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -351,6 +368,154 @@ def packed_rmatvec(idx, val, r, n_cols, columns=None):
 
 
 packed_rmatvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 in per-lane row form: the SGD mini-batch contractions
+# ---------------------------------------------------------------------------
+
+def _check_rows(idx, val):
+    """Gathered rows ``(T, B, m)``: int32/float32 of one shape and device."""
+    if idx.dtype != torch.int32 or val.dtype != torch.float32:
+        raise TypeError(
+            f"packed rows must be int32/float32; got {idx.dtype}/{val.dtype}"
+        )
+    if idx.ndim != 3 or idx.shape != val.shape:
+        raise ValueError(
+            f"idx and val must be (T, B, m) of one shape; got "
+            f"{tuple(idx.shape)} and {tuple(val.shape)}"
+        )
+    if idx.device != val.device:
+        raise ValueError("idx and val must be on one device")
+
+
+def _check_lane_operand(x, name, T, rows, device):
+    """A float32 ``(T, rows, k)`` operand on ``device``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32; got {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the packed rows on {device}")
+    if x.ndim != 3 or x.shape[0] != T or (rows is not None
+                                          and x.shape[1] != rows):
+        raise ValueError(
+            f"{name} must be ({T}, {rows if rows is not None else 'p'}, k); "
+            f"got {tuple(x.shape)}"
+        )
+
+
+def _row_strides(x, name):
+    """(lane stride, row stride) of a ``(T, B, m)`` block the row kernels
+    read with unit stride along m; a lane stride of 0 (an expanded
+    block, one batch shared by every lane) is read as it is."""
+    T, B, m = x.shape
+    if m > 1 and x.stride(2) != 1:
+        raise ValueError(f"{name} must have unit stride along its last axis")
+    if min(x.stride()) < 0:
+        raise ValueError(f"{name} has a negative stride")
+    if B * m >= 2**31:
+        raise ValueError(f"{name} has {B * m} entries a lane; at most 2**31-1")
+    return (x.stride(0) if T > 1 else 0), (x.stride(1) if B > 1 else 0)
+
+
+def packed_row_matvec_ref(idx, val, W):
+    """Plain per-lane ``X[rows] @ W``: lane t's rows ``(idx[t], val[t])``
+    ``(B, m)`` times its own ``W[t]`` ``(p, k)``, a gather of W's rows and
+    a row dot; returns ``(T, B, k)``. The JAX package's ``packed_matvec``
+    on one lane's gathered rows."""
+    lanes = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+    return torch.sum(val[..., None] * W[lanes, idx.long()], dim=2)
+
+
+def packed_row_matvec(idx, val, W):
+    """``X[rows] @ W`` for every lane of a batch: ``idx``/``val`` ``(T, B,
+    m)`` (each lane's B gathered packed rows, read through their lane
+    and row strides, so an expanded block shared by every lane is not
+    copied) and ``W`` ``(T, p, k)``; returns ``(T, B, k)`` float32. Every
+    ``idx`` entry must lie in ``[0, p)``. CPU tensors take
+    :func:`packed_row_matvec_ref`; CUDA tensors launch K1's row form,
+    whose outputs each sum their row's m entries in stored order, so a
+    lane's bits do not depend on its slot."""
+    _check_rows(idx, val)
+    T, B, m = idx.shape
+    _check_lane_operand(W, "W", T, None, idx.device)
+    if idx.device.type != "cuda":
+        return packed_row_matvec_ref(idx, val, W)
+    k = W.shape[2]
+    i_ls, i_rs = _row_strides(idx, "idx")
+    v_ls, v_rs = _row_strides(val, "val")
+    w_rs, w_bs = _kernel_strides(W, "W")
+    out = torch.empty((T, B, k), dtype=torch.float32, device=idx.device)
+    lib = _lib()
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.skdist_packed_row_matvec_f32(
+            idx.data_ptr(), i_ls, i_rs, val.data_ptr(), v_ls, v_rs, T, B, m,
+            W.data_ptr(), w_rs, w_bs, out.data_ptr(), k, _vector_width(W),
+            stream,
+        )
+    _check_launch(lib.skdist_cuda_error_string, code, "packed_row_matvec")
+    packed_row_matvec.launches += 1
+    return out
+
+
+packed_row_matvec.launches = 0
+
+
+def packed_row_rmatvec_ref(idx, val, g, n_cols):
+    """Plain per-lane ``X[rows].T @ g``: lane t's rows ``(B, m)`` against
+    its own ``g[t]`` ``(B, k)``, one ``index_add_`` of the products
+    ``val * g`` into the lanes' dense ``(n_cols, k)`` planes, entries in
+    row-major (row, slot) order; returns ``(T, n_cols, k)``. The JAX
+    package's ``packed_rmatvec`` on one lane's gathered rows."""
+    T, B, m = idx.shape
+    k = g.shape[2]
+    n_cols = int(n_cols)
+    out = torch.zeros((T * n_cols, k), dtype=g.dtype, device=g.device)
+    lane0 = torch.arange(T, device=idx.device)[:, None, None] * n_cols
+    contrib = val[..., None] * g[:, :, None, :]
+    out.index_add_(0, (lane0 + idx.long()).reshape(-1),
+                   contrib.reshape(-1, k))
+    return out.view(T, n_cols, k)
+
+
+def packed_row_rmatvec(idx, val, g, n_cols):
+    """``X[rows].T @ g`` for every lane of a batch: ``idx``/``val`` ``(T,
+    B, m)`` as in :func:`packed_row_matvec`, ``g`` ``(T, B, k)``; returns
+    the lanes' dense ``(T, n_cols, k)`` float32 planes. CPU tensors take
+    :func:`packed_row_rmatvec_ref`; CUDA tensors launch K2's row form:
+    the planes are zeroed, then one block a lane sorts the lane's
+    ``B * m`` entries by (column, position) and sums each touched
+    column's run in position order, with no float atomics. Each output
+    is therefore the plain version's sum in the plain version's order:
+    deterministic, bitwise repeatable and independent of the lane's
+    slot."""
+    _check_rows(idx, val)
+    T, B, m = idx.shape
+    _check_lane_operand(g, "g", T, B, idx.device)
+    n_cols = int(n_cols)
+    if idx.device.type != "cuda":
+        return packed_row_rmatvec_ref(idx, val, g, n_cols)
+    k = g.shape[2]
+    if k > 1 and g.stride(2) != 1:
+        raise ValueError("g must have unit stride along its last axis")
+    i_ls, i_rs = _row_strides(idx, "idx")
+    v_ls, v_rs = _row_strides(val, "val")
+    g_ls = g.stride(0) if T > 1 else 0
+    g_rs = g.stride(1) if B > 1 else 0
+    out = torch.empty((T, n_cols, k), dtype=torch.float32, device=idx.device)
+    lib = _lib()
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.skdist_packed_row_rmatvec_f32(
+            idx.data_ptr(), i_ls, i_rs, val.data_ptr(), v_ls, v_rs, T, B, m,
+            g.data_ptr(), g_ls, g_rs, out.data_ptr(), n_cols, k, stream,
+        )
+    _check_launch(lib.skdist_cuda_error_string, code, "packed_row_rmatvec")
+    packed_row_rmatvec.launches += 1
+    return out
+
+
+packed_row_rmatvec.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -315,10 +315,11 @@ def _place(tree, device):
     return tree
 
 
-def _slice(tree, lo, hi, device):
+def _host_rows(tree, rows, device):
+    """Rows ``rows`` of every host array of a dict tree, on ``device``."""
     if isinstance(tree, dict):
-        return {k: _slice(v, lo, hi, device) for k, v in tree.items()}
-    return torch.as_tensor(np.asarray(tree)[lo:hi]).to(device)
+        return {k: _host_rows(v, rows, device) for k, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree)[rows]).to(device)
 
 
 def _leading_dim(tree):
@@ -389,7 +390,15 @@ class CUDABackend(TaskBackend):
         a list of ``(round wall seconds, tasks)``. ``bytes_per_round`` is
         what a round holds once beside its tasks' ``bytes_per_task``. The
         round stats (rounds, tasks per round, round walls, the byte
-        estimates) are left in :attr:`last_round_stats`."""
+        estimates) are left in :attr:`last_round_stats`.
+
+        A last round smaller than the others is filled up to their size
+        with copies of its first task, whose outputs are dropped: every
+        round then has the one shape the compacted path's rounds have,
+        and a lane's bits on the card depend on its round's shape
+        (PyTorch's and cuBLAS's reductions choose their summation order
+        by it), so the two paths agree bit for bit at equal round size
+        whether or not the tasks fill whole rounds."""
         n_tasks = _leading_dim(task_args)
         chunk = self.plan_round_size(n_tasks, bytes_per_task, round_size,
                                      bytes_per_round)
@@ -397,10 +406,14 @@ class CUDABackend(TaskBackend):
         for lo in range(0, n_tasks, chunk):
             hi = min(n_tasks, lo + chunk)
             t0 = time.perf_counter()
-            task = _slice(task_args, lo, hi, self.device)
+            rows = np.arange(lo, hi)
+            if hi - lo < chunk:
+                rows = np.concatenate([rows, np.full(chunk - (hi - lo), lo)])
+            task = _host_rows(task_args, rows, self.device)
             with exact_matmuls(), torch.no_grad():
                 res = kernel(shared, task)
-            outs.append({k: v.detach().cpu().numpy() for k, v in res.items()})
+            outs.append({k: v.detach()[:hi - lo].cpu().numpy()
+                         for k, v in res.items()})
             timings.append((time.perf_counter() - t0, hi - lo))
         self.last_round_stats = {
             "device": str(self.device),

@@ -9,7 +9,8 @@ sample, ``m`` = max nnz per row, padding ``(0, 0.0)``), and the linear
 fit problems reach it through :class:`LinearOperator`, whose packed form
 runs the CUDA kernels of :mod:`skdist_tpu_torch.ops.packed_sparse` (K1
 forward, K2 as its backward, K3 for the ridge family's gram) and whose
-dense form is ``Xa @ W``.
+dense form is ``Xa @ W``. Its mini-batch row forms (the SGD steps) run
+K1 and K2 in per-lane row form on packed X.
 
 The host-side routing (:func:`pack_decision`, :func:`would_pack`,
 :func:`pack_for_fit`) is the JAX package's, copied: pack exactly when
@@ -32,6 +33,8 @@ from .ops.packed_sparse import (
     build_pairs,
     packed_matvec,
     packed_rmatvec,
+    packed_row_matvec,
+    packed_row_rmatvec,
     packed_weighted_gram,
 )
 from .utils.meminfo import BUDGET_ENV, densify_budget_bytes
@@ -330,26 +333,33 @@ class LinearOperator:
         """The rows ``idx`` of ``X~`` (an index tensor of any shape, such
         as one ``(T, B)`` mini-batch a lane) as one gathered block, which
         :meth:`row_matvec` and :meth:`row_rmatvec` take: the SGD step
-        gathers its batch once for its three products. Dense X only: SGD
-        over packed X is not ported yet (ROADMAP.md, queue 1, with
-        config 3)."""
-        if self.Xa is None:
-            raise NotImplementedError(
-                "mini-batch rows of packed X (SGD over sparse input) are "
-                "not ported to skdist_tpu_torch yet (see ROADMAP.md, "
-                "queue 1)"
-            )
-        return self.Xa[idx]
+        gathers its batch once for its three products. Dense X gives the
+        ``(..., p)`` rows; packed X the pair ``(pidx[idx], pval[idx])``,
+        ``(..., m)`` each. A ``(T, B)`` index whose lanes share one
+        batch (an expanded view, lane stride 0) gathers that batch once
+        and expands it, which the row kernels read in place."""
+        if self.Xa is not None:
+            return self.Xa[idx]
+        if idx.ndim == 2 and idx.shape[0] > 1 and idx.stride(0) == 0:
+            one = idx[0]
+            return (self.pidx[one].expand(idx.shape[0], -1, -1),
+                    self.pval[one].expand(idx.shape[0], -1, -1))
+        return self.pidx[idx], self.pval[idx]
 
-    @staticmethod
-    def row_matvec(rows, W):
+    def row_matvec(self, rows, W):
         """``X~[idx] @ W`` of a :meth:`row_batch` block; ``(T, B, p)``
-        rows take ``(T, p, k)`` weights."""
+        rows (or a packed ``(T, B, m)`` pair, through K1's row form) take
+        ``(T, p, k)`` weights and give ``(T, B, k)``."""
+        if isinstance(rows, tuple):
+            return packed_row_matvec(rows[0], rows[1], W)
         return rows @ W
 
-    @staticmethod
-    def row_rmatvec(rows, g):
-        """``X~[idx].T @ g`` of a :meth:`row_batch` block."""
+    def row_rmatvec(self, rows, g):
+        """``X~[idx].T @ g`` of a :meth:`row_batch` block: ``(T, B, k)``
+        gives the lanes' dense ``(T, p, k)`` (K2's row form on packed
+        rows)."""
+        if isinstance(rows, tuple):
+            return packed_row_rmatvec(rows[0], rows[1], g, self.p)
         return rows.mT @ g
 
     def gram_pairs(self):

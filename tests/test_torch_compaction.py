@@ -241,6 +241,47 @@ def test_compacted_equals_classic_resident(data, form, monkeypatch):
                                   classic.best_estimator_.coef_)
 
 
+def test_batched_map_pads_the_last_round():
+    """Every round the kernel sees has the round's shape; the padding
+    lanes' outputs are dropped and the tasks keep their order."""
+    shapes = []
+
+    def kernel(shared, task):
+        shapes.append(tuple(task["t"].shape))
+        return {"out": task["t"][:, None] * shared + 1.0}
+
+    bk = CUDABackend(device="cpu")
+    t = np.arange(11, dtype=np.float32)
+    out = bk.batched_map(kernel, {"t": t}, torch.full((3,), 2.0),
+                         round_size=4)
+    assert shapes == [(4,), (4,), (4,)]
+    np.testing.assert_array_equal(out["out"], t[:, None] * 2.0 + 1.0
+                                  + np.zeros((11, 3), np.float32))
+    assert bk.last_round_stats["rounds"] == 3
+
+
+@pytest.mark.parametrize("form", ["sparse", "dense"])
+def test_compacted_equals_classic_short_last_round(data, form, monkeypatch):
+    """24 tasks in rounds of 5: the classic path's last round holds 4
+    tasks and is padded to 5 slots, the compacted path's round shape."""
+    X, y = data
+    if form == "dense":
+        X = X.toarray()
+    bk = CUDABackend(device="cpu")
+    compacted = _torch_grid(X, y, backend=bk, partitions=5, refit=True)
+    assert (bk.last_round_stats["mode"], bk.last_round_stats["chunk"]) == \
+        ("compacted", 5)
+    monkeypatch.setenv("SKDIST_COMPACTION", "0")
+    bk2 = CUDABackend(device="cpu")
+    classic = _torch_grid(X, y, backend=bk2, partitions=5, refit=True)
+    st = bk2.last_round_stats
+    assert (st["mode"], st["rounds"], st["tasks_per_round"]) == \
+        ("classic", 5, 5)
+    _assert_bitwise(compacted, classic)
+    np.testing.assert_array_equal(compacted.best_estimator_.coef_,
+                                  classic.best_estimator_.coef_)
+
+
 @pytest.mark.parametrize("form", ["sparse", "dense"])
 def test_compacted_equals_classic_refill(data, form, monkeypatch, refill):
     X, y = data

@@ -1,6 +1,6 @@
 """Hygiene of the port: its CV splitters and parameter grid against
 scikit-learn's, its import isolation (no jax, no skdist_tpu, no sklearn,
-in the package and in chip_smoke.py), and its refusal to fall back to
+no pandas, in the package and in chip_smoke.py), and its refusal to fall back to
 the CPU quietly when no card is present.
 """
 
@@ -21,7 +21,7 @@ from sklearn.model_selection import check_cv as sk_check_cv
 from skdist_tpu_torch.utils import cv as tcv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "skdist_tpu", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "skdist_tpu", "sklearn", "pandas")
 
 
 def _targets():
@@ -110,13 +110,15 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "import sys\n"
         "import skdist_tpu_torch as p\n"
         "from skdist_tpu_torch import convert, metrics, sparse\n"
-        "from skdist_tpu_torch.distribute import ensemble, search\n"
+        "from skdist_tpu_torch.distribute import ensemble, multiclass, search\n"
         "from skdist_tpu_torch.models import forest, linear, tree\n"
         "from skdist_tpu_torch.ops import binning, hist, packed_sparse, _build\n"
         "from skdist_tpu_torch.utils import cv, device, draws, validation\n"
         "p.DistGridSearchCV, p.LogisticRegression, p.CUDABackend\n"
         "p.DistRandomForestClassifier, p.DistRandomTreesEmbedding\n"
         "p.Ridge, p.RidgeClassifier, p.LinearRegression\n"
+        "p.LinearSVC, p.DistOneVsRestClassifier, p.DistOneVsOneClassifier\n"
+        "convert.multiclass_from_reference, convert.linear_svc_from_reference\n"
         "convert.ridge_from_reference, sparse.packed_to_dense\n"
         "packed_sparse.packed_weighted_gram, packed_sparse.build_pairs\n"
         "import chip_smoke\n"

@@ -165,14 +165,23 @@ def test_rejects_what_the_jax_package_rejects(data):
 
 
 def test_packed_x_is_not_ported():
+    """Packed sparse X is ported now: the fit takes the packed plane (the
+    row forms of K1 and K2) and agrees with the same fit on the dense
+    matrix, which draws the same row orders (tests/test_torch_sgd_packed.py
+    holds it to the JAX package)."""
     import scipy.sparse as sp
 
     rng = np.random.RandomState(0)
     X = sp.random(200, 4096, density=0.002, format="csr", random_state=rng,
                   dtype=np.float32)
     y = rng.randint(0, 2, 200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SGDClassifier(device="cpu", max_iter=2).fit(X, y)
+    packed = SGDClassifier(device="cpu", max_iter=2).fit(X, y)
+    dense = SGDClassifier(device="cpu", max_iter=2).fit(X.toarray(), y)
+    assert packed._meta["x_format"] == "packed"
+    assert int(packed.n_iter_) == int(dense.n_iter_)
+    scale = np.abs(dense.coef_).max()
+    np.testing.assert_allclose(packed.coef_, dense.coef_, rtol=0,
+                               atol=1e-5 * scale)
 
 
 # --------------------------------------------------------------------------
