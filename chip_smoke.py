@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--candidates N]
     python3 chip_smoke.py --ab-sgd DIR [--pairs N] [--ab-rows N]
+    python3 chip_smoke.py --ab-row-kernels DIR [--pairs N]
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -26,19 +27,25 @@ result line:
    Then K1 and K2 in per-lane row form (``packed_row_matvec``,
    ``packed_row_rmatvec``, the SGD step's products) against their plain
    versions: B not 64, m = 1, a row of padding only in every lane, T = 1
-   and T = 300, k = 1 and k = 20, a lane of more entries than one sorted
-   chunk, one column in every row (the Zipf head) and every entry on
+   and T = 300, k from 1 to 33, a lane of more kept entries than one
+   block's list, every column of an odd p touched (each slice edge,
+   columns 0 and p - 1) for own rows and a shared batch, an inf and a
+   NaN in g, one column in every row (the Zipf head) and every entry on
    column 0, integer data bitwise and fractional data to a summation-
-   order tolerance, the row rmatvec bitwise repeatable; then at the
+   order tolerance, both kernels bitwise repeatable; then at the
    one-vs-rest SGD step's shape (20 lanes, 64 of the main path's rows
    with the intercept appended, m = 41, p = 2**18 + 1, k = 1, gathered
    by the SGD operator's ``row_batch``), each lane's own rows and one
-   batch shared by every lane (read in place, as the step gives it),
-   with times of both kernels, their plain versions, the bound from
-   these inputs and one PyTorch call as the yardstick of each: an
-   ``embedding_bag`` (sum mode, the values as per-sample weights, over
-   the lanes' flattened (lane, column) cells) for the row matvec, an
-   ``index_add_`` for the row rmatvec.
+   batch shared by every lane (read in place, as the step gives it), a
+   random lane permutation permuting both outputs bitwise, and times of
+   both kernels, their plain versions, the bound from these inputs and
+   the yardsticks: an ``embedding_bag`` (sum mode, the values as
+   per-sample weights, over the lanes' flattened (lane, column) cells)
+   for the row matvec; an ``index_add_`` alone and ``zero_`` +
+   ``index_add_`` (the same function) for the row rmatvec; a one-element
+   ``fill_`` as the launch floor. Each is read four ways: CUDA events
+   over 50 back-to-back calls, the profiler's device time a call, a CUDA
+   graph of 50 calls replayed under events, and the host's time a call.
 3. The sparse main path at full size: ``DistGridSearchCV(
    LogisticRegression(max_iter=100), {"C": logspace(-3, 2, 96)}, cv=5,
    scoring="f1_weighted")`` on a 20news-shaped hashed-text CSR (n=11314,
@@ -130,7 +137,9 @@ result line:
 11. ``DistGridSearchCV(Ridge(), {"alpha": logspace(-2, 3, 16)}, cv=5)``
     (r2) on the same X and a real target made from the seed: 80 fits.
 12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4 and K1's and
-    K2's row forms, each launched on its path), then, last, the result
+    K2's row forms, each launched on its path; the row forms' entries
+    also carry their device, graph and host times, their yardsticks'
+    and the launch floor's), then, last, the result
     line ``{"ok": true, "device": {...}}``; both are printed after phase
     14d.
 13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
@@ -184,7 +193,10 @@ result line:
     the wall, steps/s and the lanes' epochs are printed. Then card
     against CPU on the first 2000 rows with ``max_iter=3`` (the gate of
     13c over every class's weights), and the 20 class lanes against the
-    same lanes in reverse slots, bitwise.
+    same lanes in reverse slots, bitwise. Last, the bare step: host time
+    a step over one epoch, and a ``torch.profiler`` split of 50 steps
+    (row kernels, a zeroing memset, the dense ``(T, p, k)`` passes, the
+    rest; the device's busy share).
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -198,6 +210,13 @@ on this one, ``--pairs`` pairs (default 6) ordered parent, this, this,
 parent, one process a run, and
 prints each run and every tree's median, least and largest walls; the
 runs must agree on epochs and ``best_score_``.
+
+``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
+row-kernel readings at the SGD step's shape, a split of the host's
+launch path, phase 14d's bare-step split and its fit's wall, in turns on
+the checkout at DIR and on this one (``--pairs`` pairs ordered parent,
+this, this, parent), one process a run with its own tree's package, and
+prints each tree's median, least and largest fit wall.
 
 Imports torch, numpy, scipy and ``skdist_tpu_torch`` only; exits
 nonzero when there is no CUDA device or no ``skdist_tpu_torch`` beside
@@ -302,6 +321,55 @@ def bound(bytes_moved, flops):
     t_ops = flops / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def host_ms(torch, fn, reps):
+    """Host milliseconds a call of ``fn``: ``perf_counter`` over ``reps``
+    calls, then one synchronise (``reps`` stays far below the launch
+    queue's depth, so the host is never held back by the device)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def graph_ms(torch, fn, reps, replays=5):
+    """Device milliseconds a call of ``fn`` with the host out of the way:
+    a CUDA graph of ``reps`` calls replayed ``replays`` times under
+    events (the gaps between the graph's launches included). A
+    measurement only: the port launches no graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def device_ms(torch, fn, reps):
+    """Device milliseconds a call of ``fn`` by ``torch.profiler``: every
+    device activity of ``reps`` calls, over ``reps``; None when the
+    profiler saw no device time."""
+    split = profile_device_split(torch, lambda: [fn() for _ in range(reps)],
+                                 {})
+    return None if split is None else split["total"] / reps
 
 
 # ---------------------------------------------------------------------------
@@ -473,14 +541,16 @@ def check_rows(torch, ps, idx, val, W, g, p, integer, label):
     shape; returns the largest errors. Integer data: bitwise. Fractional:
     each output is a sum of c products (c = m for the row matvec, the
     column's entries in the lane's batch for the row rmatvec), held to
-    2 * c * u * sum|terms|. The row rmatvec must repeat bitwise."""
+    2 * c * u * sum|terms|. Both must repeat bitwise."""
     out = ps.packed_row_matvec(idx, val, W)
+    if not torch.equal(out, ps.packed_row_matvec(idx, val, W)):
+        raise AssertionError(f"row matvec is not bitwise repeatable at {label}")
     ref = ps.packed_row_matvec_ref(idx, val, W)
     back = ps.packed_row_rmatvec(idx, val, g, p)
     if not torch.equal(back, ps.packed_row_rmatvec(idx, val, g, p)):
         raise AssertionError(f"row rmatvec is not bitwise repeatable at {label}")
     ref2 = ps.packed_row_rmatvec_ref(idx, val, g, p)
-    e1 = float((out - ref).abs().max())
+    e1 = float((out - ref).abs().max()) if out.numel() else 0.0
     e2 = float((back - ref2).abs().max())
     if integer:
         if not (torch.equal(out, ref) and torch.equal(back, ref2)):
@@ -499,62 +569,94 @@ def check_rows(torch, ps, idx, val, W, g, p, integer, label):
             raise AssertionError(f"row rmatvec disagrees at {label}: {e2:.3e}")
     T, B, m = idx.shape
     say(f"  rows {label}: T={T} B={B} m={m} p={p} k={W.shape[2]} "
-        f"({'integer' if integer else 'fractional'}): row matvec err {e1:.3e}, "
-        f"row rmatvec err {e2:.3e}, bitwise repeatable")
+        f"({'integer' if integer else 'fractional'}"
+        f"{', shared batch' if T > 1 and idx.stride(0) == 0 else ''}): row "
+        f"matvec err {e1:.3e}, row rmatvec err {e2:.3e}, bitwise repeatable")
     return e1, e2
 
 
-def phase_row_kernels(torch, ps, idx, val, p):
-    """Phase 2's row forms: ragged shapes, the Zipf head and column 0,
-    then the one-vs-rest SGD step's shape: the main path's packed rows
-    with the intercept appended, gathered by the SGD operator's own
-    ``row_batch`` (20 lanes sharing one batch of 64, as the step reads
-    it), with times of both kernels, their plain versions, the bound
-    from these inputs and the yardsticks: ``embedding_bag`` for the row
-    matvec, ``index_add_`` for the row rmatvec."""
-    import torch.nn.functional as F
+def every_column_case(torch, rng, T, B, p, m, k, shared):
+    """Integer rows whose entries touch every column of an odd ``p``
+    (``B * (m - 2) >= p``), so every slice edge of the row rmatvec's grid
+    is hit (its slice width depends on the lanes a block serves and on
+    k), with column 0 and column p - 1 in every row; one batch every
+    lane shares (lane stride 0) with ``shared``."""
+    lanes = 1 if shared else T
+    idx = np.zeros((lanes, B, m), np.int32)
+    idx[:, :, 1:-1] = np.stack([rng.permutation(B * (m - 2)) % p
+                                for _ in range(lanes)]).reshape(lanes, B, -1)
+    idx[:, :, -1] = p - 1
+    val = rng.randint(-3, 4, size=(lanes, B, m)).astype(np.float32)
+    W = rng.randint(-4, 5, size=(T, p, k)).astype(np.float32)
+    g = rng.randint(-4, 5, size=(T, B, k)).astype(np.float32)
+    idx, val, W, g = (torch.as_tensor(a).cuda() for a in (idx, val, W, g))
+    if shared:
+        idx, val = idx.expand(T, -1, -1), val.expand(T, -1, -1)
+    return idx, val, W, g
 
+
+def main_plane(torch, X):
+    """The main path's packed plane with the intercept column last, on
+    the card: ``(idx, val, p)``."""
+    from skdist_tpu_torch import LogisticRegression
+    from skdist_tpu_torch.models.linear import prepare_fit_X
+
+    packed = prepare_fit_X(X, LogisticRegression)
+    n, d = X.shape
+    idx = torch.cat([torch.as_tensor(packed.idx),
+                     torch.full((n, 1), d, dtype=torch.int32)], 1).cuda()
+    val = torch.cat([torch.as_tensor(packed.val),
+                     torch.ones((n, 1), dtype=torch.float32)], 1).cuda()
+    return idx, val, d + 1
+
+
+def sgd_step_rows(torch, idx, val, p, T=20, B=64, k=1):
+    """The one-vs-rest SGD step's operands: the SGD operator over the main
+    path's rows (it appends the intercept itself), one batch of ``B``
+    rows shared by ``T`` lanes gathered by its own ``row_batch`` (lane
+    stride 0, as the step reads it), each lane's own rows, ``W (T, p,
+    k)`` and ``g (T, B, k)``: ``(shared pair, own pair, W, g)``."""
     from skdist_tpu_torch.sparse import LinearOperator, PackedX
 
-    rng = np.random.RandomState(5)
-    errs = []
-    for (T, B, pp, m, k) in [(1, 37, 53, 5, 3), (3, 64, 300, 1, 1),
-                             (300, 16, 900, 7, 1), (4, 64, 2000, 41, 20),
-                             (2, 300, 5000, 41, 4)]:
-        for integer in (True, False):
-            errs.append(check_rows(torch, ps, *row_case(
-                torch, rng, T, B, pp, m, k, integer), pp, integer,
-                f"ragged T={T}"))
-    for column in (7, 0):
-        for integer in (True, False):
-            i_, v_, W_, g_ = row_case(torch, rng, 6, 64, 400, 9, 2, integer,
-                                      column=column)
-            if column == 0:
-                i_.zero_()
-            errs.append(check_rows(torch, ps, i_, v_, W_, g_, 400, integer,
-                                   f"every row on column {column}"))
-    T, B, k = 20, 64, 1
     n = idx.shape[0]
-    # phase 2's plane carries the intercept column last; the SGD
-    # operator appends it itself, to the rows without it
     op = LinearOperator(PackedX(idx[:, :-1], val[:, :-1], p - 1),
                         fit_intercept=True)
     if not (torch.equal(op.pidx, idx) and torch.equal(op.pval, val)):
         raise AssertionError("the SGD operator's packed plane is not phase "
                              "2's")
-    g_ = torch.Generator(device="cuda").manual_seed(9)
-    rows = torch.randperm(n, generator=g_, device="cuda")[:B]
-    si, sv = op.row_batch(rows.expand(T, -1))
-    W = torch.randn((T, p, k), generator=g_, device="cuda")
-    g = torch.randn((T, B, k), generator=g_, device="cuda")
-    own = torch.randint(0, n, (T, B), generator=g_, device="cuda")
-    errs.append(check_rows(torch, ps, *op.row_batch(own), W, g, p, False,
-                           "SGD step shape, own rows"))
-    errs.append(check_rows(torch, ps, si, sv, W, g, p, False,
-                           "SGD step shape, shared batch"))
-    # the yardsticks' flat (lane, column) cells, built outside the timed
-    # calls: sum_q val * W[t, idx] is one embedding_bag over (T*p, k)
-    m = si.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = torch.randperm(n, generator=gen, device="cuda")[:B]
+    shared = op.row_batch(rows.expand(T, -1))
+    W = torch.randn((T, p, k), generator=gen, device="cuda")
+    g = torch.randn((T, B, k), generator=gen, device="cuda")
+    own = op.row_batch(torch.randint(0, n, (T, B), generator=gen,
+                                     device="cuda"))
+    return shared, own, W, g
+
+
+#: the calls timed at the SGD step's shape, each with every clock
+ROW_TIMED = ("row_matvec", "row_matvec_library", "row_rmatvec",
+             "row_rmatvec_library", "row_rmatvec_library_zeroed",
+             "launch_floor")
+
+
+def time_row_step(torch, ps, si, sv, W, g, p):
+    """Times at the SGD step's shape of both row kernels, their plain
+    versions and the yardsticks: ``embedding_bag`` (sum mode, the values
+    as per-sample weights, over the lanes' flattened (lane, column)
+    cells) for the row matvec; one ``index_add_`` of the given products
+    into a (T * p, k) plane, alone and after ``zero_`` (the row
+    rmatvec's whole function) for the row rmatvec; and the launch floor,
+    a one-element ``fill_``. The cells and products are built outside
+    the timed calls. Every call of ``ROW_TIMED`` gets four clocks:
+    CUDA events over 50 back-to-back calls (``name``), the profiler's
+    device time a call (``name_device``), a CUDA graph of 50 calls
+    replayed under events (``name_graph``) and the host's time a call
+    (``name_host``)."""
+    import torch.nn.functional as F
+
+    T, B, m = si.shape
+    k = W.shape[2]
     bag_idx = (torch.arange(T, device="cuda")[:, None, None] * p
                + si.long()).reshape(T * B, m)
     bag_w = sv.reshape(T * B, m)
@@ -569,35 +671,139 @@ def phase_row_kernels(torch, ps, idx, val, p):
     cell = bag_idx.reshape(-1)
     contrib = (sv[..., None] * g[:, :, None, :]).reshape(-1, k)
     plane = torch.zeros((T * p, k), device="cuda")
-    t = {
-        "row_matvec": cuda_ms(torch, lambda: ps.packed_row_matvec(si, sv, W),
-                              50),
-        "row_matvec_plain": cuda_ms(
-            torch, lambda: ps.packed_row_matvec_ref(si, sv, W), 20),
-        "row_matvec_library": cuda_ms(
-            torch, lambda: F.embedding_bag(bag_idx, W_flat,
-                                           per_sample_weights=bag_w,
-                                           mode="sum"), 50),
-        "row_rmatvec": cuda_ms(
-            torch, lambda: ps.packed_row_rmatvec(si, sv, g, p), 50),
-        "row_rmatvec_plain": cuda_ms(
-            torch, lambda: ps.packed_row_rmatvec_ref(si, sv, g, p), 20),
-        "row_rmatvec_library": cuda_ms(
-            torch, lambda: plane.index_add_(0, cell, contrib), 50),
+    tiny = torch.zeros(1, device="cuda")
+    calls = {
+        "row_matvec": lambda: ps.packed_row_matvec(si, sv, W),
+        "row_matvec_library": lambda: F.embedding_bag(
+            bag_idx, W_flat, per_sample_weights=bag_w, mode="sum"),
+        "row_rmatvec": lambda: ps.packed_row_rmatvec(si, sv, g, p),
+        "row_rmatvec_library": lambda: plane.index_add_(0, cell, contrib),
+        "row_rmatvec_library_zeroed": lambda: plane.zero_().index_add_(
+            0, cell, contrib),
+        "launch_floor": lambda: tiny.fill_(0.0),
     }
+    t = {}
+    for name in ROW_TIMED:
+        fn = calls[name]
+        t[name] = cuda_ms(torch, fn, 50)
+        t[name + "_device"] = device_ms(torch, fn, 50)
+        t[name + "_graph"] = graph_ms(torch, fn, 50)
+        t[name + "_host"] = host_ms(torch, fn, 200)
+    t["row_matvec_plain"] = cuda_ms(
+        torch, lambda: ps.packed_row_matvec_ref(si, sv, W), 20)
+    t["row_rmatvec_plain"] = cuda_ms(
+        torch, lambda: ps.packed_row_rmatvec_ref(si, sv, g, p), 20)
+    return t
+
+
+def row_step_bounds(torch, si, p, k):
+    """The row kernels' bounds at the SGD step's shape from these inputs:
+    one batch read once, the W rows it references (row matvec) or the
+    dense planes written once (row rmatvec), 2 flops an entry."""
+    T, B, m = si.shape
     distinct = int(torch.unique(si[0]).numel())
-    pair_bytes = B * m * 8  # one batch, read once by every lane
+    pair_bytes = B * m * 8
     flops = 2 * T * B * m * k
-    mv_bound = bound(pair_bytes + T * distinct * k * 4 + T * B * k * 4, flops)
-    rmv_bound = bound(pair_bytes + T * B * k * 4 + T * p * k * 4, flops)
-    say(f"  SGD step shape T={T} B={B} m={m} p={p} k={k}: " + ", ".join(
-        f"{name} {ms:.4f} ms" for name, ms in t.items()))
-    say(f"  bounds: row matvec {mv_bound[0]:.4f} ms ({mv_bound[1]}), row "
-        f"rmatvec {rmv_bound[0]:.4f} ms ({rmv_bound[1]}); row matvec "
-        f"against embedding_bag (flat cells given): "
-        f"{t['row_matvec'] / t['row_matvec_library']:.2f}x; row rmatvec "
-        f"against index_add_ (products given, no zeroing): "
-        f"{t['row_rmatvec'] / t['row_rmatvec_library']:.2f}x")
+    return (bound(pair_bytes + T * distinct * k * 4 + T * B * k * 4, flops),
+            bound(pair_bytes + T * B * k * 4 + T * p * k * 4, flops))
+
+
+def say_row_times(t, mv_bound, rmv_bound, label="  "):
+    """Print :func:`time_row_step`'s readings, one line a timed call."""
+    for name in ROW_TIMED:
+        dev = t[name + "_device"]
+        say(f"{label}{name}: events {t[name]:.4f} ms, device "
+            + ("not measured" if dev is None else f"{dev:.4f} ms")
+            + f", graph {t[name + '_graph']:.4f} ms, host "
+            f"{t[name + '_host']:.4f} ms")
+    say(f"{label}plain versions: row matvec {t['row_matvec_plain']:.4f} ms, "
+        f"row rmatvec {t['row_rmatvec_plain']:.4f} ms; bounds: row matvec "
+        f"{mv_bound[0]:.5f} ms ({mv_bound[1]}), row rmatvec "
+        f"{rmv_bound[0]:.4f} ms ({rmv_bound[1]})")
+
+
+def phase_row_kernels(torch, ps, idx, val, p):
+    """Phase 2's row forms: ragged shapes (T = 1 and T = 300, k from 1 to
+    33, a lane of more entries than one block keeps at once), every
+    column of an odd p touched (each slice edge of the row rmatvec,
+    columns 0 and p - 1) for each lane's own rows and one shared batch,
+    an inf and a NaN in g, the Zipf head and column 0; then the one-vs-rest SGD step's shape
+    (the main path's rows gathered by the SGD operator's ``row_batch``)
+    for each lane's own rows and the shared batch, with a random lane
+    permutation that must permute both kernels' outputs bitwise; then
+    the times of :func:`time_row_step` beside the bounds."""
+    rng = np.random.RandomState(5)
+    errs = []
+    for (T, B, pp, m, k) in [(1, 37, 53, 5, 3), (3, 64, 300, 1, 1),
+                             (300, 16, 900, 7, 1), (4, 64, 2000, 41, 20),
+                             (2, 300, 5000, 41, 4), (2, 40, 700, 12, 33)]:
+        for integer in (True, False):
+            errs.append(check_rows(torch, ps, *row_case(
+                torch, rng, T, B, pp, m, k, integer), pp, integer,
+                f"ragged T={T}"))
+    # one lane whose 12300 entries fall on 40 columns: every slice's
+    # kept entries overflow a block's list, taken in chunks
+    i_, v_, W_, g_ = row_case(torch, rng, 2, 300, 40, 41, 4, True)
+    errs.append(check_rows(torch, ps, i_, v_, W_, g_, 40, True,
+                           "12300 entries on 40 columns"))
+    for (T, k) in [(1, 1), (20, 1), (20, 4), (6, 20), (3, 33), (300, 1)]:
+        for shared in ((False, True) if T > 1 else (False,)):
+            errs.append(check_rows(torch, ps, *every_column_case(
+                torch, rng, T, 64, 6147, 100, k, shared), 6147, True,
+                "every column of p=6147"))
+    # an inf and a NaN in g: the padding's zero values then put NaN on
+    # column 0, as in the plain version (the row rmatvec leaves zero
+    # values out only when every g it stages is finite)
+    i_, v_, _W, g_ = row_case(torch, rng, 6, 64, 300, 9, 2, True)
+    g_[2, 5, 1], g_[4, 0, 0] = float("inf"), float("nan")
+    back = ps.packed_row_rmatvec(i_, v_, g_, 300)
+    ref = ps.packed_row_rmatvec_ref(i_, v_, g_, 300)
+    if not (bool(ref.isnan().any())
+            and torch.equal(back.isnan(), ref.isnan())
+            and torch.equal(back.nan_to_num(0.0, 1.0, -1.0),
+                            ref.nan_to_num(0.0, 1.0, -1.0))):
+        raise AssertionError("row rmatvec differs from its plain version "
+                             "with an inf and a NaN in g")
+    say(f"  rows inf and NaN in g: row rmatvec equals its plain version, "
+        f"{int(ref.isnan().sum())} NaN outputs in the same places")
+    for column in (7, 0):
+        for integer in (True, False):
+            i_, v_, W_, g_ = row_case(torch, rng, 6, 64, 400, 9, 2, integer,
+                                      column=column)
+            if column == 0:
+                i_.zero_()
+            errs.append(check_rows(torch, ps, i_, v_, W_, g_, 400, integer,
+                                   f"every row on column {column}"))
+    k = 1
+    (si, sv), own, W, g = sgd_step_rows(torch, idx, val, p, k=k)
+    errs.append(check_rows(torch, ps, *own, W, g, p, False,
+                           "SGD step shape, own rows"))
+    errs.append(check_rows(torch, ps, si, sv, W, g, p, False,
+                           "SGD step shape, shared batch"))
+    perm = torch.as_tensor(rng.permutation(W.shape[0])).cuda()
+    for label, (pi, pv) in (("own rows", own), ("shared batch", (si, sv))):
+        same = (torch.equal(ps.packed_row_matvec(pi, pv, W)[perm],
+                            ps.packed_row_matvec(pi[perm], pv[perm], W[perm]))
+                and torch.equal(ps.packed_row_rmatvec(pi, pv, g, p)[perm],
+                                ps.packed_row_rmatvec(pi[perm], pv[perm],
+                                                      g[perm], p)))
+        say(f"  rows SGD step shape, {label}: a lane permutation permutes "
+            "both outputs " + ("bitwise" if same else "NOT bitwise"))
+        if not same:
+            raise AssertionError(f"a row kernel's lane bits depend on its "
+                                 f"slot ({label})")
+    t = time_row_step(torch, ps, si, sv, W, g, p)
+    mv_bound, rmv_bound = row_step_bounds(torch, si, p, k)
+    T, B, m = si.shape
+    say(f"  SGD step shape T={T} B={B} m={m} p={p} k={k}, shared batch:")
+    say_row_times(t, mv_bound, rmv_bound, "    ")
+    say(f"  row matvec against embedding_bag (flat cells given): "
+        f"{t['row_matvec'] / t['row_matvec_library']:.2f}x events, "
+        f"{t['row_matvec_graph'] / t['row_matvec_library_graph']:.2f}x graph; "
+        f"row rmatvec against zero_ + index_add_ (products given): "
+        f"{t['row_rmatvec'] / t['row_rmatvec_library_zeroed']:.2f}x events, "
+        f"{t['row_rmatvec_graph'] / t['row_rmatvec_library_zeroed_graph']:.2f}"
+        "x graph")
     return errs, t, mv_bound, rmv_bound
 
 
@@ -892,7 +1098,7 @@ def phase_k4(torch, X, y):
     return max(errs), times, deepest["bound_ms"]
 
 
-def profile_device_split(torch, fn, kernels, top=0, window=False):
+def profile_device_split(torch, fn, kernels, top=0, window=False, big=None):
     """Device time of one call of ``fn`` under torch.profiler, in ms:
     ``total`` (every device activity) and, for each name of ``kernels``
     (``{name: substrings}``), the device activities whose name holds one
@@ -901,11 +1107,14 @@ def profile_device_split(torch, fn, kernels, top=0, window=False):
     name took, as (name, ms); with ``window``, also ``window``: (busy,
     span), the union of the device activities' intervals and the trace's
     span from its first to its last activity, host or device, both read
-    from this one trace. None when the profiler saw no device time."""
+    from this one trace; with ``big`` (a count of elements), also
+    ``big``: the device time launched by the PyTorch operators that take
+    a tensor of ``big`` elements or more (their recorded input shapes).
+    None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=big is not None) as prof:
         fn()
         torch.cuda.synchronize()
     out = dict.fromkeys(["total", *kernels], 0.0)
@@ -940,6 +1149,19 @@ def profile_device_split(torch, fn, kernels, top=0, window=False):
         span = (max(ev.time_range.end for ev in events)
                 - min(ev.time_range.start for ev in events))
         out["window"] = (busy / 1e3, span / 1e3)
+    if big is not None:
+        out["big"] = 0.0
+        for ev in prof.key_averages(group_by_input_shape=True):
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                continue
+            shapes = [s for s in (ev.input_shapes or [])
+                      if isinstance(s, list) and s
+                      and all(isinstance(d, int) for d in s)]
+            if any(math.prod(s) >= big for s in shapes):
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                out["big"] += us / 1e3
     return out
 
 
@@ -2028,6 +2250,19 @@ def phase_sgd_ab(torch, backend, alphas):
         raise AssertionError("SGD eta=3 killed no lane or has no winner")
 
 
+def row_clocks(t, name):
+    """The extra clocks of a row kernel's entry in the kernel line: its
+    device, graph and host times a call, its yardstick's device and
+    graph times, and the launch floor's (one-element ``fill_``)."""
+    return {"device_ms": t[name + "_device"], "graph_ms": t[name + "_graph"],
+            "host_ms": t[name + "_host"],
+            "library_device_ms": t[name + "_library_device"],
+            "library_graph_ms": t[name + "_library_graph"],
+            "launch_floor_device_ms": t["launch_floor_device"],
+            "launch_floor_graph_ms": t["launch_floor_graph"],
+            "launch_floor_host_ms": t["launch_floor_host"]}
+
+
 def card_line():
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -2091,6 +2326,105 @@ def ab_sgd(parent, pairs, rows):
     if len(seen) != 1:
         print(f"chip_smoke: the A/B runs disagree: {seen}", file=sys.stderr)
         return 1
+    return 0
+
+
+#: one run of ``--ab-row-kernels``: the row kernels' times at the SGD step's
+#: shape and phase 14d's step split, with the package of the tree given
+#: as argv[1] and this checkout's chip_smoke.py (argv[2]), printed as one
+#: JSON line
+AB_ROW_KERNELS_RUN = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import torch
+from skdist_tpu_torch.ops import packed_sparse as ps
+X, y = cs.make_20news_sparse(seed=0, n=11314, d=2 ** 18, nnz_row=40, k=20)
+idx, val, p = cs.main_plane(torch, X)
+(si, sv), _own, W, g = cs.sgd_step_rows(torch, idx, val, p)
+t = cs.time_row_step(torch, ps, si, sv, W, g, p)
+us, split, steps = cs.profile_ovr_sgd_steps(torch, X, y)
+from skdist_tpu_torch import CUDABackend
+cs.ovr_sgd_fit(torch, X, y, CUDABackend())
+_ovr, fit_wall = cs.ovr_sgd_fit(torch, X, y, CUDABackend())
+print(json.dumps({"times": t, "host": cs.host_breakdown(torch, ps),
+                  "bounds": cs.row_step_bounds(torch, si, p, 1),
+                  "step_us": us, "split": split, "steps": steps,
+                  "fit_wall": fit_wall}))
+"""
+
+
+def host_breakdown(torch, ps):
+    """Host microseconds a call of the pieces of a row wrapper's launch
+    path at the SGD step's output shape: a ``torch.cuda.device`` context,
+    ``current_device()``, ``current_stream().cuda_stream`` and the raw
+    stream handle, ``torch.empty`` and ``new_empty`` of (20, 64, 1), and
+    the row matvec's ctypes call with T = 0 (its C entry returns before
+    any launch: the argument conversion alone)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fn = ps._lib().skdist_packed_row_matvec_f32
+    probe = torch.zeros(1, device=dev)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "device_context": device_context,
+        "current_device": torch.cuda.current_device,
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "empty": lambda: torch.empty((20, 64, 1), device=dev),
+        "new_empty": lambda: probe.new_empty((20, 64, 1)),
+        "ctypes_call": lambda: fn(0, 0, 0, 0, 0, 0, 0, 64, 41, 0, 1, 0, 0, 1,
+                                  1, 0),
+    }
+    out = {}
+    for name, call in pieces.items():
+        call()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        out[name] = 1e6 * (time.perf_counter() - t0) / 2000
+    torch.cuda.synchronize()
+    return out
+
+
+def ab_row_kernels(parent, pairs):
+    """``--ab-row-kernels``: phase 2's row-kernel times at the SGD step's
+    shape, phase 14d's step split and its fit's wall (after one warm-up
+    fit), in turns on the tree at ``parent`` and on this checkout
+    (``pairs`` pairs ordered parent, this, this, parent, ...), one
+    process a run, each with its own tree's package. Returns the exit
+    code."""
+    import statistics
+
+    say(card_line())
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    walls = {"parent": [], "change": []}
+    for name in (["parent", "change", "change", "parent"] * pairs)[:2 * pairs]:
+        r = subprocess.run(
+            [sys.executable, "-c", AB_ROW_KERNELS_RUN, trees[name],
+             os.path.join(here, "chip_smoke.py")],
+            capture_output=True, text=True, cwd=trees[name])
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr)
+            return 1
+        run = json.loads(r.stdout.strip().splitlines()[-1])
+        say(f"ab-rows {name}:")
+        say_row_times(run["times"], *run["bounds"], "    ")
+        say("    host pieces (us a call): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in run["host"].items()))
+        say_step_split(run["step_us"], run["split"], run["steps"],
+                       "bare one-vs-rest SGD step")
+        say(f"    14d fit wall {run['fit_wall']:.3f} s")
+        walls[name].append(run["fit_wall"])
+    for name, v in walls.items():
+        say(f"ab-rows {name} 14d fit wall: median {statistics.median(v):.3f} "
+            f"s, least {min(v):.3f}, largest {max(v):.3f} over {len(v)}")
     return 0
 
 
@@ -2284,7 +2618,7 @@ def phase_ovo(torch, X, y, backend):
 
 def sgd_ovr_lanes(torch, X, y, max_iter):
     """The one-vs-rest SGD fit problem of the 20 class lanes on the card:
-    ``(kernel, op, y_bin (20, n), sw, hyper)``."""
+    ``(meta, static, op, y_bin (20, n), sw, hyper)``."""
     from skdist_tpu_torch import SGDClassifier
     from skdist_tpu_torch.distribute.multiclass import _binary_prep
     from skdist_tpu_torch.models.linear import _freeze, to_device_X
@@ -2302,7 +2636,80 @@ def sgd_ovr_lanes(torch, X, y, max_iter):
              "eta0": torch.full((T,), 0.01, **full),
              "l1_ratio": torch.full((T,), 0.15, **full),
              "tol": torch.full((T,), 1e-3, **full)}
-    return SGDClassifier._build_fit_kernel(meta, static), op, yb, sw, hyper
+    return meta, static, op, yb, sw, hyper
+
+
+def profile_ovr_sgd_steps(torch, X, y, steps=50):
+    """Phase 14d's step alone: the 20 class lanes' SGD batch loop over
+    packed X (one row order every lane shares, as the resident round
+    draws it). Host microseconds a step over one epoch, then a
+    ``torch.profiler`` split of ``steps`` steps: ``row`` (the row
+    kernels), ``memset`` (a zeroing pass on the stream), ``big`` (the
+    dense ``(T, p, k)`` passes: device time of the PyTorch operators
+    that take a tensor of ``T * (p - 1) * k`` elements or more), the
+    total and the window's busy time and span. Returns ``(us, split,
+    steps)``."""
+    from skdist_tpu_torch import SGDClassifier
+    from skdist_tpu_torch.models import solvers
+    from skdist_tpu_torch.utils.draws import epoch_permutation
+
+    meta, static, op, yb, sw, hyper = sgd_ovr_lanes(torch, X, y, max_iter=20)
+    pb = SGDClassifier._build_fit_problem(meta, static)(op, yb, sw, hyper)
+    T, n = sw.shape
+    padded = -(-n // 64) * 64
+    rows = epoch_permutation(0, 0, padded, n, "cuda").expand(T, padded)
+    n_batches, batch = pb["batches"](rows)
+    w0 = pb["W0"]
+    carry4 = (w0, (torch.zeros(T, device="cuda"), torch.zeros_like(w0)),
+              torch.zeros(T, dtype=torch.int64, device="cuda"),
+              torch.zeros(T, device="cuda"))
+
+    def run(k):
+        solvers.sgd_batch_scan(pb["grad_fn"], pb["lr_fn"], pb["post_step"],
+                               pb["loss_fn"], carry4, k, batch)
+        torch.cuda.synchronize()
+
+    run(min(20, n_batches))
+    t0 = time.perf_counter()
+    run(n_batches)
+    us = 1e6 * (time.perf_counter() - t0) / n_batches
+    k = w0.shape[1] // op.p
+    split = profile_device_split(
+        torch, lambda: run(steps),
+        {"row": ("packed_row_",), "memset": ("Memset", "memset")},
+        window=True, big=T * (op.p - 1) * k)
+    return us, split, steps
+
+
+def say_step_split(us, split, steps, label):
+    """One line of :func:`profile_ovr_sgd_steps`'s readings."""
+    line = f"  {label}: {us:.1f} us a step (host clock)"
+    if split is None:
+        say(line + "; the profiler saw no device time")
+        return
+    busy, span = split["window"]
+    rest = split["total"] - split["row"] - split["memset"] - split["big"]
+    say(line + f"; {steps} steps under the profiler: device "
+        f"{split['total']:.3f} ms (row kernels {split['row']:.3f}, memset "
+        f"{split['memset']:.3f}, dense (T, p, k) passes {split['big']:.3f}, "
+        f"the rest {rest:.3f}), busy {busy:.3f} of {span:.3f} ms "
+        f"({100 * busy / span:.1f}%); of the busy time: row kernels "
+        f"{100 * split['row'] / busy:.1f}%, dense passes "
+        f"{100 * split['big'] / busy:.1f}%")
+
+
+def ovr_sgd_fit(torch, X, y, backend):
+    """Phase 14d's fit, ``DistOneVsRestClassifier(SGDClassifier(loss=
+    "hinge", max_iter=20, random_state=0))``: ``(model, wall seconds)``."""
+    from skdist_tpu_torch import DistOneVsRestClassifier, SGDClassifier
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ovr = DistOneVsRestClassifier(
+        SGDClassifier(loss="hinge", max_iter=20, random_state=0),
+        backend=backend).fit(X, y)
+    torch.cuda.synchronize()
+    return ovr, time.perf_counter() - t0
 
 
 def phase_ovr_sgd(torch, X, y, backend):
@@ -2316,13 +2723,7 @@ def phase_ovr_sgd(torch, X, y, backend):
     say("phase 14d: DistOneVsRestClassifier(SGDClassifier(loss='hinge', "
         f"max_iter=20)) on the packed {X.shape}")
     ps.packed_row_matvec.launches = ps.packed_row_rmatvec.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ovr = DistOneVsRestClassifier(
-        SGDClassifier(loss="hinge", max_iter=20, random_state=0),
-        backend=backend).fit(X, y)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ovr, wall = ovr_sgd_fit(torch, X, y, backend)
     launches = {"packed_row_matvec": ps.packed_row_matvec.launches,
                 "packed_row_rmatvec": ps.packed_row_rmatvec.launches}
     epochs = np.asarray([int(e.n_iter_) for e in ovr.estimators_])
@@ -2365,7 +2766,8 @@ def phase_ovr_sgd(torch, X, y, backend):
         raise AssertionError(
             "phase 14d: card and CPU differ by more than 10x what one ulp of "
             "input noise does")
-    kernel, op, yb, sw, hyper = sgd_ovr_lanes(torch, X, y, max_iter=3)
+    meta, static, op, yb, sw, hyper = sgd_ovr_lanes(torch, X, y, max_iter=3)
+    kernel = SGDClassifier._build_fit_kernel(meta, static)
     rev = torch.arange(yb.shape[0] - 1, -1, -1, device="cuda")
     with exact_matmuls(), torch.no_grad():
         w1 = kernel(op, yb, sw, hyper)["W"]
@@ -2375,6 +2777,7 @@ def phase_ovr_sgd(torch, X, y, backend):
         "lanes in reverse slots: " + ("bitwise equal" if same else "DIFFER"))
     if not same:
         raise AssertionError("an OvR SGD lane's weights depend on its slot")
+    say_step_split(*profile_ovr_sgd_steps(torch, X, y), "bare step")
     return {"wall": wall, "steps": steps}, launches
 
 
@@ -2386,9 +2789,14 @@ def main():
                     help="run only an A/B of phase 13b's compacted search "
                     "between the checkout at DIR and this one")
     ap.add_argument("--pairs", type=int, default=6,
-                    help="parent/change pairs of --ab-sgd (default 6)")
+                    help="parent/change pairs of --ab-sgd and of "
+                    "--ab-row-kernels (default 6)")
     ap.add_argument("--ab-rows", type=int, default=SGD_AB_N,
                     help="rows of --ab-sgd's data (default: phase 13b's)")
+    ap.add_argument("--ab-row-kernels", metavar="DIR",
+                    help="run only an A/B of the row kernels' times and "
+                    "phase 14d's step split between the checkout at DIR "
+                    "and this one")
     args = ap.parse_args()
 
     import torch
@@ -2404,10 +2812,11 @@ def main():
         return 2
     if args.ab_sgd:
         return ab_sgd(args.ab_sgd, args.pairs, args.ab_rows)
+    if args.ab_row_kernels:
+        return ab_row_kernels(args.ab_row_kernels, args.pairs)
     import scipy.sparse as sp
 
     from skdist_tpu_torch import CUDABackend, DistGridSearchCV, LogisticRegression
-    from skdist_tpu_torch.models.linear import prepare_fit_X
     from skdist_tpu_torch.ops import _build
     from skdist_tpu_torch.ops import packed_sparse as ps
 
@@ -2460,12 +2869,7 @@ def main():
                            label="sliced operands", sliced=True))
     errs.append(check_pair(torch, ps, i_[:300], v_[:300], 5000, 2, 300,
                            seed=4, label="wide k, sliced", sliced=True))
-    packed = prepare_fit_X(X, LogisticRegression)
-    p = d + 1
-    idx = torch.cat([torch.as_tensor(packed.idx),
-                     torch.full((n, 1), d, dtype=torch.int32)], 1).cuda()
-    val = torch.cat([torch.as_tensor(packed.val),
-                     torch.ones((n, 1), dtype=torch.float32)], 1).cuda()
+    idx, val, p = main_plane(torch, X)
     est = LogisticRegression(max_iter=100)
     meta = {"n_features": d, "n_classes": k}
     static = tuple(sorted(est._static_config(meta).items()))
@@ -2690,7 +3094,8 @@ def main():
          "ms": row_times["row_matvec"],
          "plain_ms": row_times["row_matvec_plain"],
          "bound_ms": row_mv_bound[0], "bound_by": row_mv_bound[1],
-         "library_ms": row_times["row_matvec_library"]},
+         "library_ms": row_times["row_matvec_library"],
+         **row_clocks(row_times, "row_matvec")},
         {"name": "packed_row_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": row_launches["packed_row_rmatvec"],
@@ -2698,7 +3103,13 @@ def main():
          "ms": row_times["row_rmatvec"],
          "plain_ms": row_times["row_rmatvec_plain"],
          "bound_ms": row_rmv_bound[0], "bound_by": row_rmv_bound[1],
-         "library_ms": row_times["row_rmatvec_library"]},
+         "library_ms": row_times["row_rmatvec_library"],
+         **row_clocks(row_times, "row_rmatvec"),
+         "library_zeroed_ms": row_times["row_rmatvec_library_zeroed"],
+         "library_zeroed_device_ms":
+             row_times["row_rmatvec_library_zeroed_device"],
+         "library_zeroed_graph_ms":
+             row_times["row_rmatvec_library_zeroed_graph"]},
     ]
     for kk in kernels:
         for key, v in kk.items():

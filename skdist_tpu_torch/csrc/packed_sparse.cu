@@ -70,26 +70,40 @@
 // so one batch shared by every lane is read in place) and its own
 // operand. Neither builds the column copy K2 reads: a mini-batch is new
 // at every step.
-//   row matvec: one thread per (lane, row, j vector); it sums its row's m
-//     entries in stored order, ROW_UNROLL gathers in flight, as K1 does.
-//   row rmatvec: the output is each lane's dense (n_cols, k) plane, zeroed
-//     on the stream first. One block per (lane, chunk of RRM_KCHUNK j)
-//     loads the lane's B * m entries as 64-bit keys (column << 32 | its
-//     position b * m + q) into shared memory, sorts them (bitonic), and
-//     sums each touched column's run in position order, starting from
-//     the column's value in the plane, so the sum is the plain
-//     version's index_add_ order exactly. A lane of more than
-//     RRM_MAX_KEYS entries is taken in chunks of positions, in order.
-//     Zipf-shaped text puts one popular column in most rows of a batch:
-//     float atomics would serialise on it and make the bits depend on
-//     timing; the sorted runs do neither, so the result is bitwise
-//     repeatable and independent of the lane's slot.
+//   row matvec (K1 row form): for k / V <= ROW_GROUP_KV j vectors (the
+//     SGD step's k = 1), a group of gs warp lanes per (lane, row), gs the
+//     least power of two >= m (at most 32): each group thread issues its
+//     strided share of the row's gathers at once, and a fixed __shfl_xor
+//     tree adds the partial sums, so the order depends on m alone. Wider
+//     k: one thread per (lane, row, j vector) sums its row in stored
+//     order, ROW_UNROLL gathers in flight, as K1 does.
+//   row rmatvec (K2 row form): the output is each lane's dense
+//     (n_cols, k) plane, made by one launch (no zeroing pass on the
+//     stream). One block per (slice of columns, lane or group of lanes,
+//     chunk of j): it loads the lane's B * m entries' columns and values
+//     at once, picks the entries on its slice's columns into a list in
+//     position order (warp ballots and a scan, no atomics), groups the
+//     list by column (__match_any_sync ranks, a counting scatter), then
+//     streams +0.0 over its whole slice of the output and stores each
+//     touched column's sum, added in position order from +0.0 with the
+//     lane's g rows staged in shared memory, over it. Entries of value 0
+//     (the padding) add exact zeros unless g is inf or NaN, and are left
+//     out when every staged g is finite. A slice of more kept entries
+//     than the list holds is taken in position-ordered chunks, each
+//     chunk's sums continuing from the last. When every lane reads one
+//     shared batch (lane strides 0, the SGD path's row_batch of an
+//     expanded index), a block serves up to RRM_MAX_LANES lanes with one
+//     filter and one grouping. Zipf-shaped text puts one popular column
+//     in most rows of a batch: float atomics would serialise on it and
+//     make the bits depend on timing; the runs do neither, and each sum
+//     is the plain version's index_add_ order exactly, so the result is
+//     bitwise repeatable and independent of the lane's slot.
 // What bounds them: the row matvec's T * B * m gathers of k floats (a few
-// MB at the SGD path's shape, well inside L2); the row rmatvec's dense
-// output write, T * n_cols * k * 4 bytes (21 MB for 20 lanes at
-// n_cols = 2**18 + 1, k = 1), which the zeroing pass pays once. Both are
-// small next to a launch at that shape; fusing the L2 decay and the
-// update into a sparse write is later work.
+// MB at the SGD path's shape, well inside L2), so a launch; the row
+// rmatvec's dense output write, T * n_cols * k * 4 bytes (21 MB for 20
+// lanes at n_cols = 2**18 + 1, k = 1). Beside that write, each block
+// reads the whole batch's keys from L2 to find its slice's entries.
+// Fusing the L2 decay and the update into a sparse write is later work.
 //
 // Plain C entry points, bound with ctypes; each returns cudaGetLastError()
 // after its launches and launches on the caller's stream.
@@ -402,13 +416,71 @@ packed_rmatvec_tile_kernel(const int64_t* __restrict__ col_ptr,
     }
 }
 
-constexpr int ROW_THREADS = 128;      // threads of a row-matvec block
-constexpr int ROW_UNROLL = 8;         // row-matvec gathers in flight a thread
-constexpr int RRM_THREADS = 1024;     // threads of a row-rmatvec block
-constexpr int RRM_MAX_KEYS = 8192;    // keys a row-rmatvec block sorts at once
-constexpr int RRM_KCHUNK = 32;        // output j a row-rmatvec block owns
+constexpr unsigned FULL = 0xffffffffu;
 
-// K1 row form. Block (lane, tile of ROW_THREADS (row, j vector) outputs).
+__device__ __forceinline__ float shfl_xor(float x, int o) {
+    return __shfl_xor_sync(FULL, x, o);
+}
+__device__ __forceinline__ float4 shfl_xor(float4 x, int o) {
+    return make_float4(__shfl_xor_sync(FULL, x.x, o), __shfl_xor_sync(FULL, x.y, o),
+                       __shfl_xor_sync(FULL, x.z, o), __shfl_xor_sync(FULL, x.w, o));
+}
+
+constexpr int ROW_THREADS = 256;     // threads of a row-matvec block
+constexpr int ROW_GROUP_KV = 4;      // j vectors of the group form, at most
+constexpr int ROW_UNROLL = 8;        // gathers in flight a thread (thread form)
+
+// K1 row form, group form (k / V <= ROW_GROUP_KV). A group of gs lanes of
+// a warp (gs = the least power of two >= m, at most 32) owns one (lane,
+// row): group thread r sums entries r, r + gs, ... of the row for each of
+// its kv j vectors, every gather issued at once, and a fixed __shfl_xor
+// tree over the group adds the partial sums. The order depends on m
+// alone, so a lane's bits do not depend on its slot.
+template <int V>
+__global__ void __launch_bounds__(ROW_THREADS)
+packed_row_matvec_group_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
+                               int64_t i_rs, const float* __restrict__ val,
+                               int64_t v_ls, int64_t v_rs, int T, int B, int m,
+                               const float* __restrict__ W, int64_t w_row_stride,
+                               int64_t w_batch_stride, float* __restrict__ out,
+                               int k, int kv, int log_gs) {
+    using F = typename Vec<V>::T;
+    const int gs = 1 << log_gs;
+    const int64_t gid = ((int64_t)blockIdx.x * ROW_THREADS + threadIdx.x) >> log_gs;
+    const int r = threadIdx.x & (gs - 1);
+    const bool live = gid < (int64_t)T * B;
+    const int64_t t = live ? gid / B : 0;
+    const int64_t b = live ? gid - t * B : 0;
+    F acc[ROW_GROUP_KV];
+#pragma unroll
+    for (int jv = 0; jv < ROW_GROUP_KV; ++jv) acc[jv] = zero<V>();
+    if (live) {
+        const int32_t* ir = idx + t * i_ls + b * i_rs;
+        const float* vr = val + t * v_ls + b * v_rs;
+        const float* Wt = W + t * w_batch_stride;
+#pragma unroll 2
+        for (int q = r; q < m; q += gs) {
+            const float v = __ldg(vr + q);
+            const float* wr = Wt + (int64_t)__ldg(ir + q) * w_row_stride;
+#pragma unroll
+            for (int jv = 0; jv < ROW_GROUP_KV; ++jv)
+                if (jv < kv) acc[jv] = fma_v(v, load<V>(wr + jv * V), acc[jv]);
+        }
+    }
+    for (int o = gs >> 1; o > 0; o >>= 1) {
+#pragma unroll
+        for (int jv = 0; jv < ROW_GROUP_KV; ++jv) acc[jv] = add_v(acc[jv], shfl_xor(acc[jv], o));
+    }
+    if (live && r == 0) {
+#pragma unroll
+        for (int jv = 0; jv < ROW_GROUP_KV; ++jv)
+            if (jv < kv) store(out + gid * k + jv * V, acc[jv]);
+    }
+}
+
+// K1 row form, thread form (wider k). Block (lane, tile of ROW_THREADS
+// (row, j vector) outputs); a thread sums its row's m entries in stored
+// order, ROW_UNROLL gathers in flight.
 template <int V>
 __global__ void __launch_bounds__(ROW_THREADS)
 packed_row_matvec_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
@@ -442,77 +514,345 @@ packed_row_matvec_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
     store(out + (t * B + b) * k + (int64_t)jv * V, acc);
 }
 
-// Ascending bitonic sort of the n (a power of two) keys of s, by the
-// whole block.
-__device__ __forceinline__ void bitonic_sort(unsigned long long* s, int n) {
-    for (int size = 2; size <= n; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-                const int lo = 2 * i - (i & (stride - 1));
-                const int hi = lo + stride;
-                const unsigned long long a = s[lo], c = s[hi];
-                if ((a > c) == ((lo & size) == 0)) {
-                    s[lo] = c;
-                    s[hi] = a;
-                }
-            }
-            __syncthreads();
-        }
+// n / d for 0 <= n < 2**31 by a multiply-high and a shift (the round-up
+// method of Hacker's Delight 10-9, as PyTorch's IntDivider): the row
+// rmatvec divides every entry position by m.
+struct DivM {
+    uint32_t magic, shift;
+    explicit DivM(uint32_t d) {
+        shift = 0;
+        while (shift < 32 && (1ull << shift) < d) ++shift;
+        magic = (uint32_t)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
     }
-}
+    __device__ __forceinline__ int operator()(int n) const {
+        return (int)((__umulhi((uint32_t)n, magic) + (uint32_t)n) >> shift);
+    }
+};
 
-// K2 row form. Block (lane, chunk of RRM_KCHUNK j); dynamic shared memory
-// holds `chunk` keys. The lane's plane out[t] is already zeroed.
-__global__ void __launch_bounds__(RRM_THREADS)
+constexpr int RRM_THREADS = 256;                      // threads of a row-rmatvec block
+constexpr int RRM_MIN_BLOCKS = 4;                     // row-rmatvec blocks an SM must hold
+constexpr int RRM_WARPS = RRM_THREADS / 32;
+constexpr int RRM_ITEMS = 2;                          // entries a thread filters a tile
+constexpr int RRM_TILE = RRM_THREADS * RRM_ITEMS;     // entries filtered a tile
+constexpr int RRM_SUPER = 6;                          // tiles a thread loads at once
+constexpr int RRM_PREFETCH = RRM_SUPER * RRM_ITEMS;   // entries a thread loads at once
+constexpr int RRM_KEYS = RRM_TILE;                    // kept entries a block holds
+constexpr int RRM_OUT = 16384;                        // output floats of a block
+constexpr int RRM_MAX_COLS = 8192;                    // columns of a slice, at most
+constexpr int RRM_MIN_COLS = 64;                      // columns of a slice, at least
+constexpr int RRM_GSTAGE = 2048;                      // floats of g staged, at most
+constexpr int RRM_MAX_LANES = 32;                     // lanes of a block (shared batch)
+constexpr int RRM_KCHUNK = 32;                        // j of a block, at most
+constexpr int RRM_UNROLL = 8;                         // products a run's sum takes at once
+static_assert(RRM_ITEMS * RRM_WARPS <= 32, "one warp scans a tile's counts");
+static_assert(RRM_GSTAGE * 4 + RRM_MAX_COLS * 2 + RRM_KEYS * 28 <= 48 * 1024,
+              "the row rmatvec's shared memory fits the 48 KB default");
+
+// K2 row form. Block (slice of S columns, group of `lanes` lanes, chunk of
+// kc j); the lanes of a group share one batch (lane strides 0), so the
+// filter and the grouping serve all of them. Slices run in the order 0,
+// last, 1, last - 1, ...: the two hot ends (column 0 holds the padding,
+// the last column the intercept) start first. Dynamic shared memory: g
+// staged as g[lane][row][j] when `stage` (lanes * B * kcn floats), and
+// the column -> run map (S int16). The order of the phases keeps the
+// block's loads ahead of its stores: once the fill floods the memory
+// system, a load waits behind it.
+// 1. Loads: each thread loads the column and value of RRM_PREFETCH
+//    entries at once, and the block stages g, while memory is idle.
+// 2. Filter, from registers: tile by tile in position order, each warp
+//    ballots its entries whose column falls in the slice, one warp scans
+//    the (item, warp) counts, and the kept entries (position, value) are
+//    appended to a list in position order (no atomics). An entry of
+//    value 0 adds an exact zero to its sum (a sum is never -0.0) unless
+//    its g is inf or NaN, so when every staged g is finite it is not
+//    kept (the padding, all on column 0).
+// 3. Flush (when the list would overflow, and at the end): warp 0 walks
+//    the list 32 entries at a time, groups a chunk's equal columns with
+//    __match_any_sync and gives each entry its run (a column, numbered
+//    in order of first appearance) and its rank in the run, and scans
+//    the run counts into starts; meanwhile, at the first flush, the
+//    other warps stream +0.0 over the block's whole slice of the output
+//    (16-byte stores where aligned). The entries are scattered into run
+//    order; then one thread per (run, lane, j) adds the run's products
+//    in position order, RRM_UNROLL products formed at a time, g in
+//    shared memory, to the column's sum (+0.0 at the first flush, else
+//    the sum the last flush stored) and stores it over the fill.
+// Every sum starts from +0.0 and adds __fmul_rn products with __fadd_rn
+// in position order: the plain version's index_add_ into a zeroed plane.
+// Output bytes: the fill writes each once, and a touched cell's sum
+// overwrites it (in the SGD step's shape ~1% of the plane).
+__global__ void __launch_bounds__(RRM_THREADS, RRM_MIN_BLOCKS)
 packed_row_rmatvec_kernel(const int32_t* __restrict__ idx, int64_t i_ls,
                           int64_t i_rs, const float* __restrict__ val,
-                          int64_t v_ls, int64_t v_rs, int B, int m,
+                          int64_t v_ls, int64_t v_rs, int T, int B, int m,
                           const float* __restrict__ g, int64_t g_ls,
                           int64_t g_rs, float* __restrict__ out,
-                          int64_t n_cols, int k, int chunk) {
-    extern __shared__ unsigned long long s_key[];
-    const int64_t t = blockIdx.x;
-    const int j0 = blockIdx.y * RRM_KCHUNK;
-    const int kc = min(RRM_KCHUNK, k - j0);
+                          int64_t n_cols, int k, int lanes, int S, int kc,
+                          bool stage, DivM div_m, int per, DivM div_per) {
+    extern __shared__ float s_dyn[];
+    __shared__ uint16_t s_col[RRM_KEYS];     // kept entry: column - c0
+    __shared__ int32_t s_pos[RRM_KEYS];      // kept entry: position b * m + q
+    __shared__ float s_val[RRM_KEYS];        // kept entry: value
+    __shared__ uint16_t s_run[RRM_KEYS];     // kept entry: its run
+    __shared__ uint16_t s_rank[RRM_KEYS];    // kept entry: its rank in the run
+    __shared__ int32_t s_b[RRM_KEYS];        // run order: row
+    __shared__ float s_v[RRM_KEYS];          // run order: value
+    __shared__ uint16_t s_run_col[RRM_KEYS];
+    __shared__ uint16_t s_run_cnt[RRM_KEYS];
+    __shared__ uint16_t s_run_start[RRM_KEYS];
+    __shared__ int s_wcnt[32];
+    __shared__ int s_total, s_n_runs, s_nonfinite;
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const unsigned lt = (1u << lane) - 1u;
+    const unsigned bx = blockIdx.x;
+    const int64_t slice = (bx & 1) ? (int64_t)gridDim.x - 1 - (bx >> 1) : (bx >> 1);
+    const int64_t c0 = slice * S;
+    const int nc = (int)min((int64_t)S, n_cols - c0);
+    const int t0 = blockIdx.y * lanes;
+    const int nl = min(lanes, T - t0);
+    const int j0 = blockIdx.z * kc;
+    const int kcn = min(kc, k - j0);
+    float* s_g = s_dyn;
+    int16_t* s_colrun = reinterpret_cast<int16_t*>(s_g + (stage ? lanes * B * kcn : 0));
+    const int32_t* it = idx + (int64_t)t0 * i_ls;
+    const float* vt = val + (int64_t)t0 * v_ls;
     const int E = B * m;
-    const int32_t* it = idx + t * i_ls;
-    const float* vt = val + t * v_ls;
-    const float* gt = g + t * g_ls + j0;
-    float* ot = out + t * n_cols * k + j0;
-    for (int e0 = 0; e0 < E; e0 += chunk) {
-        const int ec = min(chunk, E - e0);
-        int n = 1;
-        while (n < ec) n <<= 1;
-        for (int i = threadIdx.x; i < n; i += RRM_THREADS) {
-            unsigned long long key = ~0ull;
-            if (i < ec) {
-                const int e = e0 + i;
-                const int b = e / m;
-                const uint32_t col = (uint32_t)__ldg(it + (int64_t)b * i_rs + (e - b * m));
-                key = ((unsigned long long)col << 32) | (unsigned)e;
+
+    int col[RRM_PREFETCH];   // column - c0 when in the slice, else -1
+    float vv[RRM_PREFETCH];
+    auto load = [&](int s0) {
+#pragma unroll
+        for (int u = 0; u < RRM_PREFETCH; ++u) {
+            const int e = s0 + u * RRM_THREADS + tid;
+            int c = -1;
+            float x = 0.f;
+            if (e < E) {
+                const int b = div_m(e);
+                const int q = e - b * m;
+                const int64_t cc =
+                    (int64_t)(uint32_t)__ldg(it + (int64_t)b * i_rs + q) - c0;
+                x = __ldg(vt + (int64_t)b * v_rs + q);
+                c = (cc >= 0 && cc < nc) ? (int)cc : -1;
             }
-            s_key[i] = key;
+            col[u] = c;
+            vv[u] = x;
         }
-        __syncthreads();
-        bitonic_sort(s_key, n);
-        // each run's first key sums the run, one thread per (run, j)
-        for (int u = threadIdx.x; u < ec * kc; u += RRM_THREADS) {
-            const int i = u / kc;
-            const int jj = u - i * kc;
-            const uint32_t col = (uint32_t)(s_key[i] >> 32);
-            if (i > 0 && (uint32_t)(s_key[i - 1] >> 32) == col) continue;
-            float* o = ot + (int64_t)col * k + jj;
-            float acc = *o;
-            for (int s = i; s < ec && (uint32_t)(s_key[s] >> 32) == col; ++s) {
-                const int e = (int)(s_key[s] & 0xffffffffu);
-                const int b = e / m;
-                const float v = __ldg(vt + (int64_t)b * v_rs + (e - b * m));
-                acc = __fadd_rn(acc, __fmul_rn(v, __ldg(gt + (int64_t)b * g_rs + jj)));
-            }
-            *o = acc;
+    };
+    load(0);
+
+    for (int i = tid; i < nc; i += RRM_THREADS) s_colrun[i] = -1;
+    if (tid == 0) s_nonfinite = stage ? 0 : 1;
+    __syncthreads();
+    if (stage) {
+        const int per_lane = B * kcn;
+        bool bad = false;
+        for (int i = tid; i < nl * per_lane; i += RRM_THREADS) {
+            const int l = i / per_lane;
+            const int b = (i - l * per_lane) / kcn;
+            const int jj = i - l * per_lane - b * kcn;
+            const float x = __ldg(g + (int64_t)(t0 + l) * g_ls + (int64_t)b * g_rs + j0 + jj);
+            s_g[i] = x;
+            bad |= !isfinite(x);
         }
-        __syncthreads();
+        if (bad) s_nonfinite = 1;
     }
+    __syncthreads();
+    const bool drop_zeros = s_nonfinite == 0;
+
+    // +0.0 over the block's slice of the output, by threads [f0, f0 + fn)
+    auto fill = [&](int f0, int fn) {
+        const int ft = tid - f0;
+        if (ft < 0) return;
+        if (kcn == k) {
+            // a lane's slice is one contiguous run of nc * k floats: whole
+            // 16-byte groups as vectors, the ragged ends as scalars (per:
+            // the groups a lane's run can touch, at most)
+            const bool vec = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+            const int L = nc * k;
+            for (int u = ft; u < nl * per; u += fn) {
+                const int l = div_per(u);
+                const int64_t o0 = ((int64_t)(t0 + l) * n_cols + c0) * k;
+                const int64_t q0 = ((o0 >> 2) + (u - l * per)) << 2;
+                if (vec && q0 >= o0 && q0 + 4 <= o0 + L) {
+                    store(out + q0, make_float4(0.f, 0.f, 0.f, 0.f));
+                } else {
+                    const int64_t hi = min(q0 + 4, o0 + L);
+                    for (int64_t q = max(q0, o0); q < hi; ++q) out[q] = 0.f;
+                }
+            }
+        } else {
+            for (int u = ft; u < nl * nc * kcn; u += fn) {
+                const int jj = u % kcn;
+                const int rest = u / kcn;
+                const int c = rest % nc;
+                const int l = rest / nc;
+                out[((int64_t)(t0 + l) * n_cols + c0 + c) * k + j0 + jj] = 0.f;
+            }
+        }
+    };
+
+    // The filter runs super-tile by super-tile; when a tile's kept entries
+    // would overflow the list, the loop stops at that tile, flushes the
+    // list and comes back to the same tile (its entries are still in
+    // registers), so the flush is one body of code: unrolled into every
+    // tile, it made the kernel too large for the instruction cache.
+    int count = 0;       // kept entries in the list (the same in every thread)
+    bool first = true;   // no sum stored yet: the fill comes first, and
+                         // every run starts from +0.0
+    int s0 = 0, tl0 = 0;
+    for (;;) {
+        bool overflow = false;
+        if (s0 < E) {
+#pragma unroll
+            for (int tl = 0; tl < RRM_SUPER; ++tl) {
+                const int e0 = s0 + tl * RRM_TILE;
+                if (tl < tl0) continue;
+                if (e0 >= E) break;
+                bool keep[RRM_ITEMS];
+                unsigned bal[RRM_ITEMS];
+#pragma unroll
+                for (int u = 0; u < RRM_ITEMS; ++u) {
+                    const int w = tl * RRM_ITEMS + u;
+                    keep[u] = col[w] >= 0 && !(drop_zeros && vv[w] == 0.f);
+                    bal[u] = __ballot_sync(FULL, keep[u]);
+                    if (lane == 0) s_wcnt[u * RRM_WARPS + warp] = __popc(bal[u]);
+                }
+                __syncthreads();
+                if (warp == 0) {  // (item, warp) order is position order
+                    const int c = lane < RRM_ITEMS * RRM_WARPS ? s_wcnt[lane] : 0;
+                    int x = c;
+                    for (int o = 1; o < 32; o <<= 1) {
+                        const int y = __shfl_up_sync(FULL, x, o);
+                        if (lane >= o) x += y;
+                    }
+                    if (lane < RRM_ITEMS * RRM_WARPS) s_wcnt[lane] = x - c;
+                    if (lane == 31) s_total = x;
+                }
+                __syncthreads();
+                const int kept = s_total;
+                if (count + kept > RRM_KEYS) {
+                    overflow = true;
+                    tl0 = tl;
+                    break;
+                }
+#pragma unroll
+                for (int u = 0; u < RRM_ITEMS; ++u) {
+                    if (keep[u]) {
+                        const int w = tl * RRM_ITEMS + u;
+                        const int slot =
+                            count + s_wcnt[u * RRM_WARPS + warp] + __popc(bal[u] & lt);
+                        s_col[slot] = (uint16_t)col[w];
+                        s_pos[slot] = e0 + u * RRM_THREADS + tid;
+                        s_val[slot] = vv[w];
+                    }
+                }
+                count += kept;
+                __syncthreads();
+            }
+            if (!overflow) {
+                s0 += RRM_SUPER * RRM_TILE;
+                tl0 = 0;
+                if (s0 < E) {
+                    load(s0);
+                    continue;
+                }
+            }
+        }
+        if (count == 0) break;
+
+        // flush: warp 0 groups the list into runs while the other warps
+        // fill (the first time)
+        if (warp == 0) {
+            int nr = 0;
+            for (int base = 0; base < count; base += 32) {
+                const int i = base + lane;
+                const bool act = i < count;
+                const int c = act ? (int)s_col[i] : -1;
+                const unsigned peers = __match_any_sync(FULL, c);
+                const int leader = __ffs(peers) - 1;
+                const bool lead = act && lane == leader;
+                int r = lead ? (int)s_colrun[c] : 0;
+                const bool fresh = lead && r < 0;
+                const unsigned fm = __ballot_sync(FULL, fresh);
+                if (fresh) {
+                    r = nr + __popc(fm & lt);
+                    s_colrun[c] = (int16_t)r;
+                    s_run_col[r] = (uint16_t)c;
+                    s_run_cnt[r] = 0;
+                }
+                nr += __popc(fm);
+                int have = lead ? (int)s_run_cnt[r] : 0;
+                r = __shfl_sync(FULL, r, leader);
+                have = __shfl_sync(FULL, have, leader);
+                if (act) {
+                    s_run[i] = (uint16_t)r;
+                    s_rank[i] = (uint16_t)(have + __popc(peers & lt));
+                }
+                if (lead) s_run_cnt[r] = (uint16_t)(have + __popc(peers));
+                __syncwarp();
+            }
+            int carry = 0;
+            for (int base = 0; base < nr; base += 32) {
+                const int r = base + lane;
+                const int c = r < nr ? (int)s_run_cnt[r] : 0;
+                int x = c;
+                for (int o = 1; o < 32; o <<= 1) {
+                    const int y = __shfl_up_sync(FULL, x, o);
+                    if (lane >= o) x += y;
+                }
+                if (r < nr) s_run_start[r] = (uint16_t)(carry + x - c);
+                carry += __shfl_sync(FULL, x, 31);
+            }
+            if (lane == 0) s_n_runs = nr;
+        } else if (first) {
+            fill(32, RRM_THREADS - 32);
+        }
+        __syncthreads();
+        for (int i = tid; i < count; i += RRM_THREADS) {
+            const int d = (int)s_run_start[s_run[i]] + (int)s_rank[i];
+            s_b[d] = div_m(s_pos[i]);
+            s_v[d] = s_val[i];
+        }
+        __syncthreads();
+        const int nr = s_n_runs;
+        for (int u = tid; u < nr * nl * kcn; u += RRM_THREADS) {
+            const int jj = u % kcn;
+            const int rest = u / kcn;
+            const int l = rest % nl;
+            const int r = rest / nl;
+            float* o = out + ((int64_t)(t0 + l) * n_cols + c0 + s_run_col[r]) * k + j0 + jj;
+            float s = first ? 0.f : *o;
+            const int lo = s_run_start[r], hi = lo + s_run_cnt[r];
+            const float* gs = s_g + l * B * kcn + jj;
+            const float* gg = g + (int64_t)(t0 + l) * g_ls + j0 + jj;
+            int d = lo;
+            for (; d + RRM_UNROLL <= hi; d += RRM_UNROLL) {
+                float pr[RRM_UNROLL];
+#pragma unroll
+                for (int q = 0; q < RRM_UNROLL; ++q) {
+                    const int b = s_b[d + q];
+                    pr[q] = __fmul_rn(s_v[d + q],
+                                      stage ? gs[b * kcn] : __ldg(gg + (int64_t)b * g_rs));
+                }
+#pragma unroll
+                for (int q = 0; q < RRM_UNROLL; ++q) s = __fadd_rn(s, pr[q]);
+            }
+            for (; d < hi; ++d) {
+                const int b = s_b[d];
+                s = __fadd_rn(s, __fmul_rn(s_v[d], stage ? gs[b * kcn]
+                                                         : __ldg(gg + (int64_t)b * g_rs)));
+            }
+            *o = s;
+        }
+        for (int r = tid; r < nr; r += RRM_THREADS) s_colrun[s_run_col[r]] = -1;
+        first = false;
+        count = 0;
+        __syncthreads();
+        if (!overflow) break;
+    }
+    if (first) fill(0, RRM_THREADS);
 }
 
 }  // namespace
@@ -614,7 +954,8 @@ int skdist_packed_rmatvec_f32(const int64_t* col_ptr, const int32_t* col_seg,
 
 // out[t, i, j] = sum_q val[t, i, q] * W[t, idx[t, i, q], j] for i < B,
 // t < T, j < k; idx/val element (t, i, q) at t * ls + i * rs + q. vec as
-// for the matvec, for W (out is contiguous (T, B, k)).
+// for the matvec, for W (out is contiguous (T, B, k)). k / vec j vectors
+// up to ROW_GROUP_KV take the group form, more the thread form.
 int skdist_packed_row_matvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
                                  const float* val, int64_t v_ls, int64_t v_rs,
                                  int32_t T, int32_t B, int32_t m, const float* W,
@@ -624,10 +965,26 @@ int skdist_packed_row_matvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
     if (T <= 0 || B <= 0 || k <= 0) return (int)cudaSuccess;
     if ((vec != 1 && vec != 4) || k % vec || m < 0) return (int)cudaErrorInvalidValue;
     const int kv = k / vec;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (kv <= ROW_GROUP_KV) {
+        int log_gs = 0;
+        while (log_gs < 5 && (1 << log_gs) < m) ++log_gs;
+        const int64_t threads = ((int64_t)T * B) << log_gs;
+        const int64_t gx = (threads + ROW_THREADS - 1) / ROW_THREADS;
+        if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+        if (vec == 4)
+            packed_row_matvec_group_kernel<4><<<(unsigned)gx, ROW_THREADS, 0, s>>>(
+                idx, i_ls, i_rs, val, v_ls, v_rs, T, B, m, W, w_row_stride,
+                w_batch_stride, out, k, kv, log_gs);
+        else
+            packed_row_matvec_group_kernel<1><<<(unsigned)gx, ROW_THREADS, 0, s>>>(
+                idx, i_ls, i_rs, val, v_ls, v_rs, T, B, m, W, w_row_stride,
+                w_batch_stride, out, k, kv, log_gs);
+        return (int)cudaGetLastError();
+    }
     const int64_t gy = ((int64_t)B * kv + ROW_THREADS - 1) / ROW_THREADS;
     if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidConfiguration;
     dim3 grid((unsigned)T, (unsigned)gy);
-    cudaStream_t s = (cudaStream_t)stream;
     if (vec == 4)
         packed_row_matvec_kernel<4><<<grid, ROW_THREADS, 0, s>>>(
             idx, i_ls, i_rs, val, v_ls, v_rs, B, m, W, w_row_stride,
@@ -640,9 +997,11 @@ int skdist_packed_row_matvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
 }
 
 // out[t, c, j] = sum over the entries (i, q) of lane t with idx[t, i, q] == c
-// of val[t, i, q] * g[t, i, j], in (i, q) order; out is contiguous
-// (T, n_cols, k) and zeroed here first. g element (t, i, j) at
-// t * g_ls + i * g_rs + j.
+// of val[t, i, q] * g[t, i, j], in (i, q) order, for every c < n_cols (0
+// where lane t has no entry); out is contiguous (T, n_cols, k), written
+// once by one launch. g element (t, i, j) at t * g_ls + i * g_rs + j. When
+// idx and val both have lane stride 0 (one batch shared by every lane),
+// a block serves up to RRM_MAX_LANES lanes.
 int skdist_packed_row_rmatvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs,
                                   const float* val, int64_t v_ls, int64_t v_rs,
                                   int32_t T, int32_t B, int32_t m, const float* g,
@@ -651,27 +1010,28 @@ int skdist_packed_row_rmatvec_f32(const int32_t* idx, int64_t i_ls, int64_t i_rs
     if (T <= 0 || n_cols <= 0 || k <= 0) return (int)cudaSuccess;
     if (B < 0 || m < 0 || (int64_t)B * m > 0x7fffffffLL || n_cols > 0xffffffffLL)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(
-        out, 0, (size_t)T * (size_t)n_cols * (size_t)k * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
-    const int E = B * m;
-    if (E == 0) return (int)cudaGetLastError();
-    int chunk = 1;
-    while (chunk < E && chunk < RRM_MAX_KEYS) chunk <<= 1;
-    const size_t smem = (size_t)chunk * sizeof(unsigned long long);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(packed_row_rmatvec_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
+    const int nj = (k + RRM_KCHUNK - 1) / RRM_KCHUNK;
+    const int kc = (k + nj - 1) / nj;
+    int lanes = 1;
+    if (T > 1 && i_ls == 0 && v_ls == 0) {
+        lanes = T < RRM_MAX_LANES ? T : RRM_MAX_LANES;
+        const int cap = RRM_OUT / (RRM_MIN_COLS * kc);
+        if (lanes > cap) lanes = cap > 1 ? cap : 1;
     }
-    const int64_t gy = ((int64_t)k + RRM_KCHUNK - 1) / RRM_KCHUNK;
-    if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidConfiguration;
-    dim3 grid((unsigned)T, (unsigned)gy);
-    packed_row_rmatvec_kernel<<<grid, RRM_THREADS, smem, s>>>(
-        idx, i_ls, i_rs, val, v_ls, v_rs, B, m, g, g_ls, g_rs, out, n_cols, k,
-        chunk);
+    int64_t S = RRM_OUT / (lanes * kc);
+    if (S > RRM_MAX_COLS) S = RRM_MAX_COLS;
+    if (S > n_cols) S = n_cols;
+    const bool stage = (int64_t)lanes * B * kc <= RRM_GSTAGE;
+    const size_t smem = (stage ? (size_t)lanes * B * kc * 4 : 0) + (size_t)S * 2;
+    const int per = nj == 1 ? (int)(S * k / 4 + 2) : 1;  // S * k <= RRM_OUT here
+    const int64_t gx = (n_cols + S - 1) / S;
+    const int64_t gy = ((int64_t)T + lanes - 1) / lanes;
+    if (gx > 0x7fffffffLL || gy > MAX_GRID_YZ || nj > (int)MAX_GRID_YZ)
+        return (int)cudaErrorInvalidConfiguration;
+    dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)nj);
+    packed_row_rmatvec_kernel<<<grid, RRM_THREADS, smem, (cudaStream_t)stream>>>(
+        idx, i_ls, i_rs, val, v_ls, v_rs, T, B, m, g, g_ls, g_rs, out, n_cols, k,
+        lanes, (int)S, kc, stage, DivM(m > 0 ? m : 1), per, DivM(per));
     return (int)cudaGetLastError();
 }
 

@@ -403,18 +403,48 @@ def _check_lane_operand(x, name, T, rows, device):
         )
 
 
-def _row_strides(x, name):
-    """(lane stride, row stride) of a ``(T, B, m)`` block the row kernels
-    read with unit stride along m; a lane stride of 0 (an expanded
-    block, one batch shared by every lane) is read as it is."""
-    T, B, m = x.shape
-    if m > 1 and x.stride(2) != 1:
+def _lane_strides(x, name, unit_last):
+    """(lane stride, row stride) of a ``(T, rows, n)`` block the row
+    kernels read with unit stride along its last axis (when
+    ``unit_last``, i.e. that axis is longer than 1); a lane stride of 0
+    (an expanded block, one batch shared by every lane) is read as it
+    is, and an axis of length 1 gets stride 0."""
+    T, rows, _ = x.shape
+    ls, rs, cs = x.stride()
+    if unit_last and cs != 1:
         raise ValueError(f"{name} must have unit stride along its last axis")
-    if min(x.stride()) < 0:
+    if ls < 0 or rs < 0 or cs < 0:
         raise ValueError(f"{name} has a negative stride")
+    return (ls if T > 1 else 0), (rs if rows > 1 else 0)
+
+
+def _row_pair_strides(idx, val):
+    """``(i_ls, i_rs, v_ls, v_rs)``: the lane and row strides of the
+    gathered pair, read with unit stride along m."""
+    _T, B, m = idx.shape
     if B * m >= 2**31:
-        raise ValueError(f"{name} has {B * m} entries a lane; at most 2**31-1")
-    return (x.stride(0) if T > 1 else 0), (x.stride(1) if B > 1 else 0)
+        raise ValueError(f"the rows have {B * m} entries a lane; at most "
+                         "2**31-1")
+    return (*_lane_strides(idx, "idx", m > 1), *_lane_strides(val, "val",
+                                                               m > 1))
+
+
+def _launch(fn, device, *args):
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``device``, which is made the current device for the launch only when
+    it is not already; raises when the launch failed. The row kernels
+    take microseconds on the card, so their host path is kept short: no
+    ``torch.cuda.device`` context on the usual path, and the stream's
+    handle read directly (``torch.cuda.current_stream()`` builds a
+    Python stream object a call)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code:
+        _check_launch(_lib().skdist_cuda_error_string, code, fn.__name__)
 
 
 def packed_row_matvec_ref(idx, val, W):
@@ -432,28 +462,28 @@ def packed_row_matvec(idx, val, W):
     and row strides, so an expanded block shared by every lane is not
     copied) and ``W`` ``(T, p, k)``; returns ``(T, B, k)`` float32. Every
     ``idx`` entry must lie in ``[0, p)``. CPU tensors take
-    :func:`packed_row_matvec_ref`; CUDA tensors launch K1's row form,
-    whose outputs each sum their row's m entries in stored order, so a
-    lane's bits do not depend on its slot."""
+    :func:`packed_row_matvec_ref`; CUDA tensors launch K1's row form. Up
+    to four j vectors (k <= 4, or k <= 16 read as 16-byte vectors) a
+    group of warp lanes owns each (lane, row): each issues its strided
+    share of the row's gathers at once and a fixed shuffle tree adds the
+    partial sums; wider k, one thread per (lane, row, j vector) sums the
+    row in stored order. Either way the order depends on m alone, so a
+    lane's bits do not depend on its slot and repeat bitwise."""
     _check_rows(idx, val)
     T, B, m = idx.shape
     _check_lane_operand(W, "W", T, None, idx.device)
     if idx.device.type != "cuda":
         return packed_row_matvec_ref(idx, val, W)
     k = W.shape[2]
-    i_ls, i_rs = _row_strides(idx, "idx")
-    v_ls, v_rs = _row_strides(val, "val")
-    w_rs, w_bs = _kernel_strides(W, "W")
-    out = torch.empty((T, B, k), dtype=torch.float32, device=idx.device)
-    lib = _lib()
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.skdist_packed_row_matvec_f32(
-            idx.data_ptr(), i_ls, i_rs, val.data_ptr(), v_ls, v_rs, T, B, m,
-            W.data_ptr(), w_rs, w_bs, out.data_ptr(), k, _vector_width(W),
-            stream,
-        )
-    _check_launch(lib.skdist_cuda_error_string, code, "packed_row_matvec")
+    strides = _row_pair_strides(idx, val)
+    w_bs, w_rs = _lane_strides(W, "W", k > 1)
+    if T * k >= 2**31:
+        raise ValueError(f"W has {T * k} output columns; at most 2**31-1")
+    out = W.new_empty((T, B, k))
+    _launch(_lib().skdist_packed_row_matvec_f32, idx.device, idx.data_ptr(),
+            strides[0], strides[1], val.data_ptr(), strides[2], strides[3],
+            T, B, m, W.data_ptr(), w_rs, w_bs, out.data_ptr(), k,
+            _vector_width(W))
     packed_row_matvec.launches += 1
     return out
 
@@ -482,13 +512,16 @@ def packed_row_rmatvec(idx, val, g, n_cols):
     """``X[rows].T @ g`` for every lane of a batch: ``idx``/``val`` ``(T,
     B, m)`` as in :func:`packed_row_matvec`, ``g`` ``(T, B, k)``; returns
     the lanes' dense ``(T, n_cols, k)`` float32 planes. CPU tensors take
-    :func:`packed_row_rmatvec_ref`; CUDA tensors launch K2's row form:
-    the planes are zeroed, then one block a lane sorts the lane's
-    ``B * m`` entries by (column, position) and sums each touched
-    column's run in position order, with no float atomics. Each output
-    is therefore the plain version's sum in the plain version's order:
-    deterministic, bitwise repeatable and independent of the lane's
-    slot."""
+    :func:`packed_row_rmatvec_ref`; CUDA tensors launch K2's row form,
+    one launch and no zeroing pass: a block owns a slice of columns of
+    a lane (of up to 32 lanes when every lane reads one shared batch),
+    picks the lane's entries on its columns in position order, groups
+    them by column, writes zeros over the whole slice and then each
+    touched column's sum, its run added in position order from +0.0
+    (entries of value 0 add exact zeros and are left out unless g holds
+    an inf or a NaN). No float atomics: each output is the plain
+    version's sum in the plain version's order, so it is deterministic,
+    bitwise repeatable and independent of the lane's slot."""
     _check_rows(idx, val)
     T, B, m = idx.shape
     _check_lane_operand(g, "g", T, B, idx.device)
@@ -496,21 +529,12 @@ def packed_row_rmatvec(idx, val, g, n_cols):
     if idx.device.type != "cuda":
         return packed_row_rmatvec_ref(idx, val, g, n_cols)
     k = g.shape[2]
-    if k > 1 and g.stride(2) != 1:
-        raise ValueError("g must have unit stride along its last axis")
-    i_ls, i_rs = _row_strides(idx, "idx")
-    v_ls, v_rs = _row_strides(val, "val")
-    g_ls = g.stride(0) if T > 1 else 0
-    g_rs = g.stride(1) if B > 1 else 0
-    out = torch.empty((T, n_cols, k), dtype=torch.float32, device=idx.device)
-    lib = _lib()
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.skdist_packed_row_rmatvec_f32(
-            idx.data_ptr(), i_ls, i_rs, val.data_ptr(), v_ls, v_rs, T, B, m,
-            g.data_ptr(), g_ls, g_rs, out.data_ptr(), n_cols, k, stream,
-        )
-    _check_launch(lib.skdist_cuda_error_string, code, "packed_row_rmatvec")
+    strides = _row_pair_strides(idx, val)
+    g_ls, g_rs = _lane_strides(g, "g", k > 1)
+    out = g.new_empty((T, n_cols, k))
+    _launch(_lib().skdist_packed_row_rmatvec_f32, idx.device, idx.data_ptr(),
+            strides[0], strides[1], val.data_ptr(), strides[2], strides[3],
+            T, B, m, g.data_ptr(), g_ls, g_rs, out.data_ptr(), n_cols, k)
     packed_row_rmatvec.launches += 1
     return out
 

@@ -10,7 +10,8 @@ tests inject that stream into the port's one seam
 (``utils/draws.py epoch_permutation``), as ``tests/test_torch_sgd.py``
 does, so the whole algorithm is held.
 
-Tolerances: the row forms 1e-6 of the output's scale (at least 1):
+Tolerances: the row forms bitwise on integer data (every sum exact),
+else 1e-6 of the output's scale (at least 1):
 float32 sums of at most 12 unit-scale products, in other orders, whose
 values reach ~10, where one ulp is ~1e-6; fits ``n_iter_`` equal and ``coef_``/
 ``intercept_`` within 1e-5 of ``max|coef_|`` (the same float32 updates
@@ -33,6 +34,8 @@ from skdist_tpu.distribute.multiclass import (
 from skdist_tpu.models import SGDClassifier as JaxSGD
 from skdist_tpu.ops import pallas_sparse as jps
 from skdist_tpu.parallel import TPUBackend
+from skdist_tpu.sparse import LinearOperator as JaxLinearOperator
+from skdist_tpu.sparse import PackedX as JaxPackedX
 from skdist_tpu_torch.distribute.multiclass import DistOneVsRestClassifier
 from skdist_tpu_torch.models import SGDClassifier
 from skdist_tpu_torch.models.linear import _freeze, prepare_fit_X, to_device_X
@@ -130,6 +133,64 @@ def test_row_forms_are_the_full_products_of_the_rows():
             tps.packed_row_matvec(lanes_i, lanes_v, torch.as_tensor(W))[t],
             tps.packed_matvec(ti, tv, torch.as_tensor(W[t])),
             rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["first_last", "repeated", "shared"])
+@pytest.mark.parametrize("mode", ["gather", "pallas"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_row_plain_versions_match_jax_row_products(case, mode, integer):
+    """The plain row forms, through the port's operator (``row_batch``,
+    ``row_matvec``, ``row_rmatvec`` over packed X with the intercept),
+    against the JAX package's ``LinearOperator.row_matvec`` /
+    ``row_rmatvec`` lane by lane (its gather expressions, or its Pallas
+    kernels in interpret mode), on edge shapes: entries on the first
+    column and the last feature column beside the intercept; one column
+    in every row; one batch every lane shares (read through a lane
+    stride of 0). Integer data must agree bitwise."""
+    rng = np.random.RandomState({"first_last": 1, "repeated": 2,
+                                 "shared": 3}[case])
+    n, d, m, T, B, k = 40, 60, 6, 4, 16, 2
+    idx = rng.randint(0, d, size=(n, m)).astype(np.int32)
+    if integer:
+        val = rng.randint(-3, 4, size=(n, m)).astype(np.float32)
+        W = rng.randint(-4, 5, size=(T, d + 1, k)).astype(np.float32)
+        g = rng.randint(-4, 5, size=(T, B, k)).astype(np.float32)
+    else:
+        val = rng.randn(n, m).astype(np.float32)
+        W = rng.randn(T, d + 1, k).astype(np.float32)
+        g = rng.randn(T, B, k).astype(np.float32)
+    pad = rng.rand(n, m) < 0.2
+    idx[pad], val[pad] = 0, 0.0
+    if case == "first_last":
+        idx[:, 0], idx[::2, 1] = 0, d - 1
+        val[:, :2] = np.where(val[:, :2] == 0, 1.0, val[:, :2])
+    elif case == "repeated":
+        idx[:, 0] = 7
+        val[:, 0] = np.where(val[:, 0] == 0, 1.0, val[:, 0])
+    if case == "shared":
+        rows = torch.as_tensor(rng.randint(0, n, size=B)).expand(T, B)
+    else:
+        rows = torch.as_tensor(rng.randint(0, n, size=(T, B)))
+    op = LinearOperator(PackedX(torch.as_tensor(idx), torch.as_tensor(val),
+                                d), fit_intercept=True)
+    batch = op.row_batch(rows)
+    assert (batch[0].stride(0) == 0) == (case == "shared")
+    out = op.row_matvec(batch, torch.as_tensor(W))
+    back = op.row_rmatvec(batch, torch.as_tensor(g))
+    assert out.shape == (T, B, k) and back.shape == (T, d + 1, k)
+    jop = JaxLinearOperator(JaxPackedX(jnp.asarray(idx), jnp.asarray(val), d),
+                            fit_intercept=True, mode=mode)
+    for t in range(T):
+        i = jnp.asarray(rows[t].numpy())
+        for got, want in ((out[t], jop.row_matvec(i, jnp.asarray(W[t]))),
+                          (back[t], jop.row_rmatvec(i, jnp.asarray(g[t])))):
+            want = np.asarray(want)
+            if integer:
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                scale = max(1.0, float(np.abs(want).max()))
+                np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                           atol=ROW_ATOL * scale)
 
 
 def test_row_batch_of_packed_x():
