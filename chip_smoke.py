@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--candidates N]
     python3 chip_smoke.py --ab-sgd DIR [--pairs N] [--ab-rows N]
     python3 chip_smoke.py --ab-row-kernels DIR [--pairs N]
+    python3 chip_smoke.py --profile-config5
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -64,7 +65,10 @@ result line:
    rest, and the device's idle share of the round's wall.
 3b. Classic against compacted at full width: the sparse grid cut to 24
    C (spanning it) x 5 folds, both ways at equal chunk in one process;
-   ``cv_results_`` and the refit ``coef_`` must be bitwise equal.
+   ``cv_results_`` and the refit ``coef_`` must be bitwise equal, and
+   the compacted run must have refilled a slot and retired a lane
+   (stalled or converged) before ``max_iter`` (else the comparison
+   would be trivial).
 4. The dense headline on the card: the same grid on the dense
    11314 x 4096 problem (``torch.matmul``, no hand kernel), compacted
    (every round resident), then on the classic path
@@ -139,9 +143,10 @@ result line:
 12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4 and K1's and
     K2's row forms, each launched on its path; the row forms' entries
     also carry their device, graph and host times, their yardsticks'
-    and the launch floor's), then, last, the result
-    line ``{"ok": true, "device": {...}}``; both are printed after phase
-    14d.
+    and the launch floor's; K1's and K4's ``paths`` also count their
+    launches on the prediction and generic search paths), then, last,
+    the result line ``{"ok": true, "device": {...}}``; both are printed
+    after phase 16.
 13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
     SGDClassifier(max_iter=20, random_state=0), {"alpha": logspace(-6,
     -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` on
@@ -157,8 +162,9 @@ result line:
     score must be finite, ``best_score_`` above the majority class's
     share, and the pickled ``best_estimator_`` must predict as the live
     one.
-13b. The same search on ``make_tabular(100000, 54, 7, seed=1)`` (the JAX
-    package's own benchmark size): compacted, then classic
+13b. The same search on ``make_tabular(50000, 54, 7, seed=1)`` (half the
+    JAX package's own benchmark size, a cut that keeps the run inside its
+    time target; printed): compacted, then classic
     (``SKDIST_COMPACTION=0``) at the same chunk, ``cv_results_`` and the
     refit ``coef_`` bitwise equal; ``adaptive=HalvingSpec(eta=inf)``
     bitwise equal to the exhaustive run; then ``eta=3``: its wall, kills
@@ -198,18 +204,69 @@ result line:
     (row kernels, a zeroing memset, the dense ``(T, p, k)`` passes, the
     rest; the device's busy share).
 
+15. BASELINE config 5 as ``benchmarks/run_all.py:240-283`` defines it:
+    ``LogisticRegression(max_iter=40)`` fitted on ``make_tabular(5000,
+    64, 10, seed=3)``, then ``batch_predict(model, Xs,
+    method="predict_proba", backend=CUDABackend())`` over
+    ``RandomState(4).rand(1_000_000, 64)`` in float32 (the resident
+    dense path: blocks of the default size, one product, bias and
+    softmax a block), cold and then warm. Printed: both walls, rows/s
+    (1M over the warm wall), the block size and count, and a
+    ``torch.profiler`` split of one warm call (host-to-device copies,
+    products, softmax, device-to-host copies, the device's busy share),
+    naming what sets the pace, taken by ``--profile-config5`` in a
+    process of its own (this process's profiler has been seen to record
+    no device time by then; the phase fails if that one's does not
+    either). Gates: shape ``(1_000_000, 10)``; rows
+    sum to 1 within 1e-5; two warm calls bitwise equal; within 1e-6 of
+    the model's own ``predict_proba`` over the same rows cut at another
+    size; ``method="predict"`` is the argmax through ``classes_``; on
+    the first 20000 rows the card within 1e-5 of ``device="cpu"`` (a
+    CPU fit, its weights carried to a card model); the pickled model
+    predicts the same.
+15b. Sparse prediction through K1: ``LogisticRegression(max_iter=20)``
+    on the main path's hashed text (11314 x 2**18, 20 classes), then
+    ``batch_predict(..., "predict_proba")`` over 200000 rows of
+    ``make_20news_sparse(seed=1, n=200000, d=2**18)``: packed row
+    blocks, K1 on each. K1's launch counter is zeroed first and must
+    equal the blocks after; the first 2000 rows' decision is held to a
+    float64 product of their dense rows and the weights at K1's
+    summation-order tolerance; the labels equal ``model.predict``.
+    Printed: wall, rows/s, the bytes a dense block would have needed.
+15c. The host-model path: ``RandomForestClassifier(n_estimators=32,
+    max_depth=8)`` on phase 6's data, ``batch_predict(...,
+    "predict_proba", batch_size=50000)`` through ``LocalBackend(n_jobs=1)``
+    and ``LocalBackend(n_jobs=4)``, both bitwise equal to the forest's
+    ``predict_proba``; then ``get_prediction_udf(forest,
+    "predict_proba")`` on the columns: its rows equal that output.
+16. The generic search path on the card: ``DistGridSearchCV(
+    RandomForestClassifier(n_estimators=32, random_state=0), {"max_depth":
+    [4, 6, 8], "min_samples_leaf": [1, 20]}, cv=3, scoring=["accuracy",
+    "roc_auc"], refit="roc_auc", preds=True)`` on 50000 x 28 rows with a
+    balanced binary target (a random projection split at its median),
+    at ``n_jobs=1``, ``n_jobs=4`` and the default ``n_jobs=None`` (a
+    host thread a CPU core; K4 in every fit). Gates: K4 launched (> 0:
+    the counters are not atomic under threads, so no exact count), every
+    score finite, ``cv_results_`` scores bitwise equal among the three,
+    ``preds_`` of shape (50000, 2), the pickled ``best_estimator_``
+    predicts as the live one. Printed: the class shares, the walls and
+    fits/s.
+
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
 out-of-memory downgrade is an error in every phase: the up-front sizing
 must hold on the card.
 
 ``--ab-sgd DIR`` runs none of the phases above: it times phase 13b's
-compacted search (on ``--ab-rows`` rows, 100000 by default) in turns on
+compacted search (on ``--ab-rows`` rows, 50000 by default) in turns on
 the checkout at DIR (a parent commit, unpacked with ``git archive``) and
 on this one, ``--pairs`` pairs (default 6) ordered parent, this, this,
 parent, one process a run, and
 prints each run and every tree's median, least and largest walls; the
 runs must agree on epochs and ``best_score_``.
+
+``--profile-config5`` runs none of the phases either: it prints phase
+15's split of one warm call (above) and exits.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -1232,6 +1289,11 @@ def phase_sparse_ab(torch, X, y, Cs, backend):
     comp, wall_c = fit_grid(torch, X, y, Cs_ab, backend, partitions=2)
     st = comp.round_stats_[0]
     say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
+    if st["refills"] < 1 or st["lanes_stalled"] + st["lanes_converged"] < 1:
+        raise AssertionError(
+            f"phase 3b: refills {st['refills']}, lanes retired before "
+            f"max_iter {st['lanes_stalled'] + st['lanes_converged']}: the "
+            "refill regime's slot reuse went untested")
     classic, wall_k = fit_grid(torch, X, y, Cs_ab, backend,
                                compaction=False, partitions=2)
     sk = classic.round_stats_[0]
@@ -2043,10 +2105,12 @@ def phase_ridge_regressor(torch, X, alphas, backend):
 # ---------------------------------------------------------------------------
 
 #: BASELINE config 2 (benchmarks/run_all.py:113-131): covtype's published
-#: shape, made by bench.py's make_tabular; the A/B phase runs at the JAX
-#: package's own benchmark size
+#: shape, made by bench.py's make_tabular; the A/B phase runs at half the
+#: JAX package's own benchmark size (100000 rows), a cut that keeps the
+#: whole run inside its time target
 SGD_N, SGD_D, SGD_K = 581012, 54, 7
-SGD_AB_N = 100_000
+SGD_AB_N = 50_000
+
 SGD_ALPHAS = list(np.logspace(-6, -2, 60))
 
 
@@ -2201,6 +2265,8 @@ def phase_sgd_ab(torch, backend, alphas):
     X, y = make_tabular(SGD_AB_N, SGD_D, SGD_K, seed=1)
     say(f"phase 13b: config 2 on {X.shape}, compacted against classic, "
         "then ASHA")
+    say(f"CUT: phase 13b runs {SGD_AB_N} rows, not the JAX package's "
+        "benchmark size of 100000")
     comp, wall_c = sgd_search(torch, X, y, alphas, backend)
     st = comp.round_stats_[0]
     say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
@@ -2293,7 +2359,7 @@ print(json.dumps({"wall": wall, "refit": gs.refit_time_,
 
 def ab_sgd(parent, pairs, rows):
     """``--ab-sgd``: config 2's compacted search on ``rows`` rows (phase
-    13b's 100000 by default, phase 13's 581012 at full size) in turns on
+    13b's 50000 by default, phase 13's 581012 at full size) in turns on
     the tree at ``parent`` and on this checkout, ``pairs`` pairs ordered
     parent, this, this, parent, ..., one process a run. Prints every run and each tree's median, least and largest
     search and refit walls; every run must give the same epochs and
@@ -2781,6 +2847,321 @@ def phase_ovr_sgd(torch, X, y, backend):
     return {"wall": wall, "steps": steps}, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: BASELINE config 5 (batch prediction) and the generic search
+# ---------------------------------------------------------------------------
+
+#: config 5's scoring rows (``benchmarks/run_all.py:256``)
+PREDICT_N = 1_000_000
+
+#: device activities of a prediction call, by name
+PREDICT_SPLIT = {"h2d": ("Memcpy HtoD",), "d2h": ("Memcpy DtoH",),
+                 "products": ("gemm", "Gemm", "cutlass", "gemv"),
+                 "softmax": ("softmax", "SoftMax")}
+
+
+def timed_call(torch, fn):
+    """``(result, wall seconds)`` of ``fn()``, the device synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_config5(torch, backend):
+    """Phase 15: config 5, ``batch_predict`` of a 10-class logistic
+    regression over 1M dense rows, cold then warm, its profiler split and
+    its gates. Returns the warm wall."""
+    from skdist_tpu_torch import LocalBackend, LogisticRegression, \
+        batch_predict
+    from skdist_tpu_torch.convert import logistic_regression_from_reference
+    from skdist_tpu_torch.distribute.predict import (
+        _default_batch_size,
+        device_predict_plan,
+    )
+
+    X, y, model, Xs = config5_recipe()
+    say(f"phase 15: BASELINE config 5, batch_predict(LogisticRegression("
+        f"max_iter=40), predict_proba) over {Xs.shape} float32 "
+        f"({Xs.nbytes / 1e6:.0f} MB in, {PREDICT_N * 10 * 4 / 1e6:.0f} MB "
+        "out)")
+
+    def run(**kw):
+        return batch_predict(model, Xs, method="predict_proba",
+                             backend=backend, **kw)
+
+    cold, t_cold = timed_call(torch, run)
+    warm, t_warm = timed_call(torch, run)
+    again, _ = timed_call(torch, run)
+    plan = device_predict_plan(model, "predict_proba")
+    block = _default_batch_size(PREDICT_N, backend, plan)
+    n_blocks = -(-PREDICT_N // block)
+    say(f"  cold {t_cold:.3f}s, warm {t_warm:.3f}s, "
+        f"{PREDICT_N / t_warm:.0f} rows/s warm; blocks of {block} rows, "
+        f"{n_blocks} blocks (the last padded by "
+        f"{n_blocks * block - PREDICT_N} rows)")
+    if warm.shape != (PREDICT_N, 10):
+        raise AssertionError(f"phase 15: output shape {warm.shape}")
+    row_err = float(np.abs(warm.sum(axis=1, dtype=np.float64) - 1.0).max())
+    if not row_err <= 1e-5:
+        raise AssertionError(f"phase 15: rows sum to 1 only within {row_err}")
+    if not (np.array_equal(warm, again) and np.array_equal(warm, cold)):
+        raise AssertionError("phase 15: repeated calls differ")
+    cut = 300_000
+    own = np.concatenate([model.predict_proba(Xs[i:i + cut])
+                          for i in range(0, PREDICT_N, cut)])
+    own_err = float(np.abs(warm - own).max())
+    labels = batch_predict(model, Xs, method="predict", backend=backend)
+    if not np.array_equal(labels, model.classes_[np.argmax(warm, axis=1)]):
+        raise AssertionError("phase 15: predict is not the argmax of "
+                             "predict_proba through classes_")
+    cpu_model = LogisticRegression(max_iter=40, device="cpu").fit(X, y)
+    card_model = logistic_regression_from_reference(cpu_model._params,
+                                                    cpu_model._meta)
+    head = Xs[:20000]
+    on_cpu = batch_predict(cpu_model, head, method="predict_proba",
+                           backend=LocalBackend(device="cpu"))
+    on_card = batch_predict(card_model, head, method="predict_proba",
+                            backend=backend)
+    cpu_err = float(np.abs(on_card - on_cpu).max())
+    loaded = pickle.loads(pickle.dumps(model))
+    same_pickle = np.array_equal(
+        batch_predict(loaded, head, method="predict_proba", backend=backend),
+        warm[:20000])
+    say(f"  rows sum to 1 within {row_err:.2e}; repeated calls bitwise "
+        f"equal; against predict_proba cut at {cut} rows max|d| "
+        f"{own_err:.2e}; predict = argmax through classes_; card against "
+        f"CPU (converted weights) on {head.shape[0]} rows max|d| "
+        f"{cpu_err:.2e}; pickled model "
+        + ("predicts the same" if same_pickle else "DIFFERS"))
+    if not own_err <= 1e-6:
+        raise AssertionError("phase 15: batch_predict and predict_proba "
+                             "differ by more than 1e-6")
+    if not cpu_err <= 1e-5:
+        raise AssertionError("phase 15: card and CPU differ by more than "
+                             "1e-5")
+    if not same_pickle:
+        raise AssertionError("phase 15: the pickled model predicts "
+                             "differently")
+    # the profiler of a process that has run the earlier phases has been
+    # seen to record no device time here, so the split is taken in a
+    # process of its own
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-config5"],
+        capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        say("  " + line)
+    if res.returncode != 0:
+        raise AssertionError("phase 15: the profiling process failed:\n"
+                             + res.stderr[-3000:])
+    return t_warm
+
+
+def config5_recipe():
+    """Config 5's model and scoring rows (``benchmarks/run_all.py:240-258``):
+    ``(X, y, model fitted on the card, Xs)``."""
+    from skdist_tpu_torch import LogisticRegression
+
+    X, y = make_tabular(5000, 64, 10, seed=3)
+    model = LogisticRegression(max_iter=40).fit(X, y)
+    Xs = np.random.RandomState(4).rand(PREDICT_N, 64).astype(np.float32)
+    return X, y, model, Xs
+
+
+def profile_config5(torch):
+    """``--profile-config5``: one warm call of phase 15 under
+    ``torch.profiler`` (host-to-device copies, products, softmax,
+    device-to-host copies, the device's busy share); raises if the
+    profiler records no device time. Returns the exit code."""
+    from skdist_tpu_torch import CUDABackend, batch_predict
+
+    _X, _y, model, Xs = config5_recipe()
+    backend = CUDABackend()
+
+    def run():
+        return batch_predict(model, Xs, method="predict_proba",
+                             backend=backend)
+
+    run()
+    run()
+    split = profile_device_split(torch, run, PREDICT_SPLIT, top=3,
+                                 window=True)
+    if split is None:
+        raise AssertionError("phase 15: the profiler recorded no device "
+                             "time for a warm call")
+    busy, span = split["window"]
+    parts = {k: split[k] for k in PREDICT_SPLIT}
+    rest = split["total"] - sum(parts.values())
+    pace = max(parts, key=parts.get)
+    print("one warm call under torch.profiler (a process of its own): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f", rest {rest:.3f} ms (of {split['total']:.3f} ms device "
+          f"time); busy {busy:.1f} of {span:.1f} ms "
+          f"({100 * busy / span:.1f}%); the largest device share is {pace}; "
+          "top of the rest " + ", ".join(
+              f"{k[:60]} {v:.3f}" for k, v in split["top_rest"]),
+          flush=True)
+    return 0
+
+
+def phase_sparse_predict(torch, X, y, backend):
+    """Phase 15b: sparse prediction through K1 at the main path's width.
+    Returns K1's launches and the row blocks."""
+    from skdist_tpu_torch import LogisticRegression, batch_predict
+    from skdist_tpu_torch.distribute.predict import (
+        _default_batch_size,
+        device_predict_plan,
+    )
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    model = LogisticRegression(max_iter=20).fit(X, y)
+    t0 = time.perf_counter()
+    Xp, _ = make_20news_sparse(seed=1, n=200_000, d=X.shape[1], nnz_row=40,
+                               k=20)
+    n, d = Xp.shape
+    say(f"phase 15b: batch_predict(LogisticRegression(max_iter=20), "
+        f"predict_proba) over sparse {Xp.shape}, nnz {Xp.nnz} "
+        f"({time.perf_counter() - t0:.1f}s to make)")
+    block = _default_batch_size(n, backend,
+                                device_predict_plan(model, "predict_proba"))
+    n_blocks = -(-n // block)
+    ps.packed_matvec.launches = 0
+    out, wall = timed_call(torch, lambda: batch_predict(
+        model, Xp, method="predict_proba", backend=backend))
+    launches = ps.packed_matvec.launches
+    say(f"  wall {wall:.3f}s, {n / wall:.0f} rows/s; {n_blocks} blocks of "
+        f"{block} rows, K1 launches {launches}; a dense block would need "
+        f"{block * d * 4 / 2**30:.1f} GiB at d={d} (the packed block "
+        f"{block * int(np.diff(Xp.indptr).max()) * 8 / 2**20:.1f} MiB)")
+    if launches != n_blocks:
+        raise AssertionError(f"phase 15b: K1 launched {launches} times for "
+                             f"{n_blocks} row blocks")
+    if out.shape != (n, 20) or not np.all(np.isfinite(out)):
+        raise AssertionError("phase 15b: output not finite of shape "
+                             f"({n}, 20)")
+    head = Xp[:2000]
+    dec = batch_predict(model, head, method="decision_function",
+                        backend=backend).astype(np.float64)
+    W = np.asarray(model._params["W"], np.float64)
+    dense = head.toarray().astype(np.float64)
+    exact = dense @ W[:d] + W[d]
+    m = int(np.diff(head.indptr).max())
+    tol = 2 * (m + 1) * U32 * (np.abs(dense) @ np.abs(W[:d])
+                               + np.abs(W[d]))
+    err = np.abs(dec - exact)
+    say(f"  first 2000 rows' decision against float64: max|d| "
+        f"{err.max():.3e} (max|z| {np.abs(exact).max():.3e}, the "
+        f"tolerance's least {tol.min():.3e})")
+    if not np.all(err <= tol):
+        raise AssertionError("phase 15b: the decision through K1 is off the "
+                             "float64 product by more than K1's tolerance")
+    labels = batch_predict(model, Xp, method="predict", backend=backend)
+    if not np.array_equal(labels, model.predict(Xp)):
+        raise AssertionError("phase 15b: labels differ from model.predict")
+    if not np.array_equal(labels, model.classes_[np.argmax(out, axis=1)]):
+        raise AssertionError("phase 15b: labels are not the argmax of the "
+                             "probabilities")
+    say("  labels equal model.predict on the same rows")
+    return launches, n_blocks
+
+
+def phase_host_predict(torch):
+    """Phase 15c: a forest through the host-model path at two thread
+    counts, and the prediction function's rows."""
+    from skdist_tpu_torch import LocalBackend, batch_predict, \
+        get_prediction_udf
+    from skdist_tpu_torch.models.forest import RandomForestClassifier
+
+    X, y = make_tabular(FOREST_N, FOREST_D, 2, seed=2)
+    forest = RandomForestClassifier(n_estimators=32, max_depth=8).fit(X, y)
+    say(f"phase 15c: batch_predict(RandomForestClassifier(32 trees, depth "
+        f"8), predict_proba, batch_size=50000) on {X.shape}, host chunks")
+    whole, t_whole = timed_call(torch, lambda: forest.predict_proba(X))
+    walls = {}
+    for n_jobs in (1, 4):
+        out, walls[n_jobs] = timed_call(torch, lambda: batch_predict(
+            forest, X, method="predict_proba",
+            backend=LocalBackend(n_jobs=n_jobs), batch_size=50000))
+        if not np.array_equal(out, whole):
+            raise AssertionError(
+                f"phase 15c: n_jobs={n_jobs} differs from predict_proba "
+                f"by {float(np.abs(out - whole).max()):.3e}")
+    rows = get_prediction_udf(forest, "predict_proba")(
+        *[X[:, j] for j in range(X.shape[1])])
+    if rows.shape != (X.shape[0],) or not np.array_equal(np.stack(rows),
+                                                         whole):
+        raise AssertionError("phase 15c: the prediction function's rows "
+                             "differ")
+    say(f"  predict_proba {t_whole:.3f}s; n_jobs=1 {walls[1]:.3f}s, "
+        f"n_jobs=4 {walls[4]:.3f}s, both bitwise equal to it; the "
+        "prediction function's rows equal it")
+
+
+def phase_generic_search(torch):
+    """Phase 16: ``DistGridSearchCV`` over a forest on the generic path at
+    one and four host threads and at the default (``n_jobs=None``: a
+    thread a CPU core). Returns K4's launches (of all three runs)."""
+    from skdist_tpu_torch import DistGridSearchCV
+    from skdist_tpu_torch.models.forest import RandomForestClassifier
+    from skdist_tpu_torch.ops import hist as kh
+    from skdist_tpu_torch.parallel.backend import effective_jobs
+
+    rng = np.random.RandomState(5)
+    X = rng.rand(50_000, 28).astype(np.float32)
+    s = X @ rng.randn(28) + 0.5 * rng.randn(50_000)
+    y = (s > np.median(s)).astype(np.int64)
+    grid = {"max_depth": [4, 6, 8], "min_samples_leaf": [1, 20]}
+    n_fits = 6 * 3 + 1 + 3
+    say(f"phase 16: DistGridSearchCV(RandomForestClassifier(n_estimators=32"
+        f"), {grid}, cv=3, scoring=[accuracy, roc_auc], preds=True) on "
+        f"{X.shape}, class shares {np.bincount(y) / len(y)}; {n_fits} fits "
+        "a run (18 + refit + 3 out-of-fold)")
+    kh.level_histogram.launches = 0
+    runs, walls = {}, {}
+    for n_jobs in (1, 4, None):
+        runs[n_jobs], walls[n_jobs] = timed_call(torch, lambda: (
+            DistGridSearchCV(
+                RandomForestClassifier(n_estimators=32, random_state=0),
+                grid, cv=3, scoring=["accuracy", "roc_auc"], refit="roc_auc",
+                preds=True, n_jobs=n_jobs).fit(X, y)))
+    launches = kh.level_histogram.launches
+    a, b = runs[1], runs[4]
+    keys = [k for k in a.cv_results_ if "_test_" in k]
+    differ = [(n_jobs, k) for n_jobs in (4, None) for k in keys
+              if not np.array_equal(a.cv_results_[k],
+                                    runs[n_jobs].cv_results_[k])]
+    scores = np.concatenate([np.ravel(a.cv_results_[k]) for k in keys])
+    live = b.best_estimator_.predict_proba(X)
+    loaded = pickle.loads(pickle.dumps(b.best_estimator_))
+    same_pickle = np.array_equal(loaded.predict_proba(X), live)
+    threads = effective_jobs(-1, 18)
+    say("  " + ", ".join(
+        f"n_jobs={n_jobs} {walls[n_jobs]:.2f}s "
+        f"({n_fits / walls[n_jobs]:.2f} fits/s)" for n_jobs in (1, 4))
+        + f", default n_jobs=None ({threads} threads for the 18 fits) "
+        f"{walls[None]:.2f}s ({n_fits / walls[None]:.2f} fits/s); "
+        f"mode {b.round_stats_[0]['mode']}; K4 launches {launches}; "
+        f"best_params_ {b.best_params_}, best roc_auc {b.best_score_:.6f}; "
+        "cv_results_ between n_jobs: "
+        + ("bitwise equal" if not differ else f"differ in {differ}"))
+    if launches <= 0:
+        raise AssertionError("phase 16: K4 never launched")
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError("phase 16: a score is not finite")
+    if differ:
+        raise AssertionError(f"phase 16: n_jobs=1 and {differ} differ")
+    if b.preds_.shape != (50_000, 2):
+        raise AssertionError(f"phase 16: preds_ shape {b.preds_.shape}")
+    if not same_pickle:
+        raise AssertionError("phase 16: the pickled best_estimator_ predicts "
+                             "differently")
+    say(f"  preds_ {b.preds_.shape}; pickled best_estimator_ predicts the "
+        "same")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -2793,6 +3174,9 @@ def main():
                     "--ab-row-kernels (default 6)")
     ap.add_argument("--ab-rows", type=int, default=SGD_AB_N,
                     help="rows of --ab-sgd's data (default: phase 13b's)")
+    ap.add_argument("--profile-config5", action="store_true",
+                    help="run only phase 15's profiler split of one warm "
+                    "call (phase 15 runs it in a process of its own)")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -2814,6 +3198,8 @@ def main():
         return ab_sgd(args.ab_sgd, args.pairs, args.ab_rows)
     if args.ab_row_kernels:
         return ab_row_kernels(args.ab_row_kernels, args.pairs)
+    if args.profile_config5:
+        return profile_config5(torch)
     import scipy.sparse as sp
 
     from skdist_tpu_torch import CUDABackend, DistGridSearchCV, LogisticRegression
@@ -3056,6 +3442,13 @@ def main():
     phase_ovo(torch, X, y, backend)
     _sgd, row_launches = phase_ovr_sgd(torch, X, y, backend)
 
+    # ---- phases 15-16: config 5, batch prediction, the generic search --
+    torch.cuda.empty_cache()
+    phase_config5(torch, backend)
+    predict_launches, _blocks = phase_sparse_predict(torch, X, y, backend)
+    phase_host_predict(torch)
+    generic_launches = phase_generic_search(torch)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -3065,7 +3458,9 @@ def main():
          "max_abs_err": max(e[0] for e in errs),
          "ms": times["K1"], "plain_ms": times["K1_plain"],
          "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": times["K1_library"]},
+         "library_ms": times["K1_library"],
+         "paths": {"logreg_grid": launches["packed_matvec"],
+                   "sparse_predict": predict_launches}},
         {"name": "packed_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": launches["packed_rmatvec"],
@@ -3086,7 +3481,9 @@ def main():
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_times["K4"], "plain_ms": k4_times["K4_plain"],
          "bound_ms": k4_bound_ms, "bound_by": k4_by,
-         "library_ms": k4_times["K4_library"]},
+         "library_ms": k4_times["K4_library"],
+         "paths": {"forest": k4_launches,
+                   "generic_search": generic_launches}},
         {"name": "packed_row_matvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
          "launches": row_launches["packed_row_matvec"],

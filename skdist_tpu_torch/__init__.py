@@ -22,7 +22,11 @@ the packed weighted-gram kernel;
 its steps run the packed kernels in per-lane row form); ``LinearSVC``
 and the multiclass meta-estimators ``DistOneVsRestClassifier`` and
 ``DistOneVsOneClassifier`` (the class or class-pair axis as one batched
-fit). The searches' convergence-compacted path
+fit); batch prediction (``batch_predict``, ``get_prediction_udf``: dense
+blocks, packed sparse blocks through the packed matvec kernel, host
+chunks for models without a plan); the searches' generic per-task path
+over ``LocalBackend``/``CUDABackend`` host threads (any estimator, host
+scorers, any fit params, ``preds``). The searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
 halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
@@ -39,7 +43,10 @@ _EXPORTS = {
         "LinearRegression", "RidgeClassifier")},
     **{name: "skdist_tpu_torch.distribute.multiclass" for name in (
         "DistOneVsRestClassifier", "DistOneVsOneClassifier")},
-    "CUDABackend": "skdist_tpu_torch.parallel",
+    **{name: "skdist_tpu_torch.parallel" for name in (
+        "CUDABackend", "LocalBackend")},
+    **{name: "skdist_tpu_torch.distribute.predict" for name in (
+        "batch_predict", "get_prediction_udf", "device_predict_plan")},
     **{name: "skdist_tpu_torch.distribute.adaptive" for name in (
         "HalvingSpec", "RungKilledWarning")},
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (

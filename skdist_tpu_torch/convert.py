@@ -1,7 +1,7 @@
 """Carry a fitted model from the JAX package into the port.
 
 ``forest_from_reference`` turns a fitted JAX forest or single tree into
-the port's (below); ``ridge_from_reference`` does the same for a fitted
+the port's (below), and ``tree_from_reference`` a single tree; ``ridge_from_reference`` does the same for a fitted
 ``Ridge``, ``LinearRegression`` or ``RidgeClassifier``, and
 ``multiclass_from_reference`` for a fitted ``DistOneVsRestClassifier``
 or ``DistOneVsOneClassifier`` (each binary estimator converted).
@@ -26,7 +26,8 @@ from .models.linear import LinearSVC, LogisticRegression, SGDClassifier
 
 __all__ = ["forest_from_reference", "linear_svc_from_reference",
            "logistic_regression_from_reference", "multiclass_from_reference",
-           "ridge_from_reference", "sgd_from_reference"]
+           "ridge_from_reference", "sgd_from_reference",
+           "tree_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
@@ -169,10 +170,31 @@ def forest_from_reference(ref, device=None):
             est._n_nodes = int(ref._n_nodes)
         est._foreign_seeds = int(trees["feat"].shape[0])
         return est
+    return _fitted_tree(est, ref)
+
+
+def tree_from_reference(ref, device=None):
+    """A fitted port tree from a fitted JAX ``DecisionTree*`` or
+    ``ExtraTree*``, as :func:`forest_from_reference` builds a forest:
+    its parameters, ``_params`` (the nodes and bin edges) and ``_meta``.
+    The port's ``predict``, ``predict_proba``, ``apply`` and its predict
+    plan then compute the JAX tree's."""
+    cls = _port_class(type(ref).__name__)
+    if hasattr(ref, "_trees") or not hasattr(cls, "_build_decision_kernel"):
+        raise ValueError(f"{type(ref).__name__} is not a single tree")
+    names = cls._get_param_names()
+    params = {k: v for k, v in ref.get_params(deep=False).items()
+              if k in names and k not in ("backend", "device")}
+    return _fitted_tree(cls(**params, device=device), ref)
+
+
+def _fitted_tree(est, ref):
+    """``est`` (a port tree) given the fitted state of the JAX tree
+    ``ref``."""
     if not hasattr(ref, "_params"):
         raise ValueError(f"{type(ref).__name__} is not fitted")
     est._params = {k: np.array(ref._params[k]) for k in _TREE_KEYS}
-    est._params["edges"] = np.asarray(ref._params["edges"], np.float32)
+    est._params["edges"] = np.array(ref._params["edges"], np.float32)
     est._meta = {"n_features": int(ref._meta["n_features"])}
     est.n_features_in_ = int(ref.n_features_in_)
     if hasattr(ref, "classes_"):

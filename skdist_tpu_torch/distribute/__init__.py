@@ -11,6 +11,7 @@ from .ensemble import (
 )
 from .adaptive import HalvingSpec, RungKilledWarning
 from .multiclass import DistOneVsOneClassifier, DistOneVsRestClassifier
+from .predict import batch_predict, device_predict_plan, get_prediction_udf
 from .search import DistGridSearchCV, DistRandomizedSearchCV
 
 __all__ = [
@@ -25,6 +26,9 @@ __all__ = [
     "DistRandomizedSearchCV",
     "HalvingSpec",
     "RungKilledWarning",
+    "batch_predict",
+    "device_predict_plan",
     "get_oof",
+    "get_prediction_udf",
     "get_single_oof",
 ]

@@ -29,12 +29,23 @@ masked ``param_*`` arrays and fit/score times. The best candidate is
 refit, and runtime handles are stripped after fit so the artifact
 pickles clean.
 
-Not ported yet (ROADMAP): the generic per-task host path (estimators
-without a batched fit, host scorers, fit params other than
-``sample_weight``), ``DistMultiModelSearch``,
-checkpointing (and so the journaling of rung kills), out-of-fold
-``preds``, streamed input and its streamed rungs, and fault retries of
-the compacted path.
+A search the batched path cannot take runs the generic path, as in the
+JAX package: every (candidate x fold) task clones the estimator, fits it
+on the fold's rows and scores it with the host scorers
+(:func:`~skdist_tpu_torch.metrics.check_multimetric_scoring`), fanned
+out over the backend's host threads (``run_tasks``; ``n_jobs``). That
+covers an estimator with no batched fit (the forests, a single tree, any
+duck-typed estimator), a searched param that does not ride the task
+axis, a scoring with no device kernel for this estimator (a callable, a
+dict) and fit params other than a full-length ``sample_weight``. A fit
+that raises scores ``error_score`` with a :class:`FitFailedWarning`
+(``error_score="raise"`` re-raises). ``preds=True`` adds the out-of-fold
+probabilities (or predictions) at the best params, ``preds_``.
+
+Not ported yet (ROADMAP): ``DistMultiModelSearch``, checkpointing (and
+so the journaling of rung kills), the f64 host engine's warm C path,
+streamed input and its streamed rungs, and fault retries of the
+compacted path.
 """
 
 import time
@@ -48,7 +59,8 @@ from ..base import BaseEstimator, clone, strip_runtime
 from ..metrics import (
     BINARY_ONLY_SCORERS,
     DEVICE_SCORERS,
-    DeviceScorer,
+    aggregate_score_dicts,
+    check_multimetric_scoring,
     default_device_scorer,
     device_scorer_compatible,
     resolve_rung_scorer,
@@ -60,6 +72,7 @@ from ..parallel import (
     iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
+    resolve_backend,
 )
 from ..utils.cv import ParameterGrid, ParameterSampler, check_cv
 from ..utils.validation import (
@@ -67,7 +80,9 @@ from ..utils.validation import (
     check_is_fitted,
     check_n_iter,
     full_length_sample_weight,
+    index_fit_params,
     num_samples,
+    safe_split,
 )
 from .adaptive import (
     RungKilledWarning,
@@ -86,11 +101,59 @@ class FitFailedWarning(RuntimeWarning):
     """Warning for per-task fits recorded as failed."""
 
 
-def _not_ported(what):
+def _not_ported(what, where=_ROADMAP):
     return NotImplementedError(
-        f"{what} needs the generic (non-batched) search path, which is not "
-        f"ported to skdist_tpu_torch yet ({_ROADMAP})"
+        f"{what} is not ported to skdist_tpu_torch yet ({where})"
     )
+
+
+def _fit_and_score(estimator, X, y, scorers, train, test, parameters,
+                   fit_params=None, error_score=np.nan,
+                   return_train_score=False):
+    """One task of the generic path: a clone of ``estimator`` with
+    ``parameters``, fitted on the ``train`` rows (array-valued fit
+    params cut to them) and scored on the ``test`` rows by every scorer.
+    A fit or a score that raises records ``error_score`` with a
+    :class:`FitFailedWarning`, or re-raises under ``'raise'``."""
+    est = clone(estimator)
+    if parameters:
+        est.set_params(**parameters)
+    X_train, y_train = safe_split(est, X, y, train)
+    X_test, y_test = safe_split(est, X, y, test, train)
+    fit_params = index_fit_params(X, fit_params or {}, train)
+    start = time.perf_counter()
+    result = {}
+    try:
+        if y_train is None:
+            est.fit(X_train, **fit_params)
+        else:
+            est.fit(X_train, y_train, **fit_params)
+        fit_time = time.perf_counter() - start
+        score_start = time.perf_counter()
+        for name, scorer in scorers.items():
+            result[f"test_{name}"] = scorer(est, X_test, y_test)
+        score_time = time.perf_counter() - score_start
+        if return_train_score:
+            for name, scorer in scorers.items():
+                result[f"train_{name}"] = scorer(est, X_train, y_train)
+    except Exception as exc:
+        fit_time = time.perf_counter() - start
+        score_time = 0.0
+        if error_score == "raise":
+            raise
+        warnings.warn(
+            f"Estimator fit failed ({type(exc).__name__}: {exc}); "
+            f"score set to {error_score}.",
+            FitFailedWarning,
+        )
+        result = {}
+        for name in scorers:
+            result[f"test_{name}"] = float(error_score)
+            if return_train_score:
+                result[f"train_{name}"] = float(error_score)
+    result["fit_time"] = fit_time
+    result["score_time"] = score_time
+    return result
 
 
 def _nan_as_worst(scores):
@@ -173,7 +236,8 @@ def _cost_order(est_cls, task_hyper, split_ids):
 
 
 def _candidate_buckets(estimator, candidate_params):
-    """Group candidate indices by their kernel-shaping params."""
+    """Group candidate indices by their kernel-shaping params; None when
+    a candidate searches a param the batched path cannot vary."""
     from ..models.linear import _freeze
 
     hyper_names = set(getattr(type(estimator), "_hyper_names", ()))
@@ -182,39 +246,37 @@ def _candidate_buckets(estimator, candidate_params):
     for idx, cand in enumerate(candidate_params):
         for name in cand:
             if name not in hyper_names and name not in static_names:
-                raise _not_ported(f"searching {name!r}")
+                return None
         overrides = {k: v for k, v in cand.items() if k in static_names}
         buckets.setdefault(_freeze(overrides), (overrides, []))[1].append(idx)
     return buckets
 
 
 def _resolve_device_scoring(estimator, scoring, classes):
-    """``scoring`` -> ``([(out_name, metric, kernel, kind)], multimetric)``;
-    raises for metrics with no device kernel."""
+    """``scoring`` -> ``[(out_name, metric, kernel, kind)]``, or None when
+    a metric has no device kernel that holds for this estimator and label
+    set (a callable, a dict, a regression metric on a classifier, roc_auc
+    on a multiclass target): the generic path's host scorers take those."""
     if scoring is None:
-        names, multimetric = [("score", default_device_scorer(estimator))], \
-            False
+        names = [("score", default_device_scorer(estimator))]
     elif isinstance(scoring, str):
-        names, multimetric = [("score", scoring)], False
+        names = [("score", scoring)]
     elif isinstance(scoring, (list, tuple, set)):
-        names, multimetric = [(s, s) for s in scoring], True
+        names = [(s, s) for s in scoring]
     else:
-        raise _not_ported(f"scoring={scoring!r}")
+        return None
     specs = []
     for out_name, metric in names:
         if metric not in DEVICE_SCORERS:
-            raise _not_ported(f"scoring {metric!r}")
+            return None
         if not scorer_task_compatible(metric, estimator):
-            raise _not_ported(
-                f"scoring {metric!r} on a "
-                f"{getattr(estimator, '_estimator_type', 'model')}"
-            )
+            return None
         if metric in BINARY_ONLY_SCORERS and not device_scorer_compatible(
                 metric, classes):
-            raise _not_ported(f"scoring {metric!r} on this label set")
+            return None
         kernel, kind = DEVICE_SCORERS[metric]
         specs.append((out_name, metric, kernel, kind))
-    return specs, multimetric
+    return specs
 
 
 def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
@@ -308,7 +370,8 @@ class DistBaseSearchCV(BaseEstimator):
 
     def __init__(self, estimator, backend=None, partitions="auto", cv=5,
                  scoring=None, refit=True, return_train_score=False,
-                 error_score=np.nan, verbose=0, adaptive=None):
+                 error_score=np.nan, n_jobs=None, preds=False, verbose=0,
+                 adaptive=None):
         self.estimator = estimator
         self.backend = backend
         self.partitions = partitions
@@ -317,26 +380,35 @@ class DistBaseSearchCV(BaseEstimator):
         self.refit = refit
         self.return_train_score = return_train_score
         self.error_score = error_score
+        self.n_jobs = n_jobs
+        self.preds = preds
         self.verbose = verbose
         self.adaptive = adaptive
 
     def _get_param_iterator(self):
         raise NotImplementedError
 
-    def fit(self, X, y=None, groups=None, **fit_params):
-        """Fit every (candidate x fold) task on the backend's device
-        (``backend=None`` means ``CUDABackend`` on the estimator's
-        ``device``), then refit the best candidate."""
+    def fit(self, X, y=None, groups=None, checkpoint_dir=None, **fit_params):
+        """Fit every (candidate x fold) task, batched on the backend's
+        device where the batched path can take the search and through the
+        generic path otherwise, then refit the best candidate.
+        ``backend=None`` means ``CUDABackend`` on the estimator's
+        ``device`` with ``n_jobs`` host threads; a string resolves through
+        :func:`~skdist_tpu_torch.parallel.resolve_backend`."""
         check_error_score(self.error_score)
         check_adaptive(self.adaptive)
+        if checkpoint_dir is not None:
+            raise _not_ported(
+                "checkpoint_dir (search checkpointing)",
+                "see ROADMAP.md, queue 1 item 10, with parallel/faults.py")
         estimator = self.estimator
-        if not hasattr(type(estimator), "_build_fit_kernel"):
-            raise _not_ported(f"{type(estimator).__name__} (no batched fit)")
         if y is None:
             raise ValueError(f"{type(self).__name__}.fit needs y")
-        backend = self.backend
-        if backend is None:
-            backend = CUDABackend(device=getattr(estimator, "device", None))
+        if self.backend is None:
+            backend = CUDABackend(device=getattr(estimator, "device", None),
+                                  n_jobs=self.n_jobs)
+        else:
+            backend = resolve_backend(self.backend, n_jobs=self.n_jobs)
         is_classifier = getattr(estimator, "_estimator_type", None) == \
             "classifier"
         if not is_classifier and np.ndim(y) != 1:
@@ -351,30 +423,23 @@ class DistBaseSearchCV(BaseEstimator):
                 f"{len(candidate_params) * n_splits} fits"
             )
         splits = list(cv.split(X, y, groups))
-        scorer_specs, multimetric = _resolve_device_scoring(
-            estimator, self.scoring, np.unique(y)
-        )
+        scorers, multimetric = check_multimetric_scoring(estimator,
+                                                         self.scoring)
         self.multimetric_ = multimetric
-        refit_metric = self._refit_metric(scorer_specs, multimetric)
-        sw, sw_ok = full_length_sample_weight(fit_params, num_samples(X))
-        if not sw_ok:
-            raise _not_ported(f"fit params {sorted(fit_params)}")
+        refit_metric = self._refit_metric(scorers, multimetric)
 
-        out, killed, engaged = self._run_batched(
-            backend, estimator, X, y, candidate_params, splits, scorer_specs,
-            sw)
+        out, killed, engaged = self._run_search_tasks(
+            backend, estimator, X, y, candidate_params, splits, scorers,
+            fit_params)
         if self.adaptive is not None and not engaged:
             warn_not_engaged("the search")
-        results = self._format_results(
-            candidate_params, [s[0] for s in scorer_specs], n_splits, out
-        )
+        results = self._format_results(candidate_params, list(scorers),
+                                       n_splits, out)
         if self.adaptive is not None:
             # the rung at which each candidate died (-1: ran to the end)
             results["rung_"] = rung_per_candidate(
                 len(candidate_params), n_splits, killed)
         self.cv_results_ = results
-        scorers = {name: DeviceScorer(metric)
-                   for name, metric, _k, _kind in scorer_specs}
         self.scorer_ = scorers if multimetric else scorers["score"]
         self.n_splits_ = n_splits
 
@@ -396,15 +461,17 @@ class DistBaseSearchCV(BaseEstimator):
             best.fit(X, y, **fit_params)
             self.refit_time_ = time.perf_counter() - refit_start
             self.best_estimator_ = best
+            if self.preds:
+                self.preds_ = self._out_of_fold_preds(estimator, X, y,
+                                                      splits, fit_params)
         # detach from the user's template before stripping runtime handles
         self.estimator = clone(self.estimator)
         strip_runtime(self)
         return self
 
-    def _refit_metric(self, scorer_specs, multimetric):
+    def _refit_metric(self, scorers, multimetric):
         if multimetric:
-            names = [s[0] for s in scorer_specs]
-            if not isinstance(self.refit, str) or self.refit not in names:
+            if not isinstance(self.refit, str) or self.refit not in scorers:
                 if self.refit:
                     raise ValueError(
                         "For multi-metric scoring, refit must be the name "
@@ -413,8 +480,51 @@ class DistBaseSearchCV(BaseEstimator):
             return self.refit if isinstance(self.refit, str) else None
         return "score"
 
+    def _run_search_tasks(self, backend, estimator, X, y, candidate_params,
+                          splits, scorers, fit_params):
+        """The per-task score dicts in task order (candidate-major, split
+        fastest), the rung kills ``{task id: rung}`` and whether an
+        adaptive search ran its rungs: from the batched path when it can
+        take the search, else from the generic path."""
+        sw, sw_ok = full_length_sample_weight(fit_params, num_samples(X))
+        if sw_ok and hasattr(type(estimator), "_build_fit_kernel"):
+            specs = _resolve_device_scoring(estimator, self.scoring,
+                                            np.unique(y))
+            buckets = _candidate_buckets(estimator, candidate_params)
+            needs_proba = specs is not None and any(
+                kind == "proba" for *_, kind in specs)
+            if specs is not None and buckets is not None and not (
+                    needs_proba and not hasattr(type(estimator),
+                                                "_build_proba_kernel")):
+                return self._run_batched(
+                    backend, estimator, X, y, candidate_params, splits,
+                    specs, sw, buckets)
+        return self._run_generic(backend, estimator, X, y, candidate_params,
+                                 splits, scorers, fit_params), {}, False
+
+    def _run_generic(self, backend, estimator, X, y, candidate_params,
+                     splits, scorers, fit_params):
+        """Every (candidate x fold) task through :func:`_fit_and_score`,
+        fanned out by ``backend.run_tasks``."""
+        tasks = [(params, train, test) for params in candidate_params
+                 for train, test in splits]
+
+        def run_one(task):
+            params, train, test = task
+            return _fit_and_score(
+                estimator, X, y, scorers, train, test, params,
+                fit_params=fit_params, error_score=self.error_score,
+                return_train_score=self.return_train_score,
+            )
+
+        t0 = time.perf_counter()
+        out = backend.run_tasks(run_one, tasks, verbose=self.verbose)
+        self.round_stats_ = [{"mode": "generic", "tasks": len(tasks),
+                              "wall_s": time.perf_counter() - t0}]
+        return out
+
     def _run_batched(self, backend, estimator, X, y, candidate_params,
-                     splits, scorer_specs, sample_weight):
+                     splits, scorer_specs, sample_weight, buckets):
         """Dispatch (candidate x fold) tasks bucket by bucket. Returns the
         per-task score dicts in task order (candidate-major, split
         fastest), the rung kills ``{task id: rung}`` and whether an
@@ -437,7 +547,6 @@ class DistBaseSearchCV(BaseEstimator):
         killed_gids = {}
         engaged = False
         self.round_stats_ = []
-        buckets = _candidate_buckets(estimator, candidate_params)
         for static_overrides, cand_indices in buckets.values():
             bucket_est = clone(estimator).set_params(**static_overrides)
             bucket_est._check_supported()
@@ -551,7 +660,7 @@ class DistBaseSearchCV(BaseEstimator):
     def _format_results(self, candidate_params, scorer_names, n_splits, out):
         """sklearn-schema ``cv_results_``."""
         n_candidates = len(candidate_params)
-        agg = {key: np.asarray([row[key] for row in out]) for key in out[0]}
+        agg = aggregate_score_dicts(out)
         results = {}
 
         def _store(key_name, array, splits=False, rank=False):
@@ -594,6 +703,24 @@ class DistBaseSearchCV(BaseEstimator):
                 _store(f"train_{name}", agg[f"train_{name}"], splits=True)
         return results
 
+    def _out_of_fold_preds(self, estimator, X, y, splits, fit_params):
+        """Out-of-fold ``predict_proba`` at the best params, or ``predict``
+        for an estimator without probabilities: one fit a fold, on the
+        host's thread, rows in fold order."""
+        preds = []
+        for train, test in splits:
+            est = clone(estimator).set_params(**self.best_params_)
+            X_train, y_train = safe_split(est, X, y, train)
+            X_test, _ = safe_split(est, X, y, test, train)
+            est.fit(X_train, y_train, **index_fit_params(X, fit_params, train))
+            try:
+                preds.append(est.predict_proba(X_test))
+            except (AttributeError, NotImplementedError):
+                preds.append(est.predict(X_test))
+        if preds and np.ndim(preds[0]) == 1:
+            return np.concatenate(preds)
+        return np.vstack(preds)
+
     # post-fit delegation to the refit estimator
     def _check_refit(self, method):
         if not self.refit:
@@ -629,17 +756,19 @@ class DistBaseSearchCV(BaseEstimator):
 
 
 class DistGridSearchCV(DistBaseSearchCV):
-    """Exhaustive grid search with batched fits on the card; the
-    contract of sklearn's GridSearchCV."""
+    """Exhaustive grid search with batched fits on the card (the generic
+    path where they cannot run); the contract of sklearn's
+    GridSearchCV."""
 
     def __init__(self, estimator, param_grid, backend=None, partitions="auto",
                  cv=5, scoring=None, refit=True, return_train_score=False,
-                 error_score=np.nan, verbose=0, adaptive=None):
+                 error_score=np.nan, n_jobs=None, preds=False, verbose=0,
+                 adaptive=None):
         super().__init__(
             estimator, backend=backend, partitions=partitions, cv=cv,
             scoring=scoring, refit=refit,
             return_train_score=return_train_score, error_score=error_score,
-            verbose=verbose, adaptive=adaptive,
+            n_jobs=n_jobs, preds=preds, verbose=verbose, adaptive=adaptive,
         )
         self.param_grid = param_grid
 
@@ -648,8 +777,8 @@ class DistGridSearchCV(DistBaseSearchCV):
 
 
 class DistRandomizedSearchCV(DistBaseSearchCV):
-    """Randomized search with batched fits on the card; the contract of
-    sklearn's RandomizedSearchCV. ``n_iter`` candidates are drawn by the
+    """Randomized search with batched fits on the card (the generic path
+    where they cannot run); the contract of sklearn's RandomizedSearchCV. ``n_iter`` candidates are drawn by the
     port's :class:`~skdist_tpu_torch.utils.cv.ParameterSampler`, which
     gives sklearn's candidates for the same ``random_state``
     (``n_iter`` is capped at the grid's size when every distribution is
@@ -658,12 +787,13 @@ class DistRandomizedSearchCV(DistBaseSearchCV):
     def __init__(self, estimator, param_distributions, backend=None,
                  partitions="auto", n_iter=10, random_state=None, cv=5,
                  scoring=None, refit=True, return_train_score=False,
-                 error_score=np.nan, verbose=0, adaptive=None):
+                 error_score=np.nan, n_jobs=None, preds=False, verbose=0,
+                 adaptive=None):
         super().__init__(
             estimator, backend=backend, partitions=partitions, cv=cv,
             scoring=scoring, refit=refit,
             return_train_score=return_train_score, error_score=error_score,
-            verbose=verbose, adaptive=adaptive,
+            n_jobs=n_jobs, preds=preds, verbose=verbose, adaptive=adaptive,
         )
         self.param_distributions = param_distributions
         self.n_iter = n_iter

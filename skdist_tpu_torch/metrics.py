@@ -12,7 +12,13 @@ regressor's ``(n,)`` predictions) or for a batch of tasks, with a
 leading task axis; ``w`` is ``(n,)`` or ``(T, n)`` to match. An output
 with one more axis than ``w`` is per-class. The result is a scalar or a
 ``(T,)`` tensor.
+
+The host scorers (:class:`Scorer`, :func:`check_multimetric_scoring`)
+score a fitted estimator's predictions through the same kernels, on the
+host in float64, for the generic search path and ``score()``.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -40,7 +46,11 @@ __all__ = [
     "resolve_rung_scorer",
     "scorer_task_compatible",
     "accuracy_score",
-    "DeviceScorer",
+    "r2_score",
+    "HOST_SCORERS",
+    "Scorer",
+    "check_multimetric_scoring",
+    "aggregate_score_dicts",
 ]
 
 
@@ -266,8 +276,6 @@ def resolve_rung_scorer(metric, scorer_specs, refit, classes=None,
             if spec[0] == want:
                 return producible(spec)
         if len(scorer_specs) > 1:
-            import warnings
-
             warnings.warn(
                 "HalvingSpec(metric='auto') with multimetric scoring "
                 f"and refit={refit!r}: rung kills will rank candidates "
@@ -309,38 +317,155 @@ def r2_score(y_true, y_pred, sample_weight=None):
     return 1.0 - ss_res / ss_tot
 
 
-class DeviceScorer:
-    """``scorer(estimator, X, y)`` over a fitted port estimator, through
-    the device scorer kernel of ``metric`` (the search's ``scorer_``)."""
+# ---------------------------------------------------------------------------
+# host scorers: scorer(estimator, X, y) -> float, for the generic search
+# path, a search's ``scorer_`` and ``score()``
+# ---------------------------------------------------------------------------
 
-    def __init__(self, metric):
-        if metric not in DEVICE_SCORERS:
-            raise ValueError(f"no device scorer named {metric!r}")
-        self.metric = metric
+#: the names of the host scorers (scikit-learn's names)
+HOST_SCORERS = (
+    "accuracy", "f1_macro", "f1_micro", "f1_weighted", "neg_log_loss",
+    "roc_auc", "r2", "neg_mean_squared_error", "neg_root_mean_squared_error",
+    "neg_mean_absolute_error",
+)
+
+
+def _check_labels(*arrays):
+    """Raise, as scikit-learn's classification metrics do, for targets
+    that are continuous (floats with a fractional part)."""
+    for a in arrays:
+        if a.dtype.kind == "f" and np.any(a != np.rint(a)):
+            raise ValueError(
+                "Classification metrics can't handle a continuous target")
+
+
+def _ones(n):
+    return torch.ones(n, dtype=torch.float64)
+
+
+class Scorer:
+    """``scorer(estimator, X, y) -> float`` for the named metric of
+    :data:`HOST_SCORERS`: the estimator's response on X, from the method
+    scikit-learn's scorer of that name calls (``predict_proba`` for
+    ``neg_log_loss``; ``decision_function``, else the positive class's
+    probability, for ``roc_auc``; ``predict`` for the rest), scored on the
+    host by the metric kernels above, in float64, with unit weights.
+    Picklable."""
+
+    def __init__(self, name):
+        if name not in HOST_SCORERS:
+            raise ValueError(
+                f"{name!r} is not a valid scoring value; the scorers are "
+                f"{sorted(HOST_SCORERS)}, None (the estimator's score) or "
+                "a callable scorer(estimator, X, y)")
+        self.name = name
+
+    def __repr__(self):
+        return f"Scorer({self.name!r})"
 
     def __call__(self, estimator, X, y):
-        kernel, kind = DEVICE_SCORERS[self.metric]
-        if kind == "predict":
-            pred = torch.as_tensor(np.asarray(estimator.predict(X),
-                                              dtype=np.float32))
-            y = torch.as_tensor(np.asarray(y, dtype=np.float32))
-            if y.ndim != 1 or y.shape != pred.shape:
-                raise ValueError(
-                    f"the device regression scorers take a 1-D target of "
-                    f"the predictions' shape {tuple(pred.shape)}; got y of "
-                    f"shape {tuple(y.shape)}"
-                )
-            w = torch.ones(y.shape[0], dtype=torch.float32)
-            return float(kernel(y, pred, w, {}))
-        out = (estimator.predict_proba(X) if kind == "proba"
-               else estimator.decision_function(X))
+        name = self.name
+        y = np.asarray(y)
+        if y.ndim == 2 and y.shape[1] == 1:
+            y = y.ravel()
+        if name == "neg_log_loss":
+            return self._log_loss(estimator, X, y)
+        if name == "roc_auc":
+            return self._roc_auc(estimator, X, y)
+        pred = np.asarray(estimator.predict(X))
+        if name in REGRESSION_ONLY_SCORERS:
+            if name == "r2":
+                return r2_score(y, pred)
+            kernel, _kind = DEVICE_SCORERS[name]
+            yt = torch.as_tensor(np.asarray(y, np.float64).ravel())
+            pt = torch.as_tensor(np.asarray(pred, np.float64).ravel())
+            return float(kernel(yt, pt, _ones(len(yt)), {}))
+        y, pred = y.ravel(), pred.ravel()
+        _check_labels(y, pred)
+        labels = np.unique(np.concatenate([y, pred]))
+        k = len(labels)
+        onehot = F.one_hot(torch.as_tensor(np.searchsorted(labels, pred)),
+                           k).to(torch.float64)
+        kernel, _kind = DEVICE_SCORERS[name]
+        return float(kernel(torch.as_tensor(np.searchsorted(labels, y)),
+                            onehot, _ones(len(y)), {"n_classes": k}))
+
+    @staticmethod
+    def _log_loss(estimator, X, y):
+        proba = np.asarray(estimator.predict_proba(X))
         classes = np.asarray(estimator.classes_)
-        y = np.asarray(y).ravel()
-        y_idx = np.searchsorted(classes, y)
-        if (y_idx >= len(classes)).any() or (classes[np.minimum(
-                y_idx, len(classes) - 1)] != y).any():
-            raise ValueError("y holds labels the estimator was not fit on")
-        meta = {"n_classes": len(classes)}
-        w = torch.ones(len(y), dtype=torch.float32)
-        return float(kernel(torch.as_tensor(y_idx), torch.as_tensor(out),
-                            w, meta))
+        present = np.unique(y)
+        if len(present) != proba.shape[1] or not np.all(
+                np.isin(present, classes)):
+            raise ValueError(
+                f"y_true holds {len(present)} labels and the probabilities "
+                f"{proba.shape[1]} columns; neg_log_loss needs every class "
+                "of the estimator in y")
+        # clipped at the probabilities' own machine epsilon, as
+        # scikit-learn's log_loss does, then summed in float64
+        eps = np.finfo(proba.dtype).eps
+        p = np.clip(proba, eps, 1 - eps).astype(np.float64)
+        y_idx = torch.as_tensor(np.searchsorted(classes, y))
+        return float(neg_log_loss(y_idx, torch.as_tensor(p), _ones(len(y)),
+                                  {"n_classes": len(classes)}))
+
+    @staticmethod
+    def _roc_auc(estimator, X, y):
+        classes = np.asarray(estimator.classes_)
+        present = np.unique(y)
+        if len(present) > 2 or len(classes) != 2:
+            raise ValueError("roc_auc scores a binary problem only; this "
+                             "target is multiclass")
+        if len(present) < 2:
+            warnings.warn("Only one class is present in y_true. ROC AUC "
+                          "score is not defined in that case.",
+                          RuntimeWarning)
+            return float("nan")
+        if hasattr(estimator, "decision_function"):
+            s = np.asarray(estimator.decision_function(X), np.float64)
+        else:
+            s = np.asarray(estimator.predict_proba(X), np.float64)[:, 1]
+        # the positive class is the larger label, as in roc_auc_score
+        y_idx = torch.as_tensor((y == present[-1]).astype(np.int64))
+        return float(roc_auc_binary(y_idx, torch.as_tensor(s.ravel()),
+                                    _ones(len(y)), {"n_classes": 2}))
+
+
+def _estimator_score(estimator, X, y):
+    """``scoring=None``: the estimator's own ``score``."""
+    return estimator.score(X, y)
+
+
+def _one_scorer(scoring):
+    if scoring is None:
+        return _estimator_score
+    if callable(scoring):
+        return scoring
+    if isinstance(scoring, str):
+        return Scorer(scoring)
+    raise ValueError(f"Invalid scoring: {scoring!r}")
+
+
+def check_multimetric_scoring(estimator, scoring):
+    """``scoring`` as ``({name: scorer}, multimetric)``: None (the
+    estimator's ``score``), a name or a callable give one scorer named
+    ``"score"``; a list, tuple or set of names, or a dict of names or
+    callables, several. The counterpart of the JAX package's, which asks
+    scikit-learn; the port builds its own :class:`Scorer` objects."""
+    if scoring is None or isinstance(scoring, str) or callable(scoring):
+        return {"score": _one_scorer(scoring)}, False
+    if isinstance(scoring, (list, tuple, set)):
+        keys = list(scoring)
+        if len(set(keys)) != len(keys):
+            raise ValueError(f"Duplicate scorer names: {keys}")
+        if not all(isinstance(k, str) for k in keys):
+            raise ValueError(f"Invalid scoring: {scoring!r}")
+        return {name: Scorer(name) for name in keys}, True
+    if isinstance(scoring, dict):
+        return {name: _one_scorer(s) for name, s in scoring.items()}, True
+    raise ValueError(f"Invalid scoring: {scoring!r}")
+
+
+def aggregate_score_dicts(scores):
+    """A list of dicts as a dict of arrays."""
+    return {key: np.asarray([s[key] for s in scores]) for key in scores[0]}

@@ -281,11 +281,15 @@ class _LinearModelBase(BaseEstimator):
         kernel = getattr(type(self), f"_build_{which}_kernel")(
             self._meta, static
         )
-        W = torch.as_tensor(
-            np.array(self._params["W"], dtype=np.float32)).to(device)
+        W = torch.as_tensor(self._kernel_params()).to(device)
         with exact_matmuls(), torch.no_grad():
             out = kernel(W, to_device_X(X, device))
         return out.cpu().numpy()
+
+    def _kernel_params(self):
+        """The fitted array the decision and proba kernels read, ``W``, as
+        a float32 copy."""
+        return np.array(self._params["W"], dtype=np.float32)
 
     def decision_function(self, X):
         return self._device_outputs(X, "decision")

@@ -458,6 +458,15 @@ def resolve_max_features(max_features, d):
     return min(d, int(max_features))
 
 
+def walk_block(walk, trees, edges, X, mode):
+    """One row block of :func:`walk_trees` on the trees' device: bin
+    ``X (n, d)`` and walk the stack ``trees`` (``(T, N)`` tensors) with
+    ``walk`` (a :func:`tree_predict_kernel`); the final node ids ``(n,
+    T)`` for ``mode="apply"``, else the mean leaf value ``(n, K)``."""
+    res = walk(trees, apply_bins(X, edges))
+    return res.T if mode == "apply" else torch.mean(res, dim=0)
+
+
 def walk_trees(trees, edges, X, max_depth, device, mode):
     """Walk a stack of fitted trees (numpy ``(T, N)`` arrays) over ``X``
     on ``device``, in row blocks. ``mode="apply"`` returns the final node
@@ -479,10 +488,9 @@ def walk_trees(trees, edges, X, max_depth, device, mode):
     outs = []
     with torch.no_grad():
         for lo in range(0, X.shape[0], step):
-            Xb = apply_bins(torch.as_tensor(X[lo:lo + step]).to(device),
-                            edges_t)
-            res = walk(dev_trees, Xb)
-            res = res.T if mode == "apply" else torch.mean(res, dim=0)
+            res = walk_block(walk, dev_trees, edges_t,
+                             torch.as_tensor(X[lo:lo + step]).to(device),
+                             mode)
             outs.append(res.cpu().numpy())
     if not outs:
         K = 0 if mode == "apply" else np.asarray(trees["leaf"]).shape[-1]
@@ -569,6 +577,36 @@ class _BaseTree(BaseEstimator):
             raise AttributeError(
                 f"This {type(self).__name__} instance is not fitted yet."
             )
+
+    def _static_config(self, meta):
+        """The parameters that shape the predict plan: the depth of the
+        walk."""
+        return {"max_depth": self.max_depth}
+
+    def _kernel_params(self):
+        """The fitted arrays the decision kernel reads: the tree's nodes
+        and its bin edges."""
+        return {k: self._params[k]
+                for k in ("feat", "thr", "is_split", "leaf", "edges")}
+
+    @classmethod
+    def _build_decision_kernel(cls, meta, static):
+        """``decision(params, X) -> (n, K)`` leaf values (``(n,)`` for a
+        one-output regressor) of one fitted tree over a dense device
+        block ``X``: bins and walk, the per-block step of
+        :func:`walk_trees`. ``params`` is :meth:`_kernel_params` on X's
+        device. There is no proba kernel, as in the JAX package: a
+        classifier's leaf values are its probabilities, and
+        ``predict_proba`` of a plan-driven caller takes the host path."""
+        walk = tree_predict_kernel(dict(static)["max_depth"])
+
+        def decision(params, X):
+            trees = {k: params[k][None]
+                     for k in ("feat", "thr", "is_split", "leaf")}
+            out = walk_block(walk, trees, params["edges"], X, "predict")
+            return out[:, 0] if out.shape[1] == 1 else out
+
+        return decision
 
     def _walk(self, X, mode):
         self._check_fitted()

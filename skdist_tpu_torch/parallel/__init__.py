@@ -4,17 +4,20 @@ from .backend import (
     MIN_ITER_TASKS,
     CUDABackend,
     IterativeKernelSpec,
+    LocalBackend,
     RungController,
     TaskBackend,
     compaction_enabled,
     iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
+    resolve_backend,
     resolve_slice_iters,
 )
 
 __all__ = [
-    "CUDABackend", "IterativeKernelSpec", "MIN_ITER_TASKS", "RungController",
-    "TaskBackend", "compaction_enabled", "iterative_chunk_size",
-    "iterative_fit_supported", "parse_partitions", "resolve_slice_iters",
+    "CUDABackend", "IterativeKernelSpec", "LocalBackend", "MIN_ITER_TASKS",
+    "RungController", "TaskBackend", "compaction_enabled",
+    "iterative_chunk_size", "iterative_fit_supported", "parse_partitions",
+    "resolve_backend", "resolve_slice_iters",
 ]

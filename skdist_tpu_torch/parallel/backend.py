@@ -17,14 +17,22 @@ boundaries, and an adaptive :class:`RungController` may retire lanes
 early (ASHA). :meth:`CUDABackend.batched_map_iterative` says where it
 departs from the JAX package's mechanics (not from its results).
 
+``run_tasks`` is the host fan-out of per-task closures (the generic
+search path, host-model prediction chunks): a thread pool, as in the
+JAX package. :class:`LocalBackend` is the JAX package's host backend:
+its fan-out is serial unless ``n_jobs`` says otherwise, and its batched
+calls run on its ``device`` as :class:`CUDABackend`'s do.
+:func:`resolve_backend` normalises a user's ``backend=`` argument.
+
 Not ported yet (ROADMAP): elastic mode, fault retries, streaming, AOT
-and the host fan-out.
+and the device mesh.
 """
 
 import math
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,10 +41,10 @@ from ..sparse import PackedX
 from ..utils.device import exact_matmuls, resolve_device
 
 __all__ = [
-    "TaskBackend", "CUDABackend", "parse_partitions", "IterativeKernelSpec",
-    "RungController", "MIN_ITER_TASKS", "compaction_enabled",
-    "resolve_slice_iters", "iterative_fit_supported",
-    "iterative_chunk_size",
+    "TaskBackend", "CUDABackend", "LocalBackend", "resolve_backend",
+    "parse_partitions", "IterativeKernelSpec", "RungController",
+    "MIN_ITER_TASKS", "compaction_enabled", "resolve_slice_iters",
+    "iterative_fit_supported", "iterative_chunk_size",
 ]
 
 
@@ -58,6 +66,10 @@ class TaskBackend:
     #: stats of the most recent batched_map call (rounds, tasks per
     #: round, round walls)
     last_round_stats = None
+
+    def run_tasks(self, fn, tasks, verbose=0):
+        """``[fn(t) for t in tasks]``, fanned out over host threads."""
+        raise NotImplementedError
 
     def batched_map(self, kernel, task_args, shared, bytes_per_task=None,
                     round_size=None, return_timings=False,
@@ -305,6 +317,31 @@ def iterative_chunk_size(n_tasks, n_slots, target_rounds=8):
     return int(math.ceil(chunk / n_slots) * n_slots)
 
 
+def effective_jobs(n_jobs, n_tasks):
+    """Worker threads for ``n_tasks`` tasks under joblib's ``n_jobs``
+    convention: None or 0 is one, a negative number counts back from the
+    CPU count (-1 is every CPU), and never more threads than tasks."""
+    if n_jobs in (None, 0):
+        return 1
+    if n_jobs < 0:
+        return max(1, min(n_tasks, (os.cpu_count() or 1) + 1 + n_jobs))
+    return max(1, min(n_tasks, n_jobs))
+
+
+def run_threads(fn, tasks, n_jobs):
+    """``[fn(t) for t in tasks]`` in task order, on ``effective_jobs``
+    threads (in the caller's thread when that is one). Threads, not
+    processes: the work inside a task is device work or native code that
+    releases the GIL, and threads share the training data instead of
+    pickling it per task. A task's exception reaches the caller."""
+    tasks = list(tasks)
+    workers = effective_jobs(n_jobs, len(tasks))
+    if workers == 1:
+        return [fn(t) for t in tasks]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, tasks))
+
+
 def _place(tree, device):
     if isinstance(tree, dict):
         return {k: _place(v, device) for k, v in tree.items()}
@@ -333,14 +370,20 @@ class CUDABackend(TaskBackend):
     on the CPU through the kernels' plain versions).
 
     ``round_size`` caps the tasks of one round; by default a round holds
-    as many tasks as free device memory fits.
+    as many tasks as free device memory fits. ``n_jobs`` sizes the host
+    fan-out of :meth:`run_tasks`: by default every CPU, as the JAX
+    package's device backend does (``n_jobs or -1``).
     """
 
     is_device_backend = True
 
-    def __init__(self, device=None, round_size=None):
+    def __init__(self, device=None, round_size=None, n_jobs=None):
         self.device = resolve_device(device)
         self.round_size = round_size
+        self.n_jobs = n_jobs
+
+    def run_tasks(self, fn, tasks, verbose=0):
+        return run_threads(fn, tasks, self.n_jobs or -1)
 
     def place(self, tree):
         """Host arrays (and PackedX) of a dict tree as device tensors."""
@@ -815,3 +858,38 @@ class _SliceLoop:
         st["lanes_stalled"] = int((self.status == _STALLED).sum())
         st["lanes_max_iter"] = int((self.status == _MAX_ITER).sum())
         return self.out
+
+
+class LocalBackend(CUDABackend):
+    """The host backend (the JAX package's ``LocalBackend``): per-task
+    closures run serially (``n_jobs=None`` or 1) or on ``n_jobs``
+    threads, never processes. Its batched calls (``batched_map``,
+    ``round_cap`` and the compacted path) place and run on ``device``,
+    the card unless ``device="cpu"``, as :class:`CUDABackend`'s do."""
+
+    is_device_backend = False
+
+    def __init__(self, n_jobs=None, device=None, round_size=None):
+        super().__init__(device=device, round_size=round_size, n_jobs=n_jobs)
+
+    def run_tasks(self, fn, tasks, verbose=0):
+        return run_threads(fn, tasks, self.n_jobs)
+
+
+def resolve_backend(backend, n_jobs=None):
+    """The user-facing ``backend=`` argument as a :class:`TaskBackend`:
+    None or ``"local"`` is a :class:`LocalBackend` over ``n_jobs``
+    threads, a ``TaskBackend`` passes through, ``"cuda"`` or
+    ``"devices"`` is a :class:`CUDABackend`. Anything else raises,
+    ``"tpu"`` and a device mesh among them: the port runs on one card
+    (a mesh waits for ROADMAP Queue 1 item 10)."""
+    if backend is None or (isinstance(backend, str) and backend == "local"):
+        return LocalBackend(n_jobs=n_jobs)
+    if isinstance(backend, TaskBackend):
+        return backend
+    if isinstance(backend, str) and backend in ("cuda", "devices"):
+        return CUDABackend(n_jobs=n_jobs)
+    raise ValueError(
+        f"Unrecognised backend {backend!r}: pass None, 'local', 'cuda' "
+        "(or 'devices') or a TaskBackend instance"
+    )

@@ -7,6 +7,7 @@ the CPU quietly.
 """
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -30,18 +31,36 @@ def resolve_device(device=None):
     return dev
 
 
+#: holders of :func:`exact_matmuls` in this process, and the TF32 setting
+#: the first of them found
+_EXACT = {"holders": 0, "saved": None}
+_EXACT_LOCK = threading.Lock()
+
+
 @contextlib.contextmanager
 def exact_matmuls():
-    """Full-float32 matmuls for the duration (TF32 off), restoring the
-    caller's setting after: the counterpart of the JAX package's
-    ``exact_matmuls`` ('highest' precision), which the <= 1e-5
-    ``cv_results_`` parity contract needs."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full-float32 matmuls for the duration (TF32 off): the counterpart
+    of the JAX package's ``exact_matmuls`` ('highest' precision), which
+    the <= 1e-5 ``cv_results_`` parity contract needs.
+
+    The switch is process-global and threads may hold the context at
+    once (``LocalBackend(n_jobs>1)``, concurrent prediction callers), so
+    the holders are counted under a lock: the first saves the caller's
+    setting and turns TF32 off, the last one out restores it. A thread
+    leaving while another still holds the context leaves TF32 off."""
+    matmul = torch.backends.cuda.matmul
+    with _EXACT_LOCK:
+        if _EXACT["holders"] == 0:
+            _EXACT["saved"] = matmul.allow_tf32
+            matmul.allow_tf32 = False
+        _EXACT["holders"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _EXACT_LOCK:
+            _EXACT["holders"] -= 1
+            if _EXACT["holders"] == 0:
+                matmul.allow_tf32 = _EXACT["saved"]
 
 
 def lane_sum(x):

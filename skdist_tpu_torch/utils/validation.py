@@ -118,3 +118,43 @@ def safe_indexing(X, indices):
     if hasattr(X, "shape"):  # numpy / scipy sparse
         return X[indices]
     return [X[i] for i in indices]
+
+
+def safe_split(estimator, X, y, indices, train_indices=None):
+    """Rows ``indices`` of X and y; for an estimator on a precomputed
+    kernel, the ``(indices, train_indices)`` block of X (its square
+    block without ``train_indices``)."""
+    if getattr(estimator, "kernel", None) == "precomputed":
+        if not hasattr(X, "shape"):
+            raise ValueError("Precomputed kernels require array X")
+        if train_indices is None:
+            X_subset = X[np.ix_(indices, indices)]
+        else:
+            X_subset = X[np.ix_(indices, train_indices)]
+    else:
+        X_subset = safe_indexing(X, indices)
+    y_subset = safe_indexing(y, indices) if y is not None else None
+    return X_subset, y_subset
+
+
+def index_fit_params(X, fit_params, indices):
+    """Fit params cut to a fold's rows: a value with one entry per
+    sample of X (a full-length ``sample_weight``, say) is indexed by
+    ``indices``; everything else passes through untouched."""
+    if not fit_params:
+        return {}
+    n = num_samples(X)
+    out = {}
+    for key, value in fit_params.items():
+        is_arraylike = (
+            hasattr(value, "__len__") or hasattr(value, "shape")
+        ) and not isinstance(value, (str, bytes, dict))
+        if is_arraylike:
+            try:
+                matches = num_samples(value) == n
+            except TypeError:
+                matches = False
+            if matches:
+                value = safe_indexing(value, indices)
+        out[key] = value
+    return out

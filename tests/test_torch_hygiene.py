@@ -111,6 +111,7 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "import skdist_tpu_torch as p\n"
         "from skdist_tpu_torch import convert, metrics, sparse\n"
         "from skdist_tpu_torch.distribute import ensemble, multiclass, search\n"
+        "from skdist_tpu_torch.distribute import predict\n"
         "from skdist_tpu_torch.models import forest, linear, tree\n"
         "from skdist_tpu_torch.ops import binning, hist, packed_sparse, _build\n"
         "from skdist_tpu_torch.utils import cv, device, draws, validation\n"
@@ -118,6 +119,9 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "p.DistRandomForestClassifier, p.DistRandomTreesEmbedding\n"
         "p.Ridge, p.RidgeClassifier, p.LinearRegression\n"
         "p.LinearSVC, p.DistOneVsRestClassifier, p.DistOneVsOneClassifier\n"
+        "p.LocalBackend, p.batch_predict, p.get_prediction_udf\n"
+        "p.device_predict_plan, predict.batch_predict\n"
+        "convert.tree_from_reference\n"
         "convert.multiclass_from_reference, convert.linear_svc_from_reference\n"
         "convert.ridge_from_reference, sparse.packed_to_dense\n"
         "packed_sparse.packed_weighted_gram, packed_sparse.build_pairs\n"

@@ -32,7 +32,9 @@ from skdist_tpu.models import LogisticRegression as JaxLR
 from skdist_tpu.parallel import TPUBackend
 from skdist_tpu_torch import CUDABackend
 from skdist_tpu_torch.distribute.search import DistGridSearchCV as TorchGrid
+from skdist_tpu_torch.distribute.search import FitFailedWarning
 from skdist_tpu_torch.models import LogisticRegression as TorchLR
+from skdist_tpu_torch.models import Ridge as TorchRidge
 
 CS = list(np.logspace(-2, 0, 6))
 EST = dict(tol=1e-2, max_iter=200)
@@ -122,13 +124,28 @@ def test_rounds_and_sample_weight(data):
 
 
 def test_unported_paths_raise(data):
+    """What still raises: checkpointing (ROADMAP Queue 1 item 10) and a
+    regressor's multi-target y. What raised before the generic search path
+    now takes it: a scoring with no device kernel for this estimator, a
+    searched param off the task axis, and fit params other than
+    ``sample_weight`` (which this estimator refuses: every fit fails and
+    scores ``error_score``)."""
     X, y = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchGrid(TorchLR(device="cpu"), {"C": CS}, scoring="r2",
-                  backend=CUDABackend(device="cpu")).fit(X, y)
+    be = CUDABackend(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchGrid(TorchLR(device="cpu"), {"C": CS},
-                  backend=CUDABackend(device="cpu")).fit(X, y, groups_x=1)
+                  backend=be).fit(X, y, checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchGrid(TorchLR(device="cpu"), {"random_state": [0, 1]},
-                  backend=CUDABackend(device="cpu")).fit(X, y)
+        TorchGrid(TorchRidge(device="cpu"), {"alpha": [1.0]},
+                  backend=be).fit(X, np.stack([y, y], axis=1).astype(float))
+    gs = TorchGrid(TorchLR(device="cpu", **EST), {"C": CS[:2]}, cv=3,
+                   scoring="r2", backend=be).fit(X, y)
+    assert gs.round_stats_[0]["mode"] == "generic"
+    assert np.all(np.isfinite(gs.cv_results_["mean_test_score"]))
+    with pytest.warns(FitFailedWarning), pytest.raises(
+            RuntimeError, match="All candidate fits failed"):
+        TorchGrid(TorchLR(device="cpu", **EST), {"C": CS[:2]}, cv=3,
+                  backend=be).fit(X, y, groups_x=1)
+    gs = TorchGrid(TorchLR(device="cpu", **EST), {"random_state": [0, 1]},
+                   cv=3, backend=be).fit(X, y)
+    assert gs.round_stats_[0]["mode"] == "generic"
