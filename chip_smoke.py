@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab-sgd DIR [--pairs N] [--ab-rows N]
     python3 chip_smoke.py --ab-row-kernels DIR [--pairs N]
     python3 chip_smoke.py --profile-config5
+    python3 chip_smoke.py --phases-17-19
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -69,8 +70,10 @@ result line:
    the compacted run must have refilled a slot and retired a lane
    (stalled or converged) before ``max_iter`` (else the comparison
    would be trivial).
-4. The dense headline on the card: the same grid on the dense
-   11314 x 4096 problem (``torch.matmul``, no hand kernel), compacted
+4. The dense headline on the card: every other C of the same grid (48
+   of 96, the span kept; a printed cut that keeps the run inside its
+   time limit) on the dense 11314 x 4096 problem (``torch.matmul``, no
+   hand kernel), compacted
    (every round resident), then on the classic path
    (``SKDIST_COMPACTION=0``) at the compacted run's chunk: the two
    ``cv_results_`` must be bitwise equal.
@@ -137,16 +140,18 @@ result line:
     in phase 3, and both to a float64 solve on the card (the card's
     error at most 10x the CPU's), at the best alpha and at alpha = 1.
     The sizer's bytes beside the peak device memory, and a
-    ``torch.profiler`` split of one round.
+    ``torch.profiler`` split of a round of 10 lanes (2 alphas x 5
+    folds).
 11. ``DistGridSearchCV(Ridge(), {"alpha": logspace(-2, 3, 16)}, cv=5)``
     (r2) on the same X and a real target made from the seed: 80 fits.
 12. One JSON line ``{"kernels": [...]}`` (K1, K2, K3, K4 and K1's and
     K2's row forms, each launched on its path; the row forms' entries
     also carry their device, graph and host times, their yardsticks'
     and the launch floor's; K1's and K4's ``paths`` also count their
-    launches on the prediction and generic search paths), then, last,
-    the result line ``{"ok": true, "device": {...}}``; both are printed
-    after phase 16.
+    launches on the prediction and generic search paths, K1, K2 and the
+    row forms on phase 18's search and 19(a)'s refit), then, last, the
+    result line ``{"ok": true, "device": {...}}``; both are printed after
+    phase 19.
 13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
     SGDClassifier(max_iter=20, random_state=0), {"alpha": logspace(-6,
     -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` on
@@ -162,9 +167,9 @@ result line:
     score must be finite, ``best_score_`` above the majority class's
     share, and the pickled ``best_estimator_`` must predict as the live
     one.
-13b. The same search on ``make_tabular(50000, 54, 7, seed=1)`` (half the
-    JAX package's own benchmark size, a cut that keeps the run inside its
-    time target; printed): compacted, then classic
+13b. The same search on ``make_tabular(25000, 54, 7, seed=1)`` (a quarter
+    of the JAX package's own benchmark size, a cut that keeps the run
+    inside its time target; printed): compacted, then classic
     (``SKDIST_COMPACTION=0``) at the same chunk, ``cv_results_`` and the
     refit ``coef_`` bitwise equal; ``adaptive=HalvingSpec(eta=inf)``
     bitwise equal to the exhaustive run; then ``eta=3``: its wall, kills
@@ -245,12 +250,50 @@ result line:
     "roc_auc"], refit="roc_auc", preds=True)`` on 50000 x 28 rows with a
     balanced binary target (a random projection split at its median),
     at ``n_jobs=1``, ``n_jobs=4`` and the default ``n_jobs=None`` (a
-    host thread a CPU core; K4 in every fit). Gates: K4 launched (> 0:
-    the counters are not atomic under threads, so no exact count), every
-    score finite, ``cv_results_`` scores bitwise equal among the three,
+    host thread a CPU core; K4 in every fit). Gates: K4's launches
+    exactly one a tree level of each fit over the three runs (the
+    counters are exact under threads), every score finite, ``cv_results_`` scores bitwise equal among the three,
     ``preds_`` of shape (50000, 2), the pickled ``best_estimator_``
     predicts as the live one. Printed: the class shares, the walls and
     fits/s.
+
+17. The f64 host engine and its warm C path at the flagship's width:
+    ``DistGridSearchCV(LogisticRegression(engine="host", max_iter=100),
+    {"C": logspace(-2, 2, 4)[:2]}, cv=3, scoring="accuracy")`` on the
+    first 1500 rows of the dense 11314 x 4096 problem (20 classes; the
+    cut, from 4 C x 5 folds on every row, is printed) under
+    ``CUDABackend`` (an explicit pin: ``auto``
+    never picks the host engine on the card). Gates: every fit ran the
+    host engine, at least one was warm-seeded (the capped fits refit cold
+    are counted), fold 0's seeded fits rerun cold and alone score as the
+    chain's within 1e-5 wherever they converged (at least one must), the
+    pickled search equals the live one. Printed: the wall, fits/s,
+    iterations a fit warm against cold.
+18. ``DistMultiModelSearch`` over ``LogisticRegression(max_iter=100)``
+    (8 C), ``LinearSVC(max_iter=100)`` (8 C) and ``SGDClassifier(
+    max_iter=20)`` (8 alpha), ``n=4, cv=5, scoring="accuracy",
+    random_state=0``, on the main path's packed hashed text: K1, K2 and
+    both row forms launched (the row forms exactly two matvecs and one
+    rmatvec a step of whole epochs), every family's segment of
+    ``cv_results_`` finite, ``best_index_`` the nan-argmax, ``predict`` =
+    ``best_estimator_.predict``, the pickled search equal to the live one.
+19. The estimator options. (a) The phase-18 winner's family refit on the
+    packed X from its own ``coef_``/``intercept_`` after a cold fit at its
+    params (``tol`` raised along 1e-4 .. 100 until the cold fit converges):
+    the seeded refit stops at once with ``coef_`` within solver tolerance
+    (a seeded SGD fit restarts its step sizes and does not stop early, so
+    when SGD wins the best L-BFGS family is refit and SGD's seeded epochs
+    are printed). (b) The dense flagship
+    ``LogisticRegression(max_iter=100)`` with ``matmul_dtype="bfloat16"``
+    against float32: score within 1e-3 (its largest probability gap
+    printed); the JAX package's bf16 contract test on its own problem
+    (``clf_data``, 180 x 8, 3 classes) on the card: score within 1e-3,
+    probabilities within 0.05. (c) The main path's packed
+    ``LinearOperator`` matvec under bf16: bitwise its gather expression,
+    within 0.02 relative of K1's float32 matvec, both timed. (d)
+    ``batch_predict(config 5's model, 300000 rows,
+    "predict_log_proba")`` equals ``model.predict_log_proba`` within
+    1e-6.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -258,7 +301,7 @@ out-of-memory downgrade is an error in every phase: the up-front sizing
 must hold on the card.
 
 ``--ab-sgd DIR`` runs none of the phases above: it times phase 13b's
-compacted search (on ``--ab-rows`` rows, 50000 by default) in turns on
+compacted search (on ``--ab-rows`` rows, 25000 by default) in turns on
 the checkout at DIR (a parent commit, unpacked with ``git archive``) and
 on this one, ``--pairs`` pairs (default 6) ordered parent, this, this,
 parent, one process a run, and
@@ -266,7 +309,8 @@ prints each run and every tree's median, least and largest walls; the
 runs must agree on epochs and ``best_score_``.
 
 ``--profile-config5`` runs none of the phases either: it prints phase
-15's split of one warm call (above) and exits.
+15's split of one warm call (above) and exits. ``--phases-17-19`` builds
+the kernels and runs phases 17-19 alone, with no result line.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -1576,6 +1620,10 @@ def phase_extra_trees_regressor(torch):
 #: the ridge path's hashed-text width: one lane's (p, p) gram is 1.07 GB
 RIDGE_D = 2 ** 14
 
+#: alphas of phase 10's profiled round (x 5 folds): a round of 60 lanes
+#: took 53 s under the profiler
+RIDGE_PROFILE_ALPHAS = 2
+
 
 def hold_k3(torch, ps, out, idx, val, sw, p, label, lanes=None):
     """Hold K3's output ``out`` to its plain version, lane by lane over
@@ -2030,7 +2078,9 @@ def phase_ridge(torch, X, y, alphas, backend):
     # one round's device time, split by torch.profiler over kernel names
     # (the factorisation and the solve share cuBLAS kernels, so they are
     # one bucket there, split below by timing one lane of each)
-    lanes = max(1, stats["tasks_per_round"] // 5)
+    # two alphas x 5 folds: a round's split is per lane (each lane's gram
+    # and Cholesky), and the profiler slows cuSOLVER's calls ~15x
+    lanes = min(RIDGE_PROFILE_ALPHAS, max(1, stats["tasks_per_round"] // 5))
     t0 = time.perf_counter()
     split = profile_device_split(
         torch, lambda: DistGridSearchCV(
@@ -2109,7 +2159,7 @@ def phase_ridge_regressor(torch, X, alphas, backend):
 #: JAX package's own benchmark size (100000 rows), a cut that keeps the
 #: whole run inside its time target
 SGD_N, SGD_D, SGD_K = 581012, 54, 7
-SGD_AB_N = 50_000
+SGD_AB_N = 25_000
 
 SGD_ALPHAS = list(np.logspace(-6, -2, 60))
 
@@ -2359,7 +2409,7 @@ print(json.dumps({"wall": wall, "refit": gs.refit_time_,
 
 def ab_sgd(parent, pairs, rows):
     """``--ab-sgd``: config 2's compacted search on ``rows`` rows (phase
-    13b's 50000 by default, phase 13's 581012 at full size) in turns on
+    13b's 25000 by default, phase 13's 581012 at full size) in turns on
     the tree at ``parent`` and on this checkout, ``pairs`` pairs ordered
     parent, this, this, parent, ..., one process a run. Prints every run and each tree's median, least and largest
     search and refit walls; every run must give the same epochs and
@@ -2562,7 +2612,8 @@ def hold_binary_fit(torch, X, y, cls, label):
         X_ulp = X * np.float32(1 + 2.0 ** -23)
     kw = dict(C=1.0, max_iter=100)
     card = LinearSVC(**kw).fit(X, yb)
-    cpu = LinearSVC(device="cpu", **kw).fit(X, yb)
+    # engine="xla": on the CPU, 'auto' is the f64 host engine
+    cpu = LinearSVC(device="cpu", engine="xla", **kw).fit(X, yb)
     card_ulp = LinearSVC(**kw).fit(X_ulp, yb)
     dW = float(np.abs(card._params["W"] - cpu._params["W"]).max())
     dulp = float(np.abs(card._params["W"] - card_ulp._params["W"]).max())
@@ -2917,7 +2968,8 @@ def phase_config5(torch, backend):
     if not np.array_equal(labels, model.classes_[np.argmax(warm, axis=1)]):
         raise AssertionError("phase 15: predict is not the argmax of "
                              "predict_proba through classes_")
-    cpu_model = LogisticRegression(max_iter=40, device="cpu").fit(X, y)
+    cpu_model = LogisticRegression(max_iter=40, device="cpu",
+                                   engine="xla").fit(X, y)
     card_model = logistic_regression_from_reference(cpu_model._params,
                                                     cpu_model._meta)
     head = Xs[:20000]
@@ -3127,6 +3179,11 @@ def phase_generic_search(torch):
                 grid, cv=3, scoring=["accuracy", "roc_auc"], refit="roc_auc",
                 preds=True, n_jobs=n_jobs).fit(X, y)))
     launches = kh.level_histogram.launches
+    # one K4 launch a tree level of each fit (its 32 trees are one round):
+    # the grid's 18 fits, then the refit and 3 out-of-fold fits at the
+    # best depth, in each of the three runs
+    per_run = 3 * sum(grid["max_depth"]) * len(grid["min_samples_leaf"]) \
+        + 4 * runs[1].best_params_["max_depth"]
     a, b = runs[1], runs[4]
     keys = [k for k in a.cv_results_ if "_test_" in k]
     differ = [(n_jobs, k) for n_jobs in (4, None) for k in keys
@@ -3142,12 +3199,14 @@ def phase_generic_search(torch):
         f"({n_fits / walls[n_jobs]:.2f} fits/s)" for n_jobs in (1, 4))
         + f", default n_jobs=None ({threads} threads for the 18 fits) "
         f"{walls[None]:.2f}s ({n_fits / walls[None]:.2f} fits/s); "
-        f"mode {b.round_stats_[0]['mode']}; K4 launches {launches}; "
+        f"mode {b.round_stats_[0]['mode']}; K4 launches {launches} (3 runs "
+        f"x {per_run}, one a tree level of each fit); "
         f"best_params_ {b.best_params_}, best roc_auc {b.best_score_:.6f}; "
         "cv_results_ between n_jobs: "
         + ("bitwise equal" if not differ else f"differ in {differ}"))
-    if launches <= 0:
-        raise AssertionError("phase 16: K4 never launched")
+    if launches != 3 * per_run:
+        raise AssertionError(f"phase 16: K4 launched {launches} times, not "
+                             f"3 x {per_run} (one a tree level of each fit)")
     if not np.all(np.isfinite(scores)):
         raise AssertionError("phase 16: a score is not finite")
     if differ:
@@ -3160,6 +3219,360 @@ def phase_generic_search(torch):
     say(f"  preds_ {b.preds_.shape}; pickled best_estimator_ predicts the "
         "same")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 17-19: the f64 host engine, DistMultiModelSearch, the options
+# ---------------------------------------------------------------------------
+
+#: phase 17's depth, cut: ``logspace(-2, 2, 4)``'s first 2 C values,
+#: 3 folds (of 5) and the flagship's first 1500 of 11314 rows
+#: (its full 4096 features and 20 classes). The uncut phase (4 C x 5
+#: folds, all rows) took 557 s on the 8-core host of an H100 machine,
+#: ~21 s a fit: scipy's L-BFGS-B update over 4097 x 20 weights costs
+#: ~0.15 s an iteration there whatever the rows, the products the rest
+HOST_CS = list(np.logspace(-2, 2, 4))[:2]
+HOST_ROWS = 1500
+HOST_FOLDS = 3
+
+
+def phase_host_engine(torch, backend):
+    """Phase 17: ``DistGridSearchCV(LogisticRegression(engine="host",
+    max_iter=100))`` over 4 C x 5 folds on the dense flagship data under
+    ``CUDABackend``: the warm C path of the f64 host engine, its gates,
+    and its fits/s and iterations warm against cold."""
+    from skdist_tpu_torch import DistGridSearchCV, LogisticRegression
+    from skdist_tpu_torch.utils.cv import check_cv
+
+    X, y = make_20news_shaped()
+    X, y = X[:HOST_ROWS], y[:HOST_ROWS]
+    say(f"phase 17: DistGridSearchCV(LogisticRegression(engine='host', "
+        f"max_iter=100), {len(HOST_CS)} C x {HOST_FOLDS} folds, accuracy) on "
+        f"the dense {X.shape}, under CUDABackend")
+    say(f"CUT: phase 17 runs the first {HOST_ROWS} of 11314 rows (all 4096 "
+        f"features, 20 classes), {HOST_FOLDS} of 5 folds and "
+        f"{len(HOST_CS)} of logspace(-2, 2, 4)'s C values: scipy's L-BFGS-B "
+        "update over 4097 x 20 weights sets the host fits' time")
+    gs, wall = timed_call(torch, lambda: DistGridSearchCV(
+        LogisticRegression(engine="host", max_iter=100), {"C": HOST_CS},
+        cv=HOST_FOLDS, scoring="accuracy", backend=backend).fit(X, y))
+    st = gs.round_stats_[0]
+    fits = st["tasks"] + st["cold_refits"] + 1
+    seeded = np.asarray(st["lane_seeded"], bool)
+    its = np.asarray(st["lane_n_iter"])
+    say(f"  wall {wall:.2f}s for {fits} host fits ({st['tasks']} tasks, "
+        f"{st['cold_refits']} capped warm fits refit cold, the refit): "
+        f"{fits / wall:.3f} fits/s; the search alone {st['wall_s']:.2f}s in "
+        f"{st['chains']} chains; mode {st['mode']}, host fits "
+        f"{st['host_fits']} of {st['tasks']}, warm-seeded {st['warm_seeded']}")
+    say(f"  iterations a fit: warm-seeded mean {its[seeded].mean():.1f} "
+        f"(min {its[seeded].min()}, max {its[seeded].max()}), cold (each "
+        f"chain's first) mean {its[~seeded].mean():.1f}; best_params_ "
+        f"{gs.best_params_}, best accuracy {gs.best_score_:.6f}")
+    if st["mode"] != "host_warm" or st["host_fits"] != st["tasks"] or \
+            not hasattr(gs.best_estimator_, "_w_opt64"):
+        raise AssertionError("phase 17: a fit did not run the host engine")
+    if st["warm_seeded"] < 1:
+        raise AssertionError("phase 17: no fit was warm-seeded")
+    # fold 0's warm-seeded fits again, each cold and alone (the chain's
+    # first fit is cold already)
+    train, test = next(iter(check_cv(HOST_FOLDS, y, classifier=True).split(
+        X, y)))
+    warm_scores = gs.cv_results_["split0_test_score"]
+    cold_its, gaps = [], []
+    t0 = time.perf_counter()
+    for i, C in enumerate(HOST_CS):
+        if not seeded[i * HOST_FOLDS]:
+            continue
+        cold = LogisticRegression(engine="host", max_iter=100, C=C).fit(
+            X[train], y[train])
+        cold_its.append(int(cold.n_iter_))
+        score = float(np.mean(cold.predict(X[test]) == y[test]))
+        converged = cold._w_opt64 is not None
+        gaps.append((C, converged, abs(score - float(warm_scores[i]))))
+    t_cold = time.perf_counter() - t0
+    say(f"  fold 0's seeded fits cold, alone: {t_cold:.2f}s for "
+        f"{len(cold_its)} fits ({len(cold_its) / t_cold:.3f} fits/s), "
+        f"iterations {cold_its} against the chain's "
+        f"{list(its[0::HOST_FOLDS])}; |score gap| by C (converged?): "
+        + ", ".join(f"{c:.3g} ({conv}) {g:.1e}" for c, conv, g in gaps))
+    bad = [(c, g) for c, conv, g in gaps if conv and g > 1e-5]
+    if bad:
+        raise AssertionError(f"phase 17: tol-converged fits score apart from "
+                             f"the warm chain's: {bad}")
+    if not any(conv for _c, conv, _g in gaps):
+        raise AssertionError("phase 17: no seeded fold-0 fit converged, so "
+                             "the warm/cold comparison held nothing")
+    loaded = pickle.loads(pickle.dumps(gs))
+    keys = [k for k in gs.cv_results_ if k.startswith(("split", "mean_test",
+                                                        "rank_test"))]
+    if not (all(np.array_equal(loaded.cv_results_[k], gs.cv_results_[k])
+                for k in keys)
+            and np.array_equal(loaded.predict(X), gs.predict(X))
+            and not hasattr(loaded.best_estimator_, "_w_opt64")):
+        raise AssertionError("phase 17: the pickled search differs")
+    say("  converged fits score as the warm chain's within 1e-5; the "
+        "pickled search equals the live one")
+    return {"wall": wall, "fits": fits}
+
+
+MM_N = 4
+
+
+def multimodel_models():
+    """Phase 18's three families (the main path's estimator, config 3's
+    and config 2's), 8 values each."""
+    from skdist_tpu_torch import LinearSVC, LogisticRegression, SGDClassifier
+
+    return [
+        ("lr", LogisticRegression(max_iter=100),
+         {"C": list(np.logspace(-2, 2, 8))}),
+        ("svc", LinearSVC(max_iter=100), {"C": list(np.logspace(-3, 1, 8))}),
+        ("sgd", SGDClassifier(max_iter=20, random_state=0),
+         {"alpha": list(np.logspace(-6, -2, 8))}),
+    ]
+
+
+def phase_multimodel(torch, X, y, backend):
+    """Phase 18: ``DistMultiModelSearch`` over LogisticRegression,
+    LinearSVC and SGDClassifier on the main path's hashed text (packed):
+    K1, K2 and both row forms on one search. Returns ``(search,
+    launches)``."""
+    from skdist_tpu_torch import DistMultiModelSearch
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    names = ("packed_matvec", "packed_rmatvec", "packed_row_matvec",
+             "packed_row_rmatvec")
+    say(f"phase 18: DistMultiModelSearch(lr, svc, sgd; n={MM_N}, cv=5, "
+        f"accuracy) on the packed {X.shape}")
+    for name in names:
+        getattr(ps, name).launches = 0
+    mm, wall = timed_call(torch, lambda: DistMultiModelSearch(
+        multimodel_models(), n=MM_N, cv=5, scoring="accuracy",
+        random_state=0, backend=backend).fit(X, y))
+    launches = {name: getattr(ps, name).launches for name in names}
+    res = mm.cv_results_
+    scores = np.asarray(res["mean_test_score"])
+    fams = np.asarray(res["model_name"])
+    n_batches = -(-X.shape[0] // 64)
+    epochs = launches["packed_row_rmatvec"] // n_batches
+    say(f"  wall {wall:.2f}s for {len(scores) * 5 + 1} fits; "
+        + "; ".join(
+            f"{s['model_name']}: {s['round_stats'][0]['mode']}, "
+            f"{s['round_stats'][0].get('rounds', '-')} rounds, best "
+            f"{np.nanmax(scores[fams == s['model_name']]):.6f}"
+            for s in mm.round_stats_)
+        + f"; winner {mm.best_model_name_} {mm.best_params_} "
+        f"{mm.best_score_:.6f}, worst {mm.worst_score_:.6f}")
+    say(f"  launches {launches}; the SGD round's row launches: "
+        f"{epochs} epochs x {n_batches} batches")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 18: a kernel never launched: {launches}")
+    if (launches["packed_row_matvec"] != 2 * launches["packed_row_rmatvec"]
+            or launches["packed_row_rmatvec"] % n_batches):
+        raise AssertionError(
+            f"phase 18: the row kernels' launches {launches} are not two row "
+            f"matvecs and one row rmatvec a step of whole {n_batches}-step "
+            "epochs")
+    split_keys = [k for k in res if k.startswith("split")]
+    for fam in ("lr", "svc", "sgd"):
+        seg = fams == fam
+        if seg.sum() != MM_N or not all(
+                np.all(np.isfinite(np.asarray(res[k])[seg]))
+                for k in split_keys + ["mean_test_score"]):
+            raise AssertionError(f"phase 18: segment {fam} is not {MM_N} "
+                                 "finite candidates")
+    if mm.best_index_ != int(np.nanargmax(scores)):
+        raise AssertionError("phase 18: best_index_ is not the nan-argmax")
+    live = mm.predict(X)
+    if not np.array_equal(live, mm.best_estimator_.predict(X)):
+        raise AssertionError("phase 18: predict differs from the refit's")
+    loaded = pickle.loads(pickle.dumps(mm))
+    if not (np.array_equal(loaded.predict(X), live)
+            and np.array_equal(np.asarray(loaded.cv_results_[
+                "mean_test_score"]), scores)):
+        raise AssertionError("phase 18: the pickled search differs")
+    say(f"  every segment finite; best_index_ {mm.best_index_} is the "
+        f"nan-argmax; predict = best_estimator_.predict (accuracy "
+        f"{np.mean(live == y):.4f}); the pickled search equals the live one")
+    return mm, launches
+
+
+#: phase 19(a)'s ladder of tolerances for a cold fit that converges
+WARM_TOLS = (1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0, 100.0)
+
+
+def phase_warm_refit(torch, X, y, mm):
+    """Phase 19(a): the phase-18 winner's family refit on the packed X
+    from its own fitted coefficients: a cold fit at the winner's params,
+    its ``tol`` raised along :data:`WARM_TOLS` until it converges before
+    ``max_iter`` (at tighter ones float32 L-BFGS stalls on this data:
+    its Armijo steps fall below an ulp of the loss and it runs on to
+    ``max_iter``); the seeded refit must then stop at once (its start
+    meets ``tol``) with ``coef_`` within solver tolerance. A seeded SGD
+    fit restarts its step-size schedule, so its own endpoint does not
+    stop it early (in the JAX package too): when SGD wins, the best
+    L-BFGS family of the search is refit instead, and SGD's seeded
+    refit is only printed. Returns the refit's K1/K2 launches."""
+    from skdist_tpu_torch.base import clone
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    res = mm.cv_results_
+    est = clone(mm.best_estimator_)
+    if type(est).__name__ == "SGDClassifier":
+        cold = mm.best_estimator_
+        warm = clone(est).fit(X, y, coef_init=cold.coef_,
+                              intercept_init=cold.intercept_)
+        say(f"phase 19a: the winner is SGD ({mm.best_params_}): seeded with "
+            f"its own coef_ it ran {int(warm.n_iter_)} epochs (cold "
+            f"{int(cold.n_iter_)}); refitting the best L-BFGS family instead")
+        names = np.asarray(res["model_name"])
+        scores = np.asarray(res["mean_test_score"])
+        lbfgs = np.flatnonzero(names != "sgd")
+        i = int(lbfgs[np.nanargmax(scores[lbfgs])])
+        base = dict((n, e) for n, e, _d in mm.models)[names[i]]
+        est = clone(base).set_params(**res["params"][i])
+    max_iter = est.max_iter
+    for tol in WARM_TOLS:
+        est.set_params(tol=tol)
+        cold, t_cold = timed_call(torch, lambda: clone(est).fit(X, y))
+        if int(np.max(cold.n_iter_)) < max_iter:
+            break
+    ps.packed_matvec.launches = ps.packed_rmatvec.launches = 0
+    warm, t_warm = timed_call(torch, lambda: clone(est).fit(
+        X, y, coef_init=cold.coef_, intercept_init=cold.intercept_))
+    launches = {"packed_matvec": ps.packed_matvec.launches,
+                "packed_rmatvec": ps.packed_rmatvec.launches}
+    dcoef = float(np.abs(warm.coef_ - cold.coef_).max())
+    scale = float(np.abs(cold.coef_).max())
+    n_cold, n_warm = int(np.max(cold.n_iter_)), int(np.max(warm.n_iter_))
+    say(f"phase 19a: warm refit of {type(est).__name__}(C={est.C:.4g}, "
+        f"tol={est.tol:g}) on the packed X: cold {t_cold:.2f}s {n_cold} it, "
+        f"seeded with its own coef_/intercept_ {t_warm:.2f}s {n_warm} it; "
+        f"max|dcoef| {dcoef:.3e} of max|coef| {scale:.3e}; launches "
+        f"{launches}")
+    if n_cold >= max_iter:
+        raise AssertionError("phase 19a: no cold fit converged")
+    if not n_warm <= max(1, n_cold // 4):
+        raise AssertionError("phase 19a: the seeded refit did not stop well "
+                             "before the cold fit's iterations")
+    if not dcoef <= 1e-6 * max(1.0, scale):
+        raise AssertionError("phase 19a: the seeded refit moved coef_ beyond "
+                             "solver tolerance")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 19a: a kernel never launched: {launches}")
+    return launches
+
+
+def clf_data():
+    """The JAX package's ``clf_data`` test problem (``tests/conftest.py``):
+    180 x 8 rows from three well separated gaussians, 3 classes."""
+    rng = np.random.RandomState(0)
+    X = np.vstack([rng.normal(loc=c, scale=0.5, size=(60, 8))
+                   for c in (-2.0, 0.0, 2.0)]).astype(np.float32)
+    y = np.repeat([0, 1, 2], 60)
+    perm = rng.permutation(len(y))
+    return X[perm], y[perm]
+
+
+def phase_bf16(torch, X, y):
+    """Phase 19(b)-(c): ``matmul_dtype='bfloat16'``. (b) The flagship's
+    dense ``LogisticRegression(max_iter=100)`` in bf16 against float32:
+    the score within 1e-3; its probabilities' largest gap is printed.
+    The 0.05 probability contract is the JAX package's contract test's
+    (``tests/test_models_linear.py``), on its own problem, where it is
+    defined: both gates on ``clf_data`` on the card. (c) The main path's
+    packed operator under bf16: bitwise its gather-contract expression,
+    within 0.02 relative of K1's float32 matvec, both timed."""
+    from skdist_tpu_torch import LogisticRegression
+    from skdist_tpu_torch.sparse import LinearOperator, PackedX, pack_csr_rows
+    from skdist_tpu_torch.utils.device import exact_matmuls
+
+    Xd, yd = make_20news_shaped()
+    Xc, yc = clf_data()
+    for label, Xi, yi in (("the flagship's", Xd, yd), ("clf_data's", Xc, yc)):
+        f32, t32 = timed_call(torch, lambda: LogisticRegression(
+            max_iter=100).fit(Xi, yi))
+        bf, tbf = timed_call(torch, lambda: LogisticRegression(
+            max_iter=100, matmul_dtype="bfloat16").fit(Xi, yi))
+        ds = abs(f32.score(Xi, yi) - bf.score(Xi, yi))
+        dp = float(np.abs(f32.predict_proba(Xi)
+                          - bf.predict_proba(Xi)).max())
+        say(f"phase 19b: LogisticRegression(max_iter=100) on {label} "
+            f"{Xi.shape}: float32 {t32:.2f}s ({int(f32.n_iter_)} it, "
+            f"accuracy {f32.score(Xi, yi):.6f}), bf16 {tbf:.2f}s "
+            f"({int(bf.n_iter_)} it, accuracy {bf.score(Xi, yi):.6f}); "
+            f"|score gap| {ds:.2e}, max|proba gap| {dp:.3e}")
+        if hasattr(bf, "_w_opt64") or hasattr(f32, "_w_opt64"):
+            raise AssertionError("phase 19b: 'auto' picked the host engine "
+                                 "on the card")
+        if not ds <= 1e-3:
+            raise AssertionError(f"phase 19b: bf16's score on {label} data "
+                                 "is outside 1e-3 of float32's")
+    if not dp <= 0.05:
+        raise AssertionError("phase 19b: bf16's probabilities on clf_data "
+                             "are outside 0.05 of float32's")
+    del Xd
+    idx, val = pack_csr_rows(X)
+    packed = PackedX(idx, val, X.shape[1]).to("cuda")
+    op16 = LinearOperator(packed, True, matmul_dtype="bfloat16")
+    op32 = LinearOperator(packed, True)
+    W = torch.as_tensor(0.1 * np.random.RandomState(19).randn(
+        op32.p, 20).astype(np.float32), device="cuda")
+    with exact_matmuls(), torch.no_grad():
+        out = op16.matvec(W)
+        expr = (op16.pval.to(torch.bfloat16)[:, :, None]
+                * W.to(torch.bfloat16)[op16.pidx.long()]).float().sum(1)
+        ref = op32.matvec(W)
+        ms16 = cuda_ms(torch, lambda: op16.matvec(W), 20)
+        ms32 = cuda_ms(torch, lambda: op32.matvec(W), 20)
+    same = torch.equal(out, expr)
+    rel = float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    say(f"phase 19c: packed bf16 matvec at the main path's shape (n="
+        f"{X.shape[0]}, m={idx.shape[1] + 1}, p={op32.p}, k=20): "
+        + ("bitwise" if same else "NOT bitwise")
+        + f" its gather expression; max relative gap to K1's float32 "
+        f"{rel:.2e}; bf16 gather {ms16:.3f} ms, K1 {ms32:.3f} ms a call")
+    if not same or not rel < 0.02:
+        raise AssertionError("phase 19c: the packed bf16 matvec breaks its "
+                             "contract")
+
+
+def phase_log_proba(torch, backend):
+    """Phase 19(d): the repaired ``batch_predict(..., 'predict_log_proba')``
+    on config 5's model equals ``model.predict_log_proba`` on a 300000-row
+    cut within 1e-6."""
+    from skdist_tpu_torch import batch_predict
+
+    _X, _y, model, Xs = config5_recipe()
+    cut = Xs[:300_000]
+    out, wall = timed_call(torch, lambda: batch_predict(
+        model, cut, method="predict_log_proba", backend=backend))
+    own = model.predict_log_proba(cut)
+    err = float(np.abs(out - own).max())
+    say(f"phase 19d: batch_predict(config 5's model, {cut.shape}, "
+        f"'predict_log_proba') {wall:.3f}s, shape {out.shape}; against "
+        f"model.predict_log_proba max|d| {err:.2e}")
+    if out.shape != (300_000, 10) or not err <= 1e-6:
+        raise AssertionError("phase 19d: batch_predict's predict_log_proba "
+                             "is not the model's")
+
+
+def new_phases(torch, X, y, backend):
+    """Phases 17-19 (``--phases-17-19`` runs only these): their walls and
+    the launches they read."""
+    t0 = time.perf_counter()
+    phase_host_engine(torch, backend)
+    t17 = time.perf_counter()
+    mm, mm_launches = phase_multimodel(torch, X, y, backend)
+    t18 = time.perf_counter()
+    warm_launches = phase_warm_refit(torch, X, y, mm)
+    phase_bf16(torch, X, y)
+    phase_log_proba(torch, backend)
+    t19 = time.perf_counter()
+    say(f"phases 17-19 seconds: {t17 - t0:.1f}, {t18 - t17:.1f}, "
+        f"{t19 - t18:.1f}")
+    return mm_launches, warm_launches
 
 
 def main():
@@ -3177,6 +3590,9 @@ def main():
     ap.add_argument("--profile-config5", action="store_true",
                     help="run only phase 15's profiler split of one warm "
                     "call (phase 15 runs it in a process of its own)")
+    ap.add_argument("--phases-17-19", action="store_true",
+                    help="build the kernels and run only phases 17-19 (no "
+                    "result line): a short check of the newest phases")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -3228,6 +3644,10 @@ def main():
     X, y = make_20news_sparse(seed=0, n=n, d=d, nnz_row=40, k=k)
     say(f"data: 20news-shaped CSR {X.shape}, nnz {X.nnz}, "
         f"{time.perf_counter() - t0:.1f}s")
+    if args.phases_17_19:
+        new_phases(torch, X, y, CUDABackend())
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
     Cs = np.logspace(-3, 2, 96)
     if args.candidates < len(Cs):
         say(f"CUT: C grid cut to its first {args.candidates} of 96 points")
@@ -3339,7 +3759,8 @@ def main():
     on_card = LogisticRegression(C=best_C, max_iter=100).fit(X, y)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    on_cpu = LogisticRegression(C=best_C, max_iter=100, device="cpu").fit(X, y)
+    on_cpu = LogisticRegression(C=best_C, max_iter=100, device="cpu",
+                                engine="xla").fit(X, y)
     t_cpu = time.perf_counter() - t0
     X_ulp = X.copy()
     X_ulp.data *= np.float32(1 + 2.0 ** -23)
@@ -3360,18 +3781,24 @@ def main():
 
     # ---- phase 4: the dense headline -----------------------------------
     Xd, yd = make_20news_shaped()
-    say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {n_fits} fits")
-    gd, wall_d = fit_grid(torch, Xd, yd, Cs, backend)
+    # every other C (48 of 96, the span kept), so that the whole run
+    # stays inside its time limit
+    Cs_d = Cs[::2]
+    nd_fits = 5 * len(Cs_d)
+    say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {nd_fits} fits")
+    say(f"CUT: phases 4 and 4b run every other C of the grid "
+        f"({len(Cs_d)} of {len(Cs)}, the span kept)")
+    gd, wall_d = fit_grid(torch, Xd, yd, Cs_d, backend)
     sd = gd.round_stats_[0]
     if not np.all(np.isfinite(gd.cv_results_["mean_test_score"])):
         raise AssertionError("non-finite dense mean_test_score")
-    say(f"  wall {wall_d:.1f}s, {n_fits / wall_d:.2f} fits/s, best_params_ "
+    say(f"  wall {wall_d:.1f}s, {nd_fits / wall_d:.2f} fits/s, best_params_ "
         f"{gd.best_params_}, best_score_ {gd.best_score_:.6f}")
     say("  " + lane_readout(sd))
     # the classic path at the compacted run's chunk (by default it would
     # run all 480 lanes as one round, another shape)
-    parts = -(-n_fits // sd["chunk"])
-    gk, wall_k = fit_grid(torch, Xd, yd, Cs, backend, compaction=False,
+    parts = -(-nd_fits // sd["chunk"])
+    gk, wall_k = fit_grid(torch, Xd, yd, Cs_d, backend, compaction=False,
                           partitions=parts)
     sk = gk.round_stats_[0]
     diff = differing_columns(gd, gk)
@@ -3382,7 +3809,7 @@ def main():
     if diff or sk["tasks_per_round"] != sd["chunk"]:
         raise AssertionError("dense compacted and classic differ")
     del gk
-    phase_asha(torch, Xd, yd, Cs, backend, gd)
+    phase_asha(torch, Xd, yd, Cs_d, backend, gd)
 
     # ---- phases 5-8: K4 and the forest path ----------------------------
     del gs, gd
@@ -3449,6 +3876,10 @@ def main():
     phase_host_predict(torch)
     generic_launches = phase_generic_search(torch)
 
+    # ---- phases 17-19: the host engine, DistMultiModelSearch, options --
+    torch.cuda.empty_cache()
+    mm_launches, warm_launches = new_phases(torch, X, y, backend)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -3460,14 +3891,19 @@ def main():
          "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": times["K1_library"],
          "paths": {"logreg_grid": launches["packed_matvec"],
-                   "sparse_predict": predict_launches}},
+                   "sparse_predict": predict_launches,
+                   "multimodel": mm_launches["packed_matvec"],
+                   "warm_refit": warm_launches["packed_matvec"]}},
         {"name": "packed_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": launches["packed_rmatvec"],
          "max_abs_err": max(e[1] for e in errs),
          "ms": times["K2"], "plain_ms": times["K2_plain"],
          "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": times["K2_library"]},
+         "library_ms": times["K2_library"],
+         "paths": {"logreg_grid": launches["packed_rmatvec"],
+                   "multimodel": mm_launches["packed_rmatvec"],
+                   "warm_refit": warm_launches["packed_rmatvec"]}},
         {"name": "packed_weighted_gram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/packed_gram.cu",
          "replaces": "skdist_tpu/ops/pallas_sparse.py:263",
@@ -3492,7 +3928,9 @@ def main():
          "plain_ms": row_times["row_matvec_plain"],
          "bound_ms": row_mv_bound[0], "bound_by": row_mv_bound[1],
          "library_ms": row_times["row_matvec_library"],
-         **row_clocks(row_times, "row_matvec")},
+         **row_clocks(row_times, "row_matvec"),
+         "paths": {"ovr_sgd": row_launches["packed_row_matvec"],
+                   "multimodel": mm_launches["packed_row_matvec"]}},
         {"name": "packed_row_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": row_launches["packed_row_rmatvec"],
@@ -3502,6 +3940,8 @@ def main():
          "bound_ms": row_rmv_bound[0], "bound_by": row_rmv_bound[1],
          "library_ms": row_times["row_rmatvec_library"],
          **row_clocks(row_times, "row_rmatvec"),
+         "paths": {"ovr_sgd": row_launches["packed_row_rmatvec"],
+                   "multimodel": mm_launches["packed_row_rmatvec"]},
          "library_zeroed_ms": row_times["row_rmatvec_library_zeroed"],
          "library_zeroed_device_ms":
              row_times["row_rmatvec_library_zeroed_device"],

@@ -26,7 +26,11 @@ fit); batch prediction (``batch_predict``, ``get_prediction_udf``: dense
 blocks, packed sparse blocks through the packed matvec kernel, host
 chunks for models without a plan); the searches' generic per-task path
 over ``LocalBackend``/``CUDABackend`` host threads (any estimator, host
-scorers, any fit params, ``preds``). The searches' convergence-compacted path
+scorers, any fit params, ``preds``); the f64 host engine of
+``LogisticRegression``/``LinearSVC`` (``engine='host'``, and ``'auto'``
+where ``device="cpu"``) with the searches' warm C path;
+``DistMultiModelSearch``; warm start (``coef_init``/``intercept_init``)
+and ``matmul_dtype='bfloat16'``. The searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
 halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
@@ -37,7 +41,8 @@ __version__ = "0.1.0"
 
 _EXPORTS = {
     **{name: "skdist_tpu_torch.distribute.search" for name in (
-        "DistGridSearchCV", "DistRandomizedSearchCV")},
+        "DistGridSearchCV", "DistRandomizedSearchCV",
+        "DistMultiModelSearch")},
     **{name: "skdist_tpu_torch.models.linear" for name in (
         "LogisticRegression", "LinearSVC", "SGDClassifier", "Ridge",
         "LinearRegression", "RidgeClassifier")},

@@ -12,12 +12,17 @@ from .ensemble import (
 from .adaptive import HalvingSpec, RungKilledWarning
 from .multiclass import DistOneVsOneClassifier, DistOneVsRestClassifier
 from .predict import batch_predict, device_predict_plan, get_prediction_udf
-from .search import DistGridSearchCV, DistRandomizedSearchCV
+from .search import (
+    DistGridSearchCV,
+    DistMultiModelSearch,
+    DistRandomizedSearchCV,
+)
 
 __all__ = [
     "DistExtraTreesClassifier",
     "DistExtraTreesRegressor",
     "DistGridSearchCV",
+    "DistMultiModelSearch",
     "DistOneVsOneClassifier",
     "DistOneVsRestClassifier",
     "DistRandomForestClassifier",

@@ -16,8 +16,12 @@ convergence-compacted path (the CV search uses it too). Counterpart of
   task axis. A task set of at least ``MIN_ITER_TASKS`` takes the
   convergence-compacted path (``SKDIST_COMPACTION=0`` switches it off),
   a smaller one the classic ``batched_map``.
-- **Generic path** (any other estimator with ``fit``, and a dict
-  ``class_weight``): one binary fit a class or pair, one after another
+- **Generic path** (any other estimator with ``fit``, a dict
+  ``class_weight``, and an estimator that runs its f64 host engine on
+  this backend: ``engine='host'``, or ``'auto'`` off a device backend
+  where its device is the CPU, as the searches route it, so one
+  estimator never runs two engines depending on its wrapper): one
+  binary fit a class or pair, one after another
   in the caller's process, with the reference's ``_fit_binary``
   semantics (exact down-sampling, the constant-column fallback, nested
   search unwrapping).
@@ -45,6 +49,7 @@ from ..parallel import (
     iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
+    prefers_host_engine,
 )
 from ..utils.meminfo import densify_budget_bytes
 from ..utils.validation import (
@@ -515,6 +520,8 @@ class DistOneVsRestClassifier(BaseEstimator, ClassifierMixin):
         if not _batched_family(est) or isinstance(
                 getattr(est, "class_weight", None), dict):
             return None
+        if prefers_host_engine(_resolve_backend(self.backend, est), est, X):
+            return None
         col_sums = Y.sum(axis=0)
         n = Y.shape[0]
         degenerate = (col_sums == 0) | (col_sums == n)
@@ -722,6 +729,8 @@ class DistOneVsOneClassifier(BaseEstimator, ClassifierMixin):
         est = self.estimator
         if not _batched_family(est) or isinstance(
                 getattr(est, "class_weight", None), dict):
+            return None
+        if prefers_host_engine(_resolve_backend(self.backend, est), est, X):
             return None
         y_idx = np.searchsorted(self.classes_, y).astype(np.int32)
         fits = _BatchedBinaryFits(

@@ -72,12 +72,18 @@ class DevicePredictPlan:
         return _postprocess_predict(self.model, out, self.method)
 
 
+#: the methods a device plan serves, and the kernel each runs
+_PLAN_KERNELS = {"predict": "decision", "decision_function": "decision",
+                 "predict_proba": "proba", "predict_log_proba": "proba"}
+
+
 def device_predict_plan(model, method="predict", serve_dtype="float32"):
     """The :class:`DevicePredictPlan` of a fitted port estimator for
-    ``method``, or None for a model without the kernels: it reads the
-    model's ``_static_config``, its ``_build_decision_kernel`` (or
-    ``_build_proba_kernel`` for ``predict_proba``) and the fitted arrays
-    of ``_kernel_params``."""
+    ``method``, or None for a model without the kernels and for a method
+    no kernel serves: it reads the model's ``_static_config``, its
+    ``_build_decision_kernel`` (``predict``, ``decision_function``) or
+    ``_build_proba_kernel`` (``predict_proba``, ``predict_log_proba``)
+    and the fitted arrays of ``_kernel_params``."""
     if serve_dtype != "float32":
         if serve_dtype in ("bfloat16", "int8"):
             raise NotImplementedError(
@@ -85,7 +91,12 @@ def device_predict_plan(model, method="predict", serve_dtype="float32"):
                 "is not ported to skdist_tpu_torch yet (see ROADMAP.md, "
                 "queue 1 item 12)")
         raise ValueError(f"unknown serve_dtype {serve_dtype!r}")
-    which = "proba" if method == "predict_proba" else "decision"
+    which = _PLAN_KERNELS.get(method)
+    if which is None or (which == "proba"
+                         and not hasattr(model, "predict_proba")):
+        # another method, or probabilities the model does not give (an
+        # SGD classifier's hinge loss): host chunks of the method itself
+        return None
     build_kernel = getattr(type(model), f"_build_{which}_kernel", None)
     if build_kernel is None or not all(
             hasattr(model, a) for a in ("_params", "_meta", "_static_config",
@@ -244,6 +255,9 @@ def _predict_sparse(X, backend, batch_size, plan):
 
 
 def _postprocess_predict(model, out, method):
+    if method == "predict_log_proba":
+        # the model's own log (models/linear.py _ProbaMixin)
+        return np.log(np.clip(out, 1e-15, None))
     if method == "predict" and getattr(model, "_estimator_type",
                                        None) == "classifier":
         idx = (out > 0).astype(np.int64) if out.ndim == 1 else \

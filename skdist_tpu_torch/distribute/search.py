@@ -42,9 +42,17 @@ that raises scores ``error_score`` with a :class:`FitFailedWarning`
 (``error_score="raise"`` re-raises). ``preds=True`` adds the out-of-fold
 probabilities (or predictions) at the best params, ``preds_``.
 
-Not ported yet (ROADMAP): ``DistMultiModelSearch``, checkpointing (and
-so the journaling of rung kills), the f64 host engine's warm C path,
-streamed input and its streamed rungs, and fault retries of the
+An estimator that runs its f64 host engine on the backend (an explicit
+``engine='host'``; ``engine='auto'`` with ``device="cpu"`` off a device
+backend) leaves the batched path for the warm C path
+(``_run_host_warm``): within each fold its fits run in ascending ``C``,
+each started from the previous optimum.
+
+:class:`DistMultiModelSearch` runs a randomized search over several
+model families through the same scheduler, family by family.
+
+Not ported yet (ROADMAP): checkpointing (and so the journaling of rung
+kills), streamed input and its streamed rungs, and fault retries of the
 compacted path.
 """
 
@@ -72,6 +80,7 @@ from ..parallel import (
     iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
+    prefers_host_engine,
     resolve_backend,
 )
 from ..utils.cv import ParameterGrid, ParameterSampler, check_cv
@@ -92,7 +101,7 @@ from .adaptive import (
 )
 
 __all__ = ["DistBaseSearchCV", "DistGridSearchCV", "DistRandomizedSearchCV",
-           "FitFailedWarning", "RungKilledWarning"]
+           "DistMultiModelSearch", "FitFailedWarning", "RungKilledWarning"]
 
 _ROADMAP = "see ROADMAP.md, queue 1"
 
@@ -109,15 +118,22 @@ def _not_ported(what, where=_ROADMAP):
 
 def _fit_and_score(estimator, X, y, scorers, train, test, parameters,
                    fit_params=None, error_score=np.nan,
-                   return_train_score=False):
+                   return_train_score=False, est_instance=None,
+                   return_estimator=False):
     """One task of the generic path: a clone of ``estimator`` with
     ``parameters``, fitted on the ``train`` rows (array-valued fit
     params cut to them) and scored on the ``test`` rows by every scorer.
     A fit or a score that raises records ``error_score`` with a
-    :class:`FitFailedWarning`, or re-raises under ``'raise'``."""
-    est = clone(estimator)
-    if parameters:
-        est.set_params(**parameters)
+    :class:`FitFailedWarning`, or re-raises under ``'raise'``.
+    ``est_instance`` is an instance to fit instead of the clone (already
+    given its params; the warm C path's carries its seed), and
+    ``return_estimator`` adds the fitted instance as ``"estimator"``."""
+    if est_instance is not None:
+        est = est_instance
+    else:
+        est = clone(estimator)
+        if parameters:
+            est.set_params(**parameters)
     X_train, y_train = safe_split(est, X, y, train)
     X_test, y_test = safe_split(est, X, y, test, train)
     fit_params = index_fit_params(X, fit_params or {}, train)
@@ -153,6 +169,8 @@ def _fit_and_score(estimator, X, y, scorers, train, test, parameters,
                 result[f"train_{name}"] = float(error_score)
     result["fit_time"] = fit_time
     result["score_time"] = score_time
+    if return_estimator:
+        result["estimator"] = est
     return result
 
 
@@ -485,9 +503,21 @@ class DistBaseSearchCV(BaseEstimator):
         """The per-task score dicts in task order (candidate-major, split
         fastest), the rung kills ``{task id: rung}`` and whether an
         adaptive search ran its rungs: from the batched path when it can
-        take the search, else from the generic path."""
+        take the search, else from the warm C path of the f64 host
+        engine when the estimator runs that engine here, else from the
+        generic path.
+
+        An estimator that runs its host engine on this backend
+        (:func:`~skdist_tpu_torch.parallel.prefers_host_engine`) leaves
+        the batched path: under ``engine='auto'`` only when X would not
+        pack (packed X has no host form and stays batched), under an
+        explicit ``engine='host'`` always. So does a search over
+        ``engine`` itself, whose candidates must each run their own."""
         sw, sw_ok = full_length_sample_weight(fit_params, num_samples(X))
-        if sw_ok and hasattr(type(estimator), "_build_fit_kernel"):
+        host = prefers_host_engine(backend, estimator, X)
+        if (sw_ok and hasattr(type(estimator), "_build_fit_kernel")
+                and not host
+                and not any("engine" in cand for cand in candidate_params)):
             specs = _resolve_device_scoring(estimator, self.scoring,
                                             np.unique(y))
             buckets = _candidate_buckets(estimator, candidate_params)
@@ -499,8 +529,100 @@ class DistBaseSearchCV(BaseEstimator):
                 return self._run_batched(
                     backend, estimator, X, y, candidate_params, splits,
                     specs, sw, buckets)
+        if host and getattr(estimator, "_host_warm_startable", False):
+            return self._run_host_warm(
+                backend, estimator, X, y, candidate_params, splits, scorers,
+                fit_params), {}, False
         return self._run_generic(backend, estimator, X, y, candidate_params,
                                  splits, scorers, fit_params), {}, False
+
+    def _run_host_warm(self, backend, estimator, X, y, candidate_params,
+                       splits, scorers, fit_params):
+        """The warm C path of the f64 host engine: candidates that differ
+        only in ``C`` form a regularisation path, and within one fold
+        its fits run in ascending ``C``, each started from the previous
+        optimum (``_warm_w0`` from the last fit's ``_w_opt64``). The
+        (path, fold) chains are independent tasks of ``backend.run_tasks``.
+
+        A tol-converged optimum of a convex objective does not depend on
+        its start, so the scores are the cold fits' to solver tolerance.
+        A capped fit's does: the engine returns no optimum for a fit
+        stopped on ``max_iter``, so the chain restarts cold after it,
+        and a warm-seeded fit that stops on the cap is refit cold before
+        its score is recorded, so no score depends on which other C
+        values share the grid. Each task is :func:`_fit_and_score`.
+        ``round_stats_`` counts the fits, the warm-seeded ones, the cold
+        refits and the fits that ran the host engine."""
+        from ..models.linear import hyper_float
+
+        n_splits = len(splits)
+        out = [None] * (len(candidate_params) * n_splits)
+        paths = {}
+        for idx, cand in enumerate(candidate_params):
+            key = tuple(sorted((k, repr(v)) for k, v in cand.items()
+                               if k != "C"))
+            paths.setdefault(key, []).append(idx)
+        for idxs in paths.values():
+            idxs.sort(key=lambda i: float(hyper_float(
+                candidate_params[i].get("C", estimator.C))))
+        chains = [(idxs, train, test, s) for idxs in paths.values()
+                  for s, (train, test) in enumerate(splits)]
+
+        def fit_one(i, train, test, w0):
+            est = clone(estimator)
+            if candidate_params[i]:
+                est.set_params(**candidate_params[i])
+            if w0 is not None:
+                est._warm_w0 = w0
+            r = _fit_and_score(
+                estimator, X, y, scorers, train, test, None,
+                fit_params=fit_params, error_score=self.error_score,
+                return_train_score=self.return_train_score,
+                est_instance=est, return_estimator=True,
+            )
+            fitted = r.pop("estimator")
+            info = {"host": hasattr(fitted, "_w_opt64"),
+                    "seeded": w0 is not None,
+                    "n_iter": int(np.max(getattr(fitted, "n_iter_", -1)))}
+            return r, getattr(fitted, "_w_opt64", None), info
+
+        def run_chain(chain):
+            idxs, train, test, _s = chain
+            results = []
+            w_prev = None
+            for i in idxs:
+                r, w_opt, info = fit_one(i, train, test, w_prev)
+                info["cold_refit"] = w_prev is not None and w_opt is None
+                if info["cold_refit"]:
+                    # the seeded fit stopped on max_iter: refit cold
+                    r, w_opt, cold = fit_one(i, train, test, None)
+                    info.update(host=cold["host"], n_iter=cold["n_iter"])
+                w_prev = w_opt
+                results.append((i, r, info))
+            return results
+
+        t0 = time.perf_counter()
+        done = backend.run_tasks(run_chain, chains, verbose=self.verbose)
+        wall = time.perf_counter() - t0
+        infos = [None] * len(out)
+        for chain, results in zip(chains, done):
+            for i, r, info in results:
+                out[i * n_splits + chain[3]] = r
+                infos[i * n_splits + chain[3]] = info
+        # per task (candidate-major, split fastest): whether its fit was
+        # seeded (a seeded fit refit cold counts as seeded), refit cold,
+        # ran the host engine, and its iterations (the recorded fit's)
+        lane = {key: np.asarray([info[key] for info in infos])
+                for key in ("seeded", "cold_refit", "host", "n_iter")}
+        self.round_stats_ = [{
+            "mode": "host_warm", "tasks": len(out), "chains": len(chains),
+            "warm_seeded": int(lane["seeded"].sum()),
+            "cold_refits": int(lane["cold_refit"].sum()),
+            "host_fits": int(lane["host"].sum()),
+            "lane_seeded": lane["seeded"], "lane_n_iter": lane["n_iter"],
+            "wall_s": wall,
+        }]
+        return out
 
     def _run_generic(self, backend, estimator, X, y, candidate_params,
                      splits, scorers, fit_params):
@@ -803,3 +925,249 @@ class DistRandomizedSearchCV(DistBaseSearchCV):
         n_iter = check_n_iter(self.n_iter, self.param_distributions)
         return ParameterSampler(self.param_distributions, n_iter,
                                 random_state=self.random_state)
+
+
+# ---------------------------------------------------------------------------
+# DistMultiModelSearch
+# ---------------------------------------------------------------------------
+
+def _raw_sampler(models, n_params=None, n=None, random_state=None):
+    """Candidates of every model: ``[{model_index, params_index,
+    param_set}]``, ``n_params[i]`` (or ``n`` each) drawn from model
+    ``i``'s distributions by :class:`~skdist_tpu_torch.utils.cv.
+    ParameterSampler` (capped at a list-only grid's size)."""
+    if n_params is None:
+        if n is None:
+            raise ValueError("Must supply either 'n_params' or 'n'")
+        n_params = [n] * len(models)
+    param_sets = []
+    for index, model in enumerate(models):
+        dists = model[2]
+        sampler = ParameterSampler(
+            dists, check_n_iter(n_params[index], dists),
+            random_state=random_state)
+        for sample_index, sample in enumerate(sampler):
+            param_sets.append({"model_index": index,
+                               "params_index": sample_index,
+                               "param_set": sample})
+    return param_sets
+
+
+def _validate_models(models):
+    """``models`` as a list of ``(name, estimator, param_dict)`` with
+    unique string names, or a ``ValueError``."""
+    if not models:
+        raise ValueError("models must be a non-empty list of tuples")
+    names = [m[0] for m in models]
+    if len(set(names)) != len(names):
+        raise ValueError(f"Duplicate model names: {names}")
+    for m in models:
+        if len(m) != 3:
+            raise ValueError(
+                "each model must be ('name', estimator, param_dict)")
+        name, est, params = m
+        if not isinstance(name, str):
+            raise ValueError(f"model name must be str, got {name!r}")
+        if not hasattr(est, "fit"):
+            raise ValueError(f"estimator {est!r} has no fit method")
+        if not isinstance(params, dict):
+            raise ValueError(f"param set must be dict, got {params!r}")
+    return list(models)
+
+
+class DistMultiModelSearch(BaseEstimator):
+    """Randomized search across model families: ``models`` is a list of
+    ``(name, estimator, param_distributions)``; ``n`` candidates are
+    drawn for each model (the port's ``ParameterSampler``, capped at a
+    list-only grid's size), each is scored by CV, and the best (model,
+    params) is refit.
+
+    Each family runs through the grid search's own scheduler
+    (``_run_search_tasks``): a family the batched path takes runs its
+    candidates as batched fits on the backend's device, another runs the
+    warm C path or the generic per-task path. Scoring is single-metric;
+    ``adaptive`` races each family's own rungs. ``cv_results_`` stacks
+    the families' results in model order, with ``model_name`` and
+    ``model_index`` and ranks over every candidate; ``worst_score_`` is
+    the lowest mean score (the reference's copy of ``best_score_`` is
+    not kept). ``backend=None`` is a ``CUDABackend`` on the first
+    model's ``device`` with ``n_jobs`` host threads."""
+
+    def __init__(self, models, backend=None, partitions="auto", n=5, cv=5,
+                 scoring=None, random_state=None, verbose=0, refit=True,
+                 n_jobs=None, adaptive=None):
+        self.models = models
+        self.backend = backend
+        self.partitions = partitions
+        self.n = n
+        self.cv = cv
+        self.scoring = scoring
+        self.random_state = random_state
+        self.verbose = verbose
+        self.refit = refit
+        self.n_jobs = n_jobs
+        self.adaptive = adaptive
+
+    def fit(self, X, y=None, groups=None, **fit_params):
+        check_adaptive(self.adaptive)
+        models = _validate_models(self.models)
+        if self.backend is None:
+            backend = CUDABackend(device=getattr(models[0][1], "device", None),
+                                  n_jobs=self.n_jobs)
+        else:
+            backend = resolve_backend(self.backend, n_jobs=self.n_jobs)
+        is_classifier = (
+            getattr(models[0][1], "_estimator_type", None) == "classifier")
+        cv = check_cv(self.cv, y, classifier=is_classifier)
+        splits = list(cv.split(X, y, groups))
+        n_splits = len(splits)
+        param_sets = _raw_sampler(models, n=self.n,
+                                  random_state=self.random_state)
+
+        per_model = []
+        engaged = False
+        stats = []
+        for index, (name, estimator, _dists) in enumerate(models):
+            cands = [p["param_set"] for p in param_sets
+                     if p["model_index"] == index]
+            if not cands:
+                continue
+            scorers, multimetric = check_multimetric_scoring(estimator,
+                                                             self.scoring)
+            if multimetric:
+                raise ValueError(
+                    "DistMultiModelSearch supports single-metric scoring")
+            shim = DistBaseSearchCV(
+                estimator, partitions=self.partitions, cv=self.cv,
+                scoring=self.scoring, error_score=np.nan,
+                n_jobs=self.n_jobs, verbose=self.verbose,
+                adaptive=self.adaptive)
+            out, killed, model_engaged = shim._run_search_tasks(
+                backend, estimator, X, y, cands, splits, scorers, fit_params)
+            full = shim._format_results(cands, list(scorers), n_splits, out)
+            if self.adaptive is not None:
+                full["rung_"] = rung_per_candidate(len(cands), n_splits,
+                                                   killed)
+                engaged = engaged or model_engaged
+            stats.append({"model_name": name,
+                          "round_stats": shim.round_stats_})
+            per_model.append((index, name, cands, full))
+
+        if self.adaptive is not None and not engaged:
+            warn_not_engaged("the multi-model search")
+        results = self._merge_model_results(per_model, n_splits)
+        scores = np.asarray(results["mean_test_score"], dtype=float)
+        if scores.size == 0 or np.all(np.isnan(scores)):
+            raise RuntimeError(
+                "All candidate fits failed (every score is NaN).")
+        if self.verbose:
+            for index, name, _cands, full in per_model:
+                seg = np.asarray(full["mean_test_score"], dtype=float)
+                best = (float(np.nanmax(seg)) if not np.all(np.isnan(seg))
+                        else float("nan"))
+                print(f"model_index={index} ({name}): best score {best:.6f}")
+        best_index = int(np.nanargmax(scores))
+        self.best_index_ = best_index
+        self.best_model_index_ = int(results["model_index"][best_index])
+        self.best_model_name_ = models[self.best_model_index_][0]
+        self.best_params_ = results["params"][best_index]
+        self.best_score_ = float(scores[best_index])
+        self.worst_score_ = float(np.nanmin(scores))
+        self.cv_results_ = results
+        self.n_splits_ = n_splits
+        self.round_stats_ = stats
+
+        if self.refit:
+            best = clone(models[self.best_model_index_][1])
+            best.set_params(**self.best_params_)
+            if y is not None:
+                best.fit(X, y, **fit_params)
+            else:
+                best.fit(X, **fit_params)
+            self.best_estimator_ = best
+        self.models = [(name, clone(est), dists)
+                       for name, est, dists in self.models]
+        strip_runtime(self)
+        return self
+
+    @staticmethod
+    def _merge_model_results(per_model, n_splits):
+        """One ``cv_results_`` from the families' ``_format_results``
+        dicts: numeric columns concatenated in model order, ``param_*``
+        masked arrays over the union of names (masked where a model lacks
+        the param), ``model_name``/``model_index``, and
+        ``rank_test_score`` over every candidate (the min method, failed
+        fits last)."""
+        n_total = sum(len(cands) for _, _, cands, _ in per_model)
+        num_keys = [
+            "mean_fit_time", "std_fit_time", "mean_score_time",
+            "std_score_time", "mean_test_score", "std_test_score",
+        ] + [f"split{i}_test_score" for i in range(n_splits)]
+        results = {
+            key: np.concatenate([np.asarray(full[key], dtype=np.float64)
+                                 for _, _, _, full in per_model])
+            if per_model else np.empty(0)
+            for key in num_keys
+        }
+        param_cols = {}
+        params_list, names, model_idx = [], [], []
+        offset = 0
+        for index, name, cands, full in per_model:
+            m = len(cands)
+            for key, arr in full.items():
+                if not key.startswith("param_"):
+                    continue
+                col = param_cols.get(key)
+                if col is None:
+                    col = param_cols[key] = MaskedArray(
+                        np.empty(n_total, dtype=object), mask=True)
+                for j in range(m):
+                    if not np.ma.getmaskarray(arr)[j]:
+                        col[offset + j] = arr[j]
+            params_list.extend(full["params"])
+            names.extend([name] * m)
+            model_idx.extend([index] * m)
+            offset += m
+        results.update(param_cols)
+        results["params"] = params_list
+        results["model_name"] = names
+        results["model_index"] = model_idx
+        if any("rung_" in full for _, _, _, full in per_model):
+            results["rung_"] = np.concatenate([
+                np.asarray(full.get("rung_", np.full(len(cands), -1)),
+                           dtype=np.int32)
+                for _, _, cands, full in per_model])
+        results["rank_test_score"] = np.asarray(
+            rankdata(-_nan_as_worst(results["mean_test_score"]),
+                     method="min"), dtype=np.int32,
+        ) if n_total else np.empty(0, dtype=np.int32)
+        return results
+
+    # -- post-fit delegation ---------------------------------------------
+    def _check_is_fitted(self):
+        if not self.refit:
+            raise AttributeError(
+                f"This {type(self).__name__} instance was initialized with "
+                "refit=False; predict-side methods need refit=True.")
+        check_is_fitted(self, "best_estimator_")
+
+    def predict(self, X):
+        self._check_is_fitted()
+        return self.best_estimator_.predict(X)
+
+    def predict_proba(self, X):
+        self._check_is_fitted()
+        return self.best_estimator_.predict_proba(X)
+
+    def predict_log_proba(self, X):
+        self._check_is_fitted()
+        return self.best_estimator_.predict_log_proba(X)
+
+    def decision_function(self, X):
+        self._check_is_fitted()
+        return self.best_estimator_.decision_function(X)
+
+    @property
+    def classes_(self):
+        self._check_is_fitted()
+        return self.best_estimator_.classes_

@@ -49,8 +49,6 @@ from .solvers import (
 __all__ = ["LogisticRegression", "LinearSVC", "SGDClassifier", "Ridge",
            "LinearRegression", "RidgeClassifier"]
 
-_ROADMAP = "see ROADMAP.md, queue 1"
-
 #: state tensors of one task's L-BFGS solve held in memory at once, in
 #: units of its flat weight vector: the 2 * history ring plus this many
 #: working vectors (w, g, direction, two-loop and line-search temps,
@@ -220,11 +218,39 @@ class _LinearModelBase(BaseEstimator):
     _static_names = ()
     _supports_packed_X = True
 
-    def fit(self, X, y, sample_weight=None):
-        """Fit on ``device`` (the card unless ``device="cpu"``)."""
-        device = resolve_device(self.device)
+    def fit(self, X, y, sample_weight=None, coef_init=None,
+            intercept_init=None):
+        """Fit on ``device`` (the card unless ``device="cpu"``), or on the
+        f64 host engine where :meth:`_resolve_host_engine` picks it.
+
+        ``coef_init``/``intercept_init`` (scikit-learn's shapes: a
+        parent fit's ``coef_``/``intercept_``) warm-start the iterative
+        families: the L-BFGS and SGD solves start from the seed instead
+        of zeros, the host engine takes it as its flat ``_warm_w0``. The
+        closed-form ridge family accepts the seeds and ignores them (a
+        direct solve has no iterate to seed), as in the JAX package.
+
+        Packed sparse X stays on the device path under ``engine='auto'``
+        (the host engine has no packed form); an explicit
+        ``engine='host'`` densifies it."""
         self._check_supported()
-        X = prepare_fit_X(X, type(self))
+        if getattr(self, "engine", None) == "host":
+            X = as_dense_f32(X)
+        else:
+            X = prepare_fit_X(X, type(self))
+        warm = coef_init is not None or intercept_init is not None
+        if not isinstance(X, PackedX) and self._resolve_host_engine():
+            if not warm:
+                return self._host_fit(X, y, sample_weight)
+            # scoped to this fit, so a later cold fit never inherits it
+            self._warm_w0 = self._warm_w0_flat(
+                X.shape[1], self._warm_n_out(y), coef_init, intercept_init,
+            ).astype(np.float64)
+            try:
+                return self._host_fit(X, y, sample_weight)
+            finally:
+                del self._warm_w0
+        device = resolve_device(self.device)
         data, meta = self._prep_fit_data(X, y, sample_weight)
         static = _freeze(self._static_config(meta))
         kernel = self._build_fit_kernel(meta, static)
@@ -232,21 +258,153 @@ class _LinearModelBase(BaseEstimator):
             k: torch.tensor([hyper_float(getattr(self, k))], device=device)
             for k in self._hyper_names
         }
+        w0 = None
+        if warm:
+            k = meta.get("n_classes", 2)
+            w0 = torch.as_tensor(self._warm_w0_flat(
+                meta["n_features"], 1 if k <= 2 else k, coef_init,
+                intercept_init))[None].to(device)
         with exact_matmuls():
             op = self._linear_op(to_device_X(data["X"], device), static)
             params = kernel(
                 op,
                 torch.as_tensor(data["y"]).to(device),
                 torch.as_tensor(data["sw"]).to(device)[None],
-                hyper,
+                hyper, w0=w0,
             )
         self._set_fitted(
             {k: v[0].detach().cpu().numpy() for k, v in params.items()}, meta
         )
         return self
 
+    def _warm_n_out(self, y):
+        """Solver output columns for shaping a warm seed before the fit's
+        meta exists: a classifier folds two classes to one column, a
+        regressor has one."""
+        if isinstance(self, ClassifierMixin):
+            k = int(np.unique(np.asarray(y)).size)
+            return 1 if k <= 2 else k
+        return 1
+
+    def _warm_w0_flat(self, d, n_out, coef_init, intercept_init):
+        """Warm-start seeds in scikit-learn's shapes as the family's flat
+        solver layout: ``W`` ``(p, n_out)``, rows ``[:d]`` the
+        coefficients and row ``d`` the intercept (when fitted), flattened
+        row-major to ``(p * n_out,)``, or ``(p,)`` for one column: the
+        layout ``unpack`` reshapes and the host engine's ``x0`` takes.
+        The JAX package's shape checks and messages."""
+        fit_intercept = self.fit_intercept
+        d, n_out = int(d), int(n_out)
+        p = d + (1 if fit_intercept else 0)
+        W = np.zeros((p, n_out), np.float32)
+        if coef_init is not None:
+            coef = np.asarray(coef_init, np.float32)
+            if n_out == 1:
+                coef = coef.reshape(-1)
+                if coef.shape[0] != d:
+                    raise ValueError(
+                        f"coef_init has {coef.shape[0]} features; the "
+                        f"fit data has {d}"
+                    )
+                W[:d, 0] = coef
+            elif coef.shape == (n_out, d):
+                W[:d] = coef.T
+            elif coef.shape == (d, n_out):
+                W[:d] = coef
+            else:
+                raise ValueError(
+                    f"coef_init shape {coef.shape} does not match "
+                    f"({n_out}, {d}) (classes x features)"
+                )
+        if intercept_init is not None:
+            b = np.asarray(intercept_init, np.float32).reshape(-1)
+            if not fit_intercept:
+                if np.any(b != 0):
+                    raise ValueError(
+                        "intercept_init is nonzero but "
+                        "fit_intercept=False — this family fits no "
+                        "intercept to seed"
+                    )
+            else:
+                if b.shape[0] == 1 and n_out > 1:
+                    b = np.repeat(b, n_out)
+                if b.shape[0] != n_out:
+                    raise ValueError(
+                        f"intercept_init has {b.shape[0]} entries; "
+                        f"expected {n_out}"
+                    )
+                W[d] = b
+        return W.reshape(-1) if n_out > 1 else W[:, 0]
+
+    #: the f64 host engine's fit, ``(X, y, sample_weight) -> self``; None
+    #: for a family without one
+    _host_fit = None
+
+    def _resolve_host_engine(self):
+        """Whether this fit runs the f64 host engine
+        (:mod:`~skdist_tpu_torch.models.host_linear`) instead of the
+        batched torch kernel. Never for a family without one. With one:
+        ``engine='xla'`` pins the torch kernel, ``'host'`` the host
+        engine, and ``'auto'`` picks the host engine exactly where the
+        estimator's device is the CPU and scipy imports (the JAX
+        package's ``jax.default_backend() == "cpu"``): on the card
+        (``device`` None or ``"cuda"``) ``'auto'`` never does.
+        ``matmul_dtype='bfloat16'`` opts out of ``'auto'``. Nothing here
+        touches the card."""
+        if self._host_fit is None:
+            return False
+        engine = getattr(self, "engine", "xla")
+        if engine not in ("auto", "host", "xla"):
+            raise ValueError(
+                f"engine must be 'auto', 'host' or 'xla'; got {engine!r}"
+            )
+        if engine != "auto":
+            return engine == "host"
+        if getattr(self, "matmul_dtype", None) == "bfloat16":
+            return False
+        from .host_linear import host_engine_available
+
+        device = torch.device("cuda" if self.device is None else self.device)
+        return device.type == "cpu" and host_engine_available()
+
+    def _run_host_engine(self, engine_fit, C, X, y, sample_weight):
+        """One fit of a classifier's host engine ``engine_fit``
+        (:mod:`~skdist_tpu_torch.models.host_linear`) at ``C``. A caller's
+        ``_warm_w0`` (the warm C path's previous optimum, or a
+        ``coef_init`` seed) starts the solve when its shape fits this
+        problem; the fitted instance keeps its own float64 optimum as
+        ``_w_opt64`` (None when the solve stopped on ``max_iter``) for
+        the next fit of a warm C path."""
+        data, meta = self._prep_fit_data(as_dense_f32(X), y, sample_weight)
+        k = meta["n_classes"]
+        p = meta["n_features"] + (1 if self.fit_intercept else 0)
+        w0 = getattr(self, "_warm_w0", None)
+        if w0 is not None and np.shape(w0) != ((p if k <= 2 else p * k),):
+            w0 = None
+        params, w_opt = engine_fit(
+            data["X"], data["y"], data["sw"],
+            C=C, tol=hyper_float(self.tol),
+            max_iter=self.max_iter, fit_intercept=self.fit_intercept,
+            n_classes=k, history=self.history,
+            class_weight=self.class_weight, cw_arr=meta.get("cw_arr"),
+            w0=w0,
+        )
+        self._set_fitted(params, meta)
+        self._w_opt64 = w_opt
+        return self
+
+    def __getstate__(self):
+        """Pickle without the warm-start scratch: the float64 optimum
+        ``_w_opt64`` only seeds the next fit of a warm C path in a live
+        search, and would triple a big model's pickle."""
+        state = self.__dict__.copy()
+        state.pop("_w_opt64", None)
+        state.pop("_warm_w0", None)
+        return state
+
     def _check_supported(self):
-        """Raise for the options whose engines are not ported yet."""
+        """Raise for invalid settings (also those set through
+        ``set_params``)."""
 
     @classmethod
     def _linear_op(cls, X, static):
@@ -391,9 +549,11 @@ class _LbfgsFitMixin:
         st = dict(static)
         max_iter, hist = st["max_iter"], st["history"]
 
-        def kernel(op, y_idx, sw, hyper):
-            loss, w0, unpack = problem(op, y_idx, sw, hyper)
-            w, n_iter = lbfgs_minimize(loss, w0, tol=hyper["tol"],
+        def kernel(op, y_idx, sw, hyper, w0=None):
+            loss, zeros, unpack = problem(op, y_idx, sw, hyper)
+            # a warm start begins at the caller's seed (flat layout)
+            start = zeros if w0 is None else w0.to(zeros).expand_as(zeros)
+            w, n_iter = lbfgs_minimize(loss, start, tol=hyper["tol"],
                                        max_iter=max_iter, history=hist)
             return unpack(w.detach(), n_iter)
 
@@ -486,10 +646,25 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
 
     The JAX package's constructor arguments, plus ``device`` (the card
     unless ``"cpu"``). ``C`` and ``tol`` ride the task axis of a grid;
-    the others shape the kernel. ``engine`` is accepted for parity with
-    the JAX package: ``'auto'`` and ``'xla'`` both run this engine,
-    ``'host'`` (the f64 host engine) raises ``NotImplementedError``, as
-    does ``matmul_dtype='bfloat16'``; both are in ROADMAP.md.
+    the others shape the kernel.
+
+    ``engine`` picks the engine: ``'xla'`` this batched torch engine,
+    ``'host'`` the f64 host engine (scipy's L-BFGS-B,
+    :mod:`~skdist_tpu_torch.models.host_linear`), and ``'auto'`` the
+    host engine where ``device="cpu"`` (the JAX package's default on a
+    CPU platform) and this engine on the card. Both minimise the same
+    objective and agree at the optimum to solver tolerance; they stop
+    differently at one ``tol``.
+
+    ``matmul_dtype="bfloat16"`` runs the fit's loss products with bf16
+    operands and float32 accumulation (the JAX package's opt-in
+    screening precision; the solver state, reductions and regulariser
+    stay float32, and so does prediction): over dense X a float32
+    product of the bf16-rounded operands (exact products, float32 sums,
+    TF32 off under ``exact_matmuls``), over packed X the JAX package's
+    gather expression ``(v_bf16 * W_bf16[idx]).float().sum(1)``
+    (:class:`~skdist_tpu_torch.sparse.LinearOperator`), not the packed
+    kernels.
     """
 
     _hyper_names = ("C", "tol")
@@ -526,6 +701,27 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
 
     def _check_supported(self):
         _check_static(self._static_config({}))
+
+    #: the warm C-path runner (``distribute/search.py``) may chain fits
+    _host_warm_startable = True
+
+    def _host_fit(self, X, y, sample_weight=None):
+        """The f64 host engine on this objective
+        (:func:`~skdist_tpu_torch.models.host_linear.logreg_host_fit`);
+        ``penalty=None`` is C = inf, scikit-learn's convention."""
+        from .host_linear import logreg_host_fit
+
+        _check_static(self._static_config({}))
+        C = (np.inf if self.penalty in (None, "none")
+             else hyper_float(self.C))
+        return self._run_host_engine(logreg_host_fit, C, X, y, sample_weight)
+
+    @classmethod
+    def _linear_op(cls, X, static):
+        """The fit problems' operator, with ``matmul_dtype``'s precision."""
+        st = dict(static)
+        return LinearOperator(X, st["fit_intercept"],
+                              matmul_dtype=st.get("matmul_dtype"))
 
     @classmethod
     def _batched_task_bytes(cls, meta, static, n):
@@ -598,26 +794,14 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
         return problem
 
 def _check_static(st):
-    """Reject the static settings whose engines are not ported yet (and
-    invalid ones set through ``set_params``)."""
+    """Reject invalid ``LogisticRegression`` settings (also those set
+    through ``set_params``, which bypasses ``__init__``)."""
     if st.get("penalty", "l2") not in ("l2", None, "none"):
         raise ValueError("LogisticRegression supports penalty='l2' (or None)")
-    md = st.get("matmul_dtype")
-    if md not in (None, "float32", "bfloat16"):
+    if st.get("matmul_dtype") not in (None, "float32", "bfloat16"):
         raise ValueError("matmul_dtype must be None/'float32'/'bfloat16'")
-    if md == "bfloat16":
-        raise NotImplementedError(
-            "matmul_dtype='bfloat16' is not ported to skdist_tpu_torch yet "
-            f"({_ROADMAP})"
-        )
-    engine = st.get("engine", "auto")
-    if engine not in ("auto", "host", "xla"):
+    if st.get("engine", "auto") not in ("auto", "host", "xla"):
         raise ValueError("engine must be 'auto', 'host' or 'xla'")
-    if engine == "host":
-        raise NotImplementedError(
-            "engine='host' (the f64 host engine) is not ported to "
-            f"skdist_tpu_torch yet ({_ROADMAP})"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -632,9 +816,10 @@ class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
     problem (the column objectives are separable, so the joint minimiser
     is the per-class one). The JAX package's constructor arguments and
     defaults (``max_iter=1000``), plus ``device`` (the card unless
-    ``"cpu"``). ``C`` and ``tol`` ride the task axis; ``engine='host'``
-    (the f64 host engine) raises ``NotImplementedError``. Over packed X
-    the loss runs K1 forward and K2 backward, like
+    ``"cpu"``). ``C`` and ``tol`` ride the task axis; ``engine`` chooses
+    the engine as ``LogisticRegression``'s does (the f64 host engine
+    under ``'host'``, and under ``'auto'`` where ``device="cpu"``). Over
+    packed X the loss runs K1 forward and K2 backward, like
     ``LogisticRegression``'s."""
 
     _hyper_names = ("C", "tol")
@@ -666,6 +851,18 @@ class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
 
     def _check_supported(self):
         _check_svc_static(self._static_config({}))
+
+    #: the warm C-path runner (``distribute/search.py``) may chain fits
+    _host_warm_startable = True
+
+    def _host_fit(self, X, y, sample_weight=None):
+        """The f64 host engine on this squared-hinge objective
+        (:func:`~skdist_tpu_torch.models.host_linear.svc_host_fit`)."""
+        from .host_linear import svc_host_fit
+
+        _check_svc_static(self._static_config({}))
+        return self._run_host_engine(svc_host_fit, hyper_float(self.C), X, y,
+                                     sample_weight)
 
     @classmethod
     def _batched_task_bytes(cls, meta, static, n):
@@ -731,17 +928,11 @@ class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
 
 def _check_svc_static(st):
     """Reject invalid ``LinearSVC`` settings (also those set through
-    ``set_params``) and the engine that is not ported yet."""
+    ``set_params``)."""
     if st.get("loss", "squared_hinge") != "squared_hinge":
         raise ValueError("LinearSVC supports loss='squared_hinge'")
-    engine = st.get("engine", "auto")
-    if engine not in ("auto", "host", "xla"):
+    if st.get("engine", "auto") not in ("auto", "host", "xla"):
         raise ValueError("engine must be 'auto', 'host' or 'xla'")
-    if engine == "host":
-        raise NotImplementedError(
-            "engine='host' (the f64 host engine) is not ported to "
-            f"skdist_tpu_torch yet ({_ROADMAP}, item 4)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -1046,9 +1237,12 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
         problem = cls._build_fit_problem(meta, static)
         args = cls._solve_args(static)
 
-        def kernel(op, y_idx, sw, hyper):
+        def kernel(op, y_idx, sw, hyper, w0=None):
             pb = problem(op, y_idx, sw, hyper)
-            w, n_epochs = sgd_minimize(pb, pb["W0"], hyper["tol"], **args)
+            # a warm start begins at the caller's seed (flat layout)
+            start = (pb["W0"] if w0 is None
+                     else w0.to(pb["W0"]).expand_as(pb["W0"]).clone())
+            w, n_epochs = sgd_minimize(pb, start, hyper["tol"], **args)
             return pb["unpack"](w, n_epochs)
 
         return kernel
@@ -1226,7 +1420,9 @@ class Ridge(_RidgeKernelMixin, _LinearModelBase, RegressorMixin):
         d = meta["n_features"]
         one_column = meta.get("y_ndim", 1) == 1
 
-        def kernel(op, y, sw, hyper):
+        def kernel(op, y, sw, hyper, w0=None):
+            # a warm seed is accepted and ignored: a direct solve has no
+            # iterate to start from
             T = y.reshape(y.shape[0], -1).to(op.dtype)
             alpha = hyper.get("alpha")
             if alpha is None:  # LinearRegression: no alpha on the task axis
@@ -1290,7 +1486,8 @@ class RidgeClassifier(_RidgeKernelMixin, _LinearClassifierBase):
         d = meta["n_features"]
         k = meta["n_classes"]
 
-        def kernel(op, y_idx, sw, hyper):
+        def kernel(op, y_idx, sw, hyper, w0=None):
+            # a warm seed is accepted and ignored (the direct solve)
             sw = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
             if k <= 2:
                 T = torch.where(y_idx == (k - 1), 1.0, -1.0)[..., None]

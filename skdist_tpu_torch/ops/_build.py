@@ -37,6 +37,16 @@ LIBRARIES = {
 
 _LOCK = threading.Lock()
 _LOADED = {}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``, the count of its kernel's launches,
+    under a lock, so the count is exact when threads launch at once (the
+    searches' host fan-out). Readers read the attribute; resetting it to 0
+    is for a caller with no launch in flight."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def find_nvcc():

@@ -14,7 +14,8 @@ kernel's tiling knobs (``S``, ``LB``) have no counterpart.
 Dispatch is by the device of the tensors: CPU tensors go to the plain
 version (:func:`level_histogram_ref`, an ``index_add_`` scatter), CUDA
 tensors to the kernel. There is no fallback: a build or launch failure
-raises. :func:`level_histogram` counts its kernel launches in
+raises. :func:`level_histogram` counts its kernel launches (exactly, under
+threads too: :func:`~._build.count_launch`) in
 ``level_histogram.launches``.
 
 The kernel has two kinds of shared-memory cell. A channel whose values
@@ -247,7 +248,7 @@ def level_histogram(Xb, node_key, Ych, nl, n_bins, integer=None):
         msg = lib.skdist_hist_error_string(code).decode()
         raise RuntimeError(f"level_histogram kernel launch failed: {msg} "
                            f"({code})")
-    level_histogram.launches += 1
+    _build.count_launch(level_histogram)
     return out if batched else out[0]
 
 

@@ -30,7 +30,8 @@ the m**2 ``index_put_`` scatter, the expressions of
 ``packed_weighted_gram``), a CUDA tensor to the kernel. There is no
 fallback: a build or launch failure raises.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, exactly
+even when threads launch at once (:func:`~._build.count_launch`).
 """
 
 import ctypes
@@ -219,7 +220,7 @@ def packed_matvec(idx, val, W):
             out.data_ptr(), k, n * k, T, k, _vector_width(W3), stream,
         )
     _check_launch(lib.skdist_cuda_error_string, code, "packed_matvec")
-    packed_matvec.launches += 1
+    _build.count_launch(packed_matvec)
     return _from_batch(out, W.ndim)
 
 
@@ -363,7 +364,7 @@ def packed_rmatvec(idx, val, r, n_cols, columns=None):
             out.data_ptr(), k, n_cols * k, T, k, _vector_width(r3), stream,
         )
     _check_launch(lib.skdist_cuda_error_string, code, "packed_rmatvec")
-    packed_rmatvec.launches += 1
+    _build.count_launch(packed_rmatvec)
     return _from_batch(out, r.ndim)
 
 
@@ -484,7 +485,7 @@ def packed_row_matvec(idx, val, W):
             strides[0], strides[1], val.data_ptr(), strides[2], strides[3],
             T, B, m, W.data_ptr(), w_rs, w_bs, out.data_ptr(), k,
             _vector_width(W))
-    packed_row_matvec.launches += 1
+    _build.count_launch(packed_row_matvec)
     return out
 
 
@@ -535,7 +536,7 @@ def packed_row_rmatvec(idx, val, g, n_cols):
     _launch(_lib().skdist_packed_row_rmatvec_f32, idx.device, idx.data_ptr(),
             strides[0], strides[1], val.data_ptr(), strides[2], strides[3],
             T, B, m, g.data_ptr(), g_ls, g_rs, out.data_ptr(), n_cols, k)
-    packed_row_rmatvec.launches += 1
+    _build.count_launch(packed_row_rmatvec)
     return out
 
 
@@ -730,7 +731,7 @@ def packed_weighted_gram(idx, val, sw, n_cols, pairs=None):
             out.data_ptr(), p * p, T, stream,
         )
     _check_launch(lib.skdist_gram_error_string, code, "packed_weighted_gram")
-    packed_weighted_gram.launches += 1
+    _build.count_launch(packed_weighted_gram)
     return out if sw.ndim == 2 else out[0]
 
 

@@ -11,6 +11,7 @@ from .backend import (
     iterative_chunk_size,
     iterative_fit_supported,
     parse_partitions,
+    prefers_host_engine,
     resolve_backend,
     resolve_slice_iters,
 )
@@ -19,5 +20,5 @@ __all__ = [
     "CUDABackend", "IterativeKernelSpec", "LocalBackend", "MIN_ITER_TASKS",
     "RungController", "TaskBackend", "compaction_enabled",
     "iterative_chunk_size", "iterative_fit_supported", "parse_partitions",
-    "resolve_backend", "resolve_slice_iters",
+    "prefers_host_engine", "resolve_backend", "resolve_slice_iters",
 ]

@@ -37,15 +37,40 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..sparse import PackedX
+from ..sparse import PackedX, would_pack
 from ..utils.device import exact_matmuls, resolve_device
 
 __all__ = [
     "TaskBackend", "CUDABackend", "LocalBackend", "resolve_backend",
     "parse_partitions", "IterativeKernelSpec", "RungController",
     "MIN_ITER_TASKS", "compaction_enabled", "resolve_slice_iters",
-    "iterative_fit_supported", "iterative_chunk_size",
+    "iterative_fit_supported", "iterative_chunk_size", "prefers_host_engine",
 ]
+
+
+def prefers_host_engine(backend, estimator, X=None):
+    """Whether a batched dispatch yields to the host fan-out because
+    ``estimator`` runs its f64 host engine on ``backend``: an explicit
+    ``engine='host'`` pin always (even on a device backend, whose host
+    threads then run it: ignoring the pin would select candidates with
+    one engine and refit the winner with another), and ``engine='auto'``
+    only off a device backend, where the estimator resolves to the host
+    engine (``_resolve_host_engine``: its device is the CPU), and only
+    for an ``X`` that would not pack (packed X has no host form; the
+    decision reads shape and ``indptr`` alone). Every batched gate (the
+    searches, one-vs-rest and one-vs-one) asks this, so one estimator
+    never runs two engines depending on which meta-estimator wraps
+    it."""
+    resolve = getattr(estimator, "_resolve_host_engine", None)
+    if resolve is None:
+        return False
+    if getattr(estimator, "engine", None) == "host":
+        return True
+    if getattr(backend, "is_device_backend", False) or not resolve():
+        return False
+    return X is None or not (
+        getattr(type(estimator), "_supports_packed_X", False)
+        and would_pack(X))
 
 
 def parse_partitions(partitions, n_tasks):

@@ -18,8 +18,8 @@ the packed pair saves at least :data:`PACK_MIN_SAVINGS` device bytes
 and the nnz distribution has no outlier rows.
 
 Not yet ported (ROADMAP): ``mode='dense'`` (the rebuild-then-matmul
-operator; :func:`packed_to_dense` itself is here), the bf16 packed
-matmuls and the matvec-mode calibration table.
+operator; :func:`packed_to_dense` itself is here) and the matvec-mode
+calibration table.
 """
 
 import os
@@ -50,6 +50,7 @@ __all__ = [
     "sparse_to_dense_f32",
     "packed_to_dense",
     "matvec_any",
+    "packed_matvec_bf16",
     "LinearOperator",
 ]
 
@@ -246,6 +247,27 @@ def packed_to_dense(idx, val, n_cols):
     return out.index_put_((rows, idx.long()), val, accumulate=True)
 
 
+def _bf16_round(x):
+    """``x`` rounded to bfloat16 and held as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def packed_matvec_bf16(idx, val, W):
+    """The JAX package's bf16 packed matvec, ``sum_j (v_bf16 *
+    W_bf16[idx]).float()`` over each row's ``m`` entries
+    (``skdist_tpu/sparse.py``'s ``LinearOperator.matvec`` under
+    ``matmul_dtype='bfloat16'``): each product rounds to bf16, the row
+    sums in float32. ``W`` is ``(p,)``, ``(p, k)`` or ``(T, p, k)``; the
+    result ``(n,)``, ``(n, k)`` or ``(T, n, k)``. Plain PyTorch on either
+    device, differentiable in ``W``."""
+    v = val.to(torch.bfloat16)
+    g = W.to(torch.bfloat16)[..., idx.long(), :] if W.ndim == 3 else \
+        W.to(torch.bfloat16)[idx.long()]
+    if W.ndim == 1:
+        return (v * g).to(torch.float32).sum(dim=-1)
+    return (v[..., None] * g).to(torch.float32).sum(dim=-2)
+
+
 def matvec_any(X, W):
     """``X @ W`` for either representation (tensors on one device)."""
     if isinstance(X, PackedX):
@@ -274,12 +296,26 @@ class LinearOperator:
     on packed X its gram is K3 over a pair table built at the first
     call (:meth:`gram_pairs`), so operators that never ask for a gram
     never build one.
+
+    ``matmul_dtype='bfloat16'`` is the JAX package's bf16 contract for
+    :meth:`matvec`: bf16 operands, float32 accumulation and result.
+    Dense X: a float32 product of the bf16-rounded operands (a product
+    of two bf16 values is exact in float32, so this is the contract's
+    arithmetic; it runs on the CPU as on the card and differentiates
+    like any product). Packed X: the JAX package defines the contract
+    on its gather expression, ``(v_bf16 * W_bf16[idx]).float()`` summed
+    over the row's entries (:func:`packed_matvec_bf16`), and keeps it
+    off its Pallas kernels; so does this operator, which then runs no
+    K1 and no K2. Its gradient is that expression's autograd (a
+    scatter-add of bf16 products), as in the JAX package.
     """
 
     __slots__ = ("d", "p", "n", "Xa", "pidx", "pval", "dtype", "columns",
-                 "pairs")
+                 "pairs", "bf16", "_Xmm")
 
-    def __init__(self, X, fit_intercept):
+    def __init__(self, X, fit_intercept, matmul_dtype=None):
+        self.bf16 = matmul_dtype == "bfloat16"
+        self._Xmm = None
         if isinstance(X, PackedX):
             d = X.n_cols
             idx, val = X.idx, X.val
@@ -300,7 +336,8 @@ class LinearOperator:
             self.dtype = val.dtype
             # the column-sorted copy K2 reads: built once per operator
             self.columns = (
-                build_columns(idx, val, self.p) if idx.is_cuda else None
+                build_columns(idx, val, self.p)
+                if idx.is_cuda and not self.bf16 else None
             )
         else:
             if fit_intercept:
@@ -317,9 +354,15 @@ class LinearOperator:
             self.dtype = X.dtype
 
     def matvec(self, W):
-        """``X~ @ W``."""
+        """``X~ @ W`` (under bf16, the contract of the class docstring)."""
         if self.Xa is not None:
+            if self.bf16:
+                if self._Xmm is None:
+                    self._Xmm = _bf16_round(self.Xa)
+                return self._Xmm @ _bf16_round(W)
             return self.Xa @ W
+        if self.bf16:
+            return packed_matvec_bf16(self.pidx, self.pval, W)
         return PackedMatvec.apply(W, self.pidx, self.pval, self.columns)
 
     def rmatvec(self, r):

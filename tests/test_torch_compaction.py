@@ -90,7 +90,8 @@ def _assert_bitwise(a, b):
 def _torch_grid(X, y, grid=None, refit=False, max_iter=EST["max_iter"],
                 **kw):
     backend = kw.pop("backend", None) or CUDABackend(device="cpu")
-    est = TorchLR(device="cpu", tol=EST["tol"], max_iter=max_iter)
+    est = TorchLR(device="cpu", engine="xla", tol=EST["tol"],
+                  max_iter=max_iter)
     return TorchGrid(est, grid or {"C": CS},
                      cv=3, scoring="f1_weighted", backend=backend,
                      refit=refit, **kw).fit(X, y)

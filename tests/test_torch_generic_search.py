@@ -162,7 +162,9 @@ def test_search_paths_and_checkpoint():
     kernel take the generic path; checkpointing still raises."""
     X, y = _binary(3)
     be = LocalBackend(device="cpu")
-    lr = LogisticRegression(max_iter=20, device="cpu")
+    # engine="xla": under a host backend 'auto' on the CPU is the f64
+    # host engine, whose warm C path takes any scoring
+    lr = LogisticRegression(max_iter=20, device="cpu", engine="xla")
     gs = TorchGrid(lr, {"C": [0.1, 1.0]}, cv=3, backend=be).fit(X, y)
     assert gs.round_stats_[0]["mode"] != "generic"
     gs = TorchGrid(lr, {"C": [0.1, 1.0]}, cv=3, backend=be,

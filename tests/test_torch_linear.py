@@ -58,7 +58,8 @@ def test_fit_matches_jax(k, sparse, use_sw, cw):
     X, y, sw = _data(k, sparse)
     fit_kw = {"sample_weight": sw} if use_sw else {}
     jm = JaxLR(engine="xla", class_weight=cw, **FIT).fit(X, y, **fit_kw)
-    tm = TorchLR(device="cpu", class_weight=cw, **FIT).fit(X, y, **fit_kw)
+    tm = TorchLR(device="cpu", engine="xla", class_weight=cw,
+                 **FIT).fit(X, y, **fit_kw)
     assert int(np.max(jm.n_iter_)) < FIT["max_iter"]
     assert tm._meta["x_format"] == ("packed" if sparse else "dense")
     np.testing.assert_array_equal(tm.classes_, jm.classes_)
@@ -102,20 +103,35 @@ def test_pickle_round_trip():
 
 
 def test_options_not_ported_raise():
+    """The options that raised before they were ported now fit:
+    ``matmul_dtype='bfloat16'`` (the torch engine, bf16 products) and
+    ``engine='host'`` (the f64 host engine), each against the JAX
+    package's fit (tests/test_torch_bf16.py and
+    tests/test_torch_host_engine.py hold them closely); invalid settings
+    still raise, also through ``set_params``."""
     X, y, _ = _data(2, sparse=False)
-    for kw in ({"matmul_dtype": "bfloat16"}, {"engine": "host"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchLR(device="cpu", **kw).fit(X, y)
+    bf16 = TorchLR(device="cpu", matmul_dtype="bfloat16", **FIT).fit(X, y)
+    ref = JaxLR(engine="xla", matmul_dtype="bfloat16", **FIT).fit(X, y)
+    assert not hasattr(bf16, "_w_opt64")
+    assert abs(bf16.score(X, y) - ref.score(X, y)) <= 1e-3
+    host = TorchLR(device="cpu", engine="host", **FIT).fit(X, y)
+    ref = JaxLR(engine="host", **FIT).fit(X, y)
+    assert hasattr(host, "_w_opt64")
+    np.testing.assert_allclose(host.coef_, ref.coef_, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         TorchLR(penalty="l1")
+    for bad in ({"engine": "gpu"}, {"matmul_dtype": "float16"},
+                {"penalty": "l1"}):
+        with pytest.raises(ValueError):
+            TorchLR(device="cpu").set_params(**bad).fit(X, y)
 
 
 def test_unpenalized_and_no_intercept():
     X, y, _ = _data(3, sparse=False, seed=1)
     jm = JaxLR(engine="xla", penalty=None, fit_intercept=False,
                **FIT).fit(X, y)
-    tm = TorchLR(device="cpu", penalty=None, fit_intercept=False,
-                 **FIT).fit(X, y)
+    tm = TorchLR(device="cpu", engine="xla", penalty=None,
+                 fit_intercept=False, **FIT).fit(X, y)
     np.testing.assert_array_equal(tm.intercept_, np.zeros(3, np.float32))
     np.testing.assert_allclose(tm.predict_proba(X), jm.predict_proba(X),
                                atol=1e-3)

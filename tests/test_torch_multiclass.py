@@ -206,13 +206,13 @@ def test_keep_masks_and_down_sampled_fits_match_jax(max_negatives, method):
 def test_dict_class_weight_takes_the_generic_loop():
     X, y = _data(3)
     cw = {0: 2.0, 1: 0.5}
-    port = _port("ovr", LinearSVC(device="cpu", class_weight=cw, **SVC)).fit(
-        X, y)
+    port = _port("ovr", LinearSVC(device="cpu", engine="xla",
+                                  class_weight=cw, **SVC)).fit(X, y)
     ref = _jax("ovr", JaxSVC(engine="xla", class_weight=cw, **SVC)).fit(X, y)
     assert not hasattr(port, "round_stats_")
     _assert_same(port, ref, X)
-    port = _port("ovo", LinearSVC(device="cpu", class_weight=cw, **SVC)).fit(
-        X, y)
+    port = _port("ovo", LinearSVC(device="cpu", engine="xla",
+                                  class_weight=cw, **SVC)).fit(X, y)
     ref = _jax("ovo", JaxSVC(engine="xla", class_weight=cw, **SVC)).fit(X, y)
     _assert_same(port, ref, X)
 

@@ -250,6 +250,63 @@ def test_no_proba_and_bad_method_raise(models):
                                serve_dtype="bfloat16")
 
 
+PLANNED_METHODS = ("predict", "decision_function", "predict_proba",
+                   "predict_log_proba")
+
+
+@pytest.mark.parametrize("form", ["dense", "csr"])
+@pytest.mark.parametrize("name", MODELS)
+def test_batch_predict_equals_every_method_of_the_model(models, name, form):
+    """``batch_predict(model, X, method)`` is ``model.<method>(X)`` in row
+    blocks, for every method the model has: a device plan serves
+    ``predict``/``decision_function`` (the decision kernel) and
+    ``predict_proba``/``predict_log_proba`` (the proba kernel, the log
+    taken as the model takes it); the JAX package's ``batch_predict``
+    returns the decision for ``predict_log_proba``, a fault the port
+    does not copy (ROADMAP Queue 3)."""
+    port, _ref, X, _y = models[name]
+    Xin = sp.csr_matrix(X) if form == "csr" else X
+    seen = 0
+    for method in PLANNED_METHODS:
+        if not hasattr(port, method):
+            continue
+        expected = np.asarray(getattr(port, method)(Xin))
+        ours = tp.batch_predict(port, Xin, method=method, batch_size=64,
+                                **CPU)
+        assert ours.shape == expected.shape, method
+        if method == "predict":
+            np.testing.assert_array_equal(ours, expected)
+        else:
+            # row blocks against one call: float32 sums of another order
+            np.testing.assert_allclose(ours, expected, rtol=1e-6, atol=1e-6,
+                                       err_msg=method)
+        seen += 1
+    if name in HAS_PROBA:
+        assert seen == 4
+        log_plan = tp.device_predict_plan(port, "predict_log_proba")
+        assert log_plan is not None
+        assert tp.batch_predict(port, X, method="predict_log_proba",
+                                **CPU).shape == (X.shape[0],
+                                                 len(port.classes_))
+
+
+def test_log_proba_of_a_hinge_sgd_raises_as_the_model_does(models):
+    """A hinge-loss SGD classifier has no probabilities: no proba plan,
+    and ``batch_predict`` raises what the model raises."""
+    _port, ref, X, _y = models["sgd"]
+    hinge = convert.sgd_from_reference(_linear_params(ref), ref._meta,
+                                       device="cpu", loss="hinge")
+    assert tp.device_predict_plan(hinge, "predict_log_proba") is None
+    assert tp.device_predict_plan(hinge, "predict_proba") is None
+    assert tp.device_predict_plan(hinge, "score") is None
+    for method in ("predict_proba", "predict_log_proba"):
+        with pytest.raises(AttributeError):
+            tp.batch_predict(hinge, X, method=method, **CPU)
+    np.testing.assert_allclose(
+        tp.batch_predict(hinge, X, method="decision_function", **CPU),
+        hinge.decision_function(X), rtol=0, atol=1e-6)
+
+
 def test_default_batch_size_and_plan(models):
     port = models["logreg10"][0]
     plan = tp.device_predict_plan(port, "predict_proba")

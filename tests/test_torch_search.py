@@ -46,8 +46,8 @@ def data():
 
 
 def _searches(X, y, scoring="f1_weighted", **kw):
-    tg = TorchGrid(TorchLR(device="cpu", **EST), {"C": CS}, cv=3,
-                   scoring=scoring, backend=CUDABackend(device="cpu"),
+    tg = TorchGrid(TorchLR(device="cpu", engine="xla", **EST), {"C": CS},
+                   cv=3, scoring=scoring, backend=CUDABackend(device="cpu"),
                    **kw).fit(X, y)
     jg = JaxGrid(JaxLR(engine="xla", **EST), {"C": CS}, cv=3,
                  scoring=scoring, backend=TPUBackend(), **kw).fit(X, y)

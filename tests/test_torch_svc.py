@@ -94,7 +94,8 @@ def test_fit_matches_jax(k, sparse, use_sw, cw):
     X, y, sw = _data(k, sparse)
     fit_kw = {"sample_weight": sw} if use_sw else {}
     ref = JaxSVC(engine="xla", class_weight=cw, **FIT).fit(X, y, **fit_kw)
-    port = LinearSVC(device="cpu", class_weight=cw, **FIT).fit(X, y, **fit_kw)
+    port = LinearSVC(device="cpu", engine="xla", class_weight=cw,
+                     **FIT).fit(X, y, **fit_kw)
     assert port._meta["x_format"] == ("packed" if sparse else "dense")
     _assert_fit_close(port, ref)
     np.testing.assert_allclose(port.decision_function(X),
@@ -121,8 +122,12 @@ def test_rejections():
         LinearSVC(engine="gpu")
     with pytest.raises(ValueError, match="squared_hinge"):
         LinearSVC(device="cpu").set_params(loss="hinge").fit(X, y)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        LinearSVC(device="cpu", engine="host").fit(X, y)
+    with pytest.raises(ValueError, match="engine"):
+        LinearSVC(device="cpu").set_params(engine="gpu").fit(X, y)
+    # engine='host' is ported: the f64 host engine, the JAX package's fit
+    host = LinearSVC(device="cpu", engine="host", **FIT).fit(X, y)
+    ref = JaxSVC(engine="host", **FIT).fit(X, y)
+    np.testing.assert_allclose(host.coef_, ref.coef_, rtol=0, atol=1e-6)
 
 
 def test_converted_jax_model_decides_the_same():
@@ -142,7 +147,8 @@ def test_grid_search_matches_jax(form):
     X, y, _ = _data(3, form == "sparse")
     grid = {"C": list(np.logspace(-2.5, -1, 5))}
     est = dict(tol=1e-2, max_iter=300)
-    tg = DistGridSearchCV(LinearSVC(device="cpu", **est), grid, cv=3,
+    tg = DistGridSearchCV(LinearSVC(device="cpu", engine="xla", **est),
+                          grid, cv=3,
                           scoring="accuracy",
                           backend=CUDABackend(device="cpu")).fit(X, y)
     jg = JaxGrid(JaxSVC(engine="xla", **est), grid, cv=3, scoring="accuracy",
