@@ -6,13 +6,15 @@
     python3 chip_smoke.py --ab-row-kernels DIR [--pairs N]
     python3 chip_smoke.py --profile-config5
     python3 chip_smoke.py --phases-17-19
+    python3 chip_smoke.py --phase-20
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``),
    then the port's CUDA kernels built with ``nvcc`` from the sources in
-   this checkout.
+   this checkout, and its host C tree engine (``native/hist_tree.c``)
+   with the host's C compiler.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``packed_matvec`` and K2 ``packed_rmatvec`` on ragged small shapes,
    on shapes that reach each branch of their design (columns longer
@@ -70,7 +72,7 @@ result line:
    the compacted run must have refilled a slot and retired a lane
    (stalled or converged) before ``max_iter`` (else the comparison
    would be trivial).
-4. The dense headline on the card: every other C of the same grid (48
+4. The dense headline on the card: every fourth C of the same grid (24
    of 96, the span kept; a printed cut that keeps the run inside its
    time limit) on the dense 11314 x 4096 problem (``torch.matmul``, no
    hand kernel), compacted
@@ -294,6 +296,33 @@ result line:
     ``batch_predict(config 5's model, 300000 rows,
     "predict_log_proba")`` equals ``model.predict_log_proba`` within
     1e-6.
+20. The tree family's batched paths, the bring-your-own-base forests,
+    the bin memos and the host C engine. (a) ``DistGridSearchCV(
+    DecisionTreeClassifier(), {"max_depth": [4, 6, 8],
+    "min_samples_leaf": [1, 50]}, cv=5)`` on 200000 x 28 rows of phase
+    16's balanced problem: every candidate a batched round of five fold
+    lanes; K4 launches exactly the levels of the rounds plus the
+    refit's; lanes 0 and 3 of the deepest round bitwise their lone fits;
+    the (4, 50) candidate's scores on the CPU equal the card's (the cut
+    to 1 of 6 candidates is printed); the wall and fits/s beside the
+    generic path's on the same grid (a scalar ``sample_weight`` sends
+    it there); the pickled search predicts as the live one. (b)
+    ``DistOneVsRestClassifier(DecisionTreeClassifier(max_depth=8))`` on
+    a 7-class 200000 x 28 tabular target: one batched round of 7 class
+    lanes, K4 launches 8 a round, class 0's lane bitwise a lone fit of
+    its binary labels, accuracy above the majority share, pickled =
+    live. (c) ``DistForestClassifier(DecisionTreeClassifier(
+    max_features="sqrt"), n_estimators=32)`` on 25000 rows on the card,
+    ``CUDABackend``'s host threads against a serial ``LocalBackend``:
+    bitwise the same trees, rows summing to 1, pickled = live. (d) Phase
+    6's forest fitted twice under ``CUDABackend(reuse_broadcast=True)``:
+    the second fit reads both bin memos and grows bitwise the same
+    trees; its wall printed beside phase 6's warm wall. (e) The host C
+    engine (built in phase 1 on this machine's host), then a 16-tree
+    bootstrapped ``RandomForestClassifier(max_features=None,
+    device="cpu")`` on 20000 rows, native against the torch engine: the
+    same trees, leaves and seeds, the recorded gains within 1e-5 of the
+    largest (float64 in C, float32 in torch).
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -310,7 +339,8 @@ runs must agree on epochs and ``best_score_``.
 
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
-the kernels and runs phases 17-19 alone, with no result line.
+the kernels and runs phases 17-19 alone, with no result line;
+``--phase-20`` does the same for phase 20.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -3575,6 +3605,301 @@ def new_phases(torch, X, y, backend):
     return mm_launches, warm_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: trees on the batched paths, the BYO forests, the bin memos and
+# the host C engine
+# ---------------------------------------------------------------------------
+
+#: phase 20a's grid, cv=5: depths around the forest's 8, and a leaf floor
+TREE_GRID = {"max_depth": [4, 6, 8], "min_samples_leaf": [1, 50]}
+#: 20a's candidate the CPU repeats: the two depth-4 candidates took
+#: 19.6 s of plain-torch scatter on the card's host
+TREE_CPU_GRID = {"max_depth": [4], "min_samples_leaf": [50]}
+
+
+def balanced_tabular(n, seed=5):
+    """Phase 16's problem at ``n`` rows: uniform features and a balanced
+    binary target, a random projection split at its median."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, 28).astype(np.float32)
+    s = X @ rng.randn(28) + 0.5 * rng.randn(n)
+    return X, (s > np.median(s)).astype(np.int64)
+
+
+def tree_lanes_vs_lone(torch, X, y, splits):
+    """20a's lane check: the deepest candidate's five fold lanes as the
+    search grows them (the same contract calls), against lone fits of
+    lanes 0 and 3; returns the keys that differ."""
+    from skdist_tpu_torch.models.linear import _freeze
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+
+    est = DecisionTreeClassifier(max_depth=8, min_samples_leaf=1)
+    data, meta = est._prep_fit_data(X, y)
+    static = _freeze(est._static_config(meta))
+    kernel = type(est)._build_fit_kernel(meta, static)
+    W = np.zeros((len(splits), len(y)), np.float32)
+    for i, (train, _test) in enumerate(splits):
+        W[i, train] = 1.0
+    with torch.no_grad():
+        Xb = type(est)._fit_operand(torch.as_tensor(data["X"]).cuda(), meta,
+                                    static)
+        Y = torch.as_tensor(data["y"]).cuda()
+        Wd = torch.as_tensor(W).cuda()
+        batch = kernel(Xb, Y, Wd, {})
+        differ = []
+        for t in (0, 3):
+            lone = kernel(Xb, Y, Wd[t:t + 1], {})
+            differ += [(t, k) for k in lone
+                       if not torch.equal(batch[k][t], lone[k][0])]
+    return differ
+
+
+def phase_tree_search(torch):
+    """20a: ``DistGridSearchCV(DecisionTreeClassifier(), TREE_GRID,
+    cv=5)`` on 200000 x 28 rows on the card, batched; its K4 launches,
+    two lanes against lone fits, the CPU on 20a's depth-4 candidates,
+    and the generic path on the same grid. Returns the K4 launches."""
+    from skdist_tpu_torch import CUDABackend, DistGridSearchCV
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+    from skdist_tpu_torch.ops import hist as kh
+    from skdist_tpu_torch.utils.cv import check_cv
+
+    X, y = balanced_tabular(200_000)
+    n_fits = 6 * 5
+    say(f"phase 20a: DistGridSearchCV(DecisionTreeClassifier(), {TREE_GRID}, "
+        f"cv=5) on {X.shape}, class shares {np.bincount(y) / len(y)}: "
+        f"{n_fits} fits + refit, batched on the card")
+    kh.level_histogram.launches = 0
+    gs, wall = timed_call(torch, lambda: DistGridSearchCV(
+        DecisionTreeClassifier(), TREE_GRID, cv=5).fit(X, y))
+    launches = kh.level_histogram.launches
+    modes = [st["mode"] for st in gs.round_stats_]
+    # one launch a level of each round (a candidate is a bucket of five
+    # fold lanes), then the refit's levels
+    want = sum(st["rounds"] * p["max_depth"] for st, p in
+               zip(gs.round_stats_, gs.cv_results_["params"])) \
+        + gs.best_params_["max_depth"]
+    say(f"  batched: wall {wall:.3f} s ({n_fits / wall:.2f} fits/s, refit "
+        f"{gs.refit_time_:.3f} s), modes {modes}, rounds "
+        f"{[st['rounds'] for st in gs.round_stats_]} x "
+        f"{[st['tasks_per_round'] for st in gs.round_stats_]} lanes; K4 "
+        f"launches {launches} (levels of the rounds + the refit's: {want}); "
+        f"best_params_ {gs.best_params_}, best accuracy {gs.best_score_:.6f}")
+    if modes != ["classic"] * 6:
+        raise AssertionError(f"phase 20a did not run batched: {modes}")
+    if launches != want:
+        raise AssertionError(f"phase 20a: K4 launched {launches} times, not "
+                             f"the {want} levels of its rounds and refit")
+    scores = gs.cv_results_["mean_test_score"]
+    if not np.all(np.isfinite(scores)):
+        raise AssertionError("phase 20a: a score is not finite")
+    splits = list(check_cv(5, y, classifier=True).split(X, y))
+    differ = tree_lanes_vs_lone(torch, X, y, splits)
+    say("  lanes 0 and 3 of the (max_depth=8, min_samples_leaf=1) round "
+        "against lone fits of their weights: "
+        + ("bitwise equal" if not differ else f"differ in {differ}"))
+    if differ:
+        raise AssertionError(f"phase 20a: lanes differ from lone fits: "
+                             f"{differ}")
+    say(f"CUT: phase 20a's CPU run repeats the {TREE_CPU_GRID} candidate "
+        "(1 of 6) on all 200000 rows")
+    cpu, wall_cpu = timed_call(torch, lambda: DistGridSearchCV(
+        DecisionTreeClassifier(device="cpu"), TREE_CPU_GRID, cv=5,
+        backend=CUDABackend(device="cpu")).fit(X, y))
+    keys = [k for k in cpu.cv_results_ if k.endswith("test_score")
+            and not k.startswith("rank")]
+    card_rows = [i for i, p in enumerate(gs.cv_results_["params"])
+                 if all(p[k] in v for k, v in TREE_CPU_GRID.items())]
+    apart = [k for k in keys if not np.array_equal(
+        cpu.cv_results_[k], np.asarray(gs.cv_results_[k])[card_rows])]
+    say(f"  CPU ({wall_cpu:.2f} s, the scatter engine): scores against the "
+        "card's " + ("equal" if not apart else f"differ in {apart}"))
+    if apart:
+        raise AssertionError(f"phase 20a: card and CPU scores differ: {apart}")
+    # the generic path on the same grid: a scalar sample_weight is not a
+    # full-length vector, so the search fans out one fit a task, each
+    # binning its own training fold (other edges: other scores)
+    gen, wall_gen = timed_call(torch, lambda: DistGridSearchCV(
+        DecisionTreeClassifier(), TREE_GRID, cv=5).fit(X, y,
+                                                       sample_weight=1.0))
+    if gen.round_stats_[0]["mode"] != "generic":
+        raise AssertionError("phase 20a: the generic comparison ran "
+                             f"{gen.round_stats_[0]['mode']}")
+    say(f"  generic path, same grid: wall {wall_gen:.3f} s "
+        f"({n_fits / wall_gen:.2f} fits/s), best_params_ {gen.best_params_},"
+        f" best accuracy {gen.best_score_:.6f}; batched {wall_gen / wall:.2f}x"
+        " faster")
+    loaded = pickle.loads(pickle.dumps(gs))
+    if not np.array_equal(loaded.predict(X[:5000]), gs.predict(X[:5000])):
+        raise AssertionError("phase 20a: the pickled search differs")
+    return launches
+
+
+def phase_tree_ovr(torch):
+    """20b: one-vs-rest over a tree base on a 7-class tabular target,
+    batched. Returns the K4 launches."""
+    from skdist_tpu_torch import DistOneVsRestClassifier
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+    from skdist_tpu_torch.ops import hist as kh
+
+    X, y = make_tabular(200_000, 28, 7, seed=6)
+    say(f"phase 20b: DistOneVsRestClassifier(DecisionTreeClassifier("
+        f"max_depth=8)) on {X.shape}, 7 classes, class shares "
+        f"{np.round(np.bincount(y) / len(y), 3)}")
+    kh.level_histogram.launches = 0
+    ovr, wall = timed_call(torch, lambda: DistOneVsRestClassifier(
+        DecisionTreeClassifier(max_depth=8)).fit(X, y))
+    launches = kh.level_histogram.launches
+    st = ovr.round_stats_[0]
+    proba = ovr.predict_proba(X)
+    acc = float(np.mean(ovr.predict(X) == y))
+    majority = float(np.bincount(y).max() / len(y))
+    say(f"  wall {wall:.3f} s ({7 / wall:.2f} binary fits/s), mode "
+        f"{st['mode']}, {st['rounds']} round(s) x {st['tasks_per_round']} "
+        f"class lanes, K4 launches {launches}; train accuracy {acc:.4f} "
+        f"(majority share {majority:.4f})")
+    if st["mode"] != "classic" or st["tasks"] != 7:
+        raise AssertionError(f"phase 20b did not run batched: {st}")
+    if launches != 8 * st["rounds"]:
+        raise AssertionError(f"phase 20b: K4 launched {launches} times, not "
+                             f"8 levels x {st['rounds']} rounds")
+    if proba.shape != (len(y), 7) or not np.all(np.isfinite(proba)) \
+            or not acc > majority:
+        raise AssertionError("phase 20b: predict_proba or accuracy off")
+    lone = DecisionTreeClassifier(max_depth=8).fit(X, (y == 0).astype(int))
+    lane = ovr.estimators_[0]
+    differ = [k for k in lone._params
+              if not np.array_equal(lone._params[k], lane._params[k])]
+    say("  class 0's lane against a lone fit of its binary labels: "
+        + ("bitwise equal" if not differ else f"differ in {differ}"))
+    if differ:
+        raise AssertionError(f"phase 20b: class 0's lane differs: {differ}")
+    loaded = pickle.loads(pickle.dumps(ovr))
+    if not np.array_equal(loaded.predict_proba(X[:5000]), proba[:5000]):
+        raise AssertionError("phase 20b: the pickled model differs")
+    return launches
+
+
+def phase_byo_forest(torch):
+    """20c: ``DistForestClassifier(DecisionTreeClassifier(max_features=
+    "sqrt"), n_estimators=32)`` on the card, threads against a serial
+    ``LocalBackend``."""
+    from skdist_tpu_torch import CUDABackend, DistForestClassifier, LocalBackend
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+
+    X, y = balanced_tabular(25_000)
+    say(f"phase 20c: DistForestClassifier(DecisionTreeClassifier("
+        f"max_features='sqrt'), n_estimators=32, random_state=0) on "
+        f"{X.shape}: CUDABackend's host threads against a serial "
+        "LocalBackend")
+    runs, walls = {}, {}
+    for label, backend in (("threads", CUDABackend()),
+                           ("serial", LocalBackend())):
+        runs[label], walls[label] = timed_call(torch, lambda: (
+            DistForestClassifier(DecisionTreeClassifier(max_features="sqrt"),
+                                 n_estimators=32, random_state=0,
+                                 backend=backend).fit(X, y)))
+    a, b = runs["threads"], runs["serial"]
+    differ = [t for t, (ea, eb) in enumerate(zip(a.estimators_,
+                                                 b.estimators_))
+              if any(not np.array_equal(ea._params[k], eb._params[k])
+                     for k in ea._params)]
+    proba = a.predict_proba(X)
+    row_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    loaded = pickle.loads(pickle.dumps(a))
+    same_pickle = np.array_equal(loaded.predict_proba(X), proba)
+    say(f"  threads {walls['threads']:.2f} s, serial {walls['serial']:.2f} s"
+        f" ({32 / walls['threads']:.1f} and {32 / walls['serial']:.1f} "
+        f"trees/s); trees " + ("bitwise equal" if not differ
+                              else f"differ at {differ}")
+        + f"; rows sum to 1 within {row_err:.1e}; train accuracy "
+        f"{float(np.mean(a.predict(X) == y)):.4f}; pickled = live: "
+        f"{same_pickle}")
+    if differ or row_err > 1e-6 or not same_pickle:
+        raise AssertionError("phase 20c: threads and serial differ, rows do "
+                             "not sum to 1, or the pickle differs")
+
+
+def phase_forest_memo(torch, warm_wall):
+    """20d: two fits of phase 6's forest under ``CUDABackend(
+    reuse_broadcast=True)``: the second reads the bin memos."""
+    from skdist_tpu_torch import CUDABackend, DistRandomForestClassifier
+    from skdist_tpu_torch.models import forest as fm
+
+    X, y = make_tabular(FOREST_N, FOREST_D, 2, seed=2)
+    fm._EDGE_MEMO.clear()
+    fm._XB_MEMO.clear()
+    bk = CUDABackend(reuse_broadcast=True)
+    first, wall1 = timed_call(torch, lambda: DistRandomForestClassifier(
+        backend=bk, **FOREST).fit(X, y))
+    xb = next(iter(fm._XB_MEMO.values()))[2]
+    second, wall2 = timed_call(torch, lambda: DistRandomForestClassifier(
+        backend=bk, **FOREST).fit(X, y))
+    hit = next(iter(fm._XB_MEMO.values()))[2] is xb \
+        and len(fm._EDGE_MEMO) == 1 and len(fm._XB_MEMO) == 1
+    differ = [k for k in first._trees
+              if not np.array_equal(first._trees[k], second._trees[k])]
+    say(f"phase 20d: DistRandomForestClassifier({FOREST}) on {X.shape} "
+        f"under CUDABackend(reuse_broadcast=True): first fit {wall1:.3f} s, "
+        f"second {wall2:.3f} s (phase 6's warm fit without the memos "
+        f"{warm_wall:.3f} s); memo hit {hit}; trees "
+        + ("bitwise equal" if not differ else f"differ in {differ}"))
+    if not hit or differ:
+        raise AssertionError("phase 20d: the bin memos missed or the trees "
+                             "differ")
+    fm._EDGE_MEMO.clear()
+    fm._XB_MEMO.clear()
+
+
+def phase_native_engine(torch):
+    """20e: the host C engine built on this machine's host, then a
+    16-tree forest on the CPU against the torch engine's."""
+    from skdist_tpu_torch import native
+    from skdist_tpu_torch.models.forest import RandomForestClassifier
+
+    # built in phase 1, from this checkout's source, by this host's cc
+    if not native.hist_tree_available():
+        raise AssertionError(f"phase 20e: the C engine did not build: "
+                             f"{native.build_error()}")
+    X, y = balanced_tabular(20_000, seed=4)
+    kw = dict(n_estimators=16, max_depth=8, bootstrap=True,
+              max_features=None, random_state=0, device="cpu")
+    nat, w_nat = timed_call(torch, lambda: RandomForestClassifier(
+        hist_mode="native", **kw).fit(X, y))
+    tor, w_tor = timed_call(torch, lambda: RandomForestClassifier(
+        hist_mode="scatter", **kw).fit(X, y))
+    differ = [k for k in ("feat", "thr", "is_split", "leaf", "seed")
+              if not np.array_equal(nat._trees[k], tor._trees[k])]
+    # a gain is sl + sr - st over sums of squares: float32 cancellation
+    # moves a small gain's relative bits, so the gap is read against the
+    # largest gain
+    gain = float(np.max(np.abs(nat._trees["gain"] - tor._trees["gain"]))
+                 / np.max(np.abs(tor._trees["gain"])))
+    say(f"phase 20e: the host C engine (built in phase 1); "
+        f"RandomForestClassifier({kw}) on {X.shape}: native {w_nat:.2f} s, "
+        f"torch engine (scatter) {w_tor:.2f} s; trees "
+        + ("equal (feat, thr, is_split, leaf, seed)" if not differ
+           else f"differ in {differ}")
+        + f", recorded gains (float64 in C, float32 in torch) within "
+        f"{gain:.1e} of the largest")
+    if differ or gain > 1e-5:
+        raise AssertionError("phase 20e: the native forest is not the torch "
+                             "engine's")
+
+
+def phase_trees(torch, warm_wall):
+    """Phase 20 (``--phase-20`` runs only it): returns the K4 launches of
+    20a and 20b."""
+    t0 = time.perf_counter()
+    search_launches = phase_tree_search(torch)
+    ovr_launches = phase_tree_ovr(torch)
+    phase_byo_forest(torch)
+    phase_forest_memo(torch, warm_wall)
+    phase_native_engine(torch)
+    say(f"phase 20 seconds: {time.perf_counter() - t0:.1f}")
+    return search_launches, ovr_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -3593,6 +3918,9 @@ def main():
     ap.add_argument("--phases-17-19", action="store_true",
                     help="build the kernels and run only phases 17-19 (no "
                     "result line): a short check of the newest phases")
+    ap.add_argument("--phase-20", action="store_true",
+                    help="build the kernels and run only phase 20 (no "
+                    "result line): a short check of the tree-family phase")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -3636,7 +3964,20 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 say("  ptxas:", line.strip())
+    from skdist_tpu_torch import native
+
+    t_cc = time.perf_counter()
+    if not native.hist_tree_available():
+        raise AssertionError("the host C tree engine did not build: "
+                             f"{native.build_error()}")
+    say(f"built hist_tree (the host C tree engine): "
+        f"{os.path.relpath(native.BUILD_DIR)} cc "
+        f"{time.perf_counter() - t_cc:.1f}s")
     say(f"phase 1 build seconds: {time.perf_counter() - t0:.1f}")
+    if args.phase_20:
+        phase_trees(torch, float("nan"))
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
 
     # ---- data of the main path (needed for the main kernel shape) ------
     n, d, k = 11314, 2 ** 18, 20
@@ -3781,12 +4122,12 @@ def main():
 
     # ---- phase 4: the dense headline -----------------------------------
     Xd, yd = make_20news_shaped()
-    # every other C (48 of 96, the span kept), so that the whole run
+    # every fourth C (24 of 96, the span kept), so that the whole run
     # stays inside its time limit
-    Cs_d = Cs[::2]
+    Cs_d = Cs[::4]
     nd_fits = 5 * len(Cs_d)
     say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {nd_fits} fits")
-    say(f"CUT: phases 4 and 4b run every other C of the grid "
+    say(f"CUT: phases 4 and 4b run every fourth C of the grid "
         f"({len(Cs_d)} of {len(Cs)}, the span kept)")
     gd, wall_d = fit_grid(torch, Xd, yd, Cs_d, backend)
     sd = gd.round_stats_[0]
@@ -3817,7 +4158,7 @@ def main():
     Xf, yf = make_tabular(FOREST_N, FOREST_D, 2, seed=2)
     k4_err, k4_times, (k4_bound_ms, k4_by) = phase_k4(torch, Xf, yf)
     torch.cuda.empty_cache()
-    _walls, k4_launches = phase_forest(torch, Xf, yf, backend)
+    forest_walls, k4_launches = phase_forest(torch, Xf, yf, backend)
     phase_card_vs_cpu(torch)
     phase_extra_trees_regressor(torch)
 
@@ -3880,6 +4221,11 @@ def main():
     torch.cuda.empty_cache()
     mm_launches, warm_launches = new_phases(torch, X, y, backend)
 
+    # ---- phase 20: trees batched, BYO forests, bin memos, C engine -----
+    torch.cuda.empty_cache()
+    tree_search_launches, tree_ovr_launches = phase_trees(
+        torch, forest_walls["warm"])
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -3919,7 +4265,9 @@ def main():
          "bound_ms": k4_bound_ms, "bound_by": k4_by,
          "library_ms": k4_times["K4_library"],
          "paths": {"forest": k4_launches,
-                   "generic_search": generic_launches}},
+                   "generic_search": generic_launches,
+                   "tree_search": tree_search_launches,
+                   "tree_ovr": tree_ovr_launches}},
         {"name": "packed_row_matvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
          "launches": row_launches["packed_row_matvec"],

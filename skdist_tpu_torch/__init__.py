@@ -57,7 +57,8 @@ _EXPORTS = {
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",
         "DistExtraTreesClassifier", "DistExtraTreesRegressor",
-        "DistRandomTreesEmbedding")},
+        "DistRandomTreesEmbedding", "DistForestClassifier",
+        "DistForestRegressor")},
 }
 
 

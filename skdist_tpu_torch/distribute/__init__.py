@@ -3,6 +3,8 @@
 from .ensemble import (
     DistExtraTreesClassifier,
     DistExtraTreesRegressor,
+    DistForestClassifier,
+    DistForestRegressor,
     DistRandomForestClassifier,
     DistRandomForestRegressor,
     DistRandomTreesEmbedding,
@@ -21,6 +23,8 @@ from .search import (
 __all__ = [
     "DistExtraTreesClassifier",
     "DistExtraTreesRegressor",
+    "DistForestClassifier",
+    "DistForestRegressor",
     "DistGridSearchCV",
     "DistMultiModelSearch",
     "DistOneVsOneClassifier",

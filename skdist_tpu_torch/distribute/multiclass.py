@@ -7,7 +7,8 @@ convergence-compacted path (the CV search uses it too). Counterpart of
 
 - **Batched path** (an estimator of a family marked ``_lane_labels``:
   ``LogisticRegression``, ``LinearSVC``, ``SGDClassifier``,
-  ``RidgeClassifier``): the class (or class-pair) axis is the task axis
+  ``RidgeClassifier``, ``DecisionTreeClassifier``,
+  ``ExtraTreeClassifier``): the class (or class-pair) axis is the task axis
   of one batched binary fit. Each task's label vector is derived on the
   card from the shared label matrix (``Y[:, c]``; a pair's ``y == j``);
   OvO's per-pair row subsets are 0/1 sample-weight masks, not slices.
@@ -31,8 +32,8 @@ binary estimators), ``classes_``, and ``predict``/``predict_proba``/
 ``decision_function``.
 
 Not ported yet (ROADMAP): the streamed (out-of-core) fits of both
-meta-estimators, the backends' host fan-out (``run_tasks``; the generic
-path here runs its fits in turn), and a batched path for the trees.
+meta-estimators, and the backends' host fan-out (``run_tasks``; the
+generic path here runs its fits in turn).
 """
 
 import itertools
@@ -393,8 +394,8 @@ class _BatchedBinaryFits:
         self.shared = backend.place({
             "X": X_arr, "sw": prepare_sample_weight(sample_weight, self.n),
             **extra_shared})
-        self.shared["op"] = self.est_cls._linear_op(self.shared["X"],
-                                                    self.static)
+        self.shared["op"] = self.est_cls._fit_operand(
+            self.shared["X"], self.meta, self.static)
         self.round_stats = []
 
     def task_hyper(self, n_tasks):

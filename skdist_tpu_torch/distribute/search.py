@@ -34,10 +34,18 @@ JAX package: every (candidate x fold) task clones the estimator, fits it
 on the fold's rows and scores it with the host scorers
 (:func:`~skdist_tpu_torch.metrics.check_multimetric_scoring`), fanned
 out over the backend's host threads (``run_tasks``; ``n_jobs``). That
-covers an estimator with no batched fit (the forests, a single tree, any
-duck-typed estimator), a searched param that does not ride the task
-axis, a scoring with no device kernel for this estimator (a callable, a
-dict) and fit params other than a full-length ``sample_weight``. A fit
+covers an estimator with no batched fit (the forests, any duck-typed
+estimator), a searched param outside the kernel's params, a scoring
+with no device kernel for this estimator (a callable, a dict, a
+probability metric over a tree, which has no proba kernel) and fit
+params other than a full-length ``sample_weight``.
+
+A single tree (``DecisionTree*``, ``ExtraTree*``) takes the batched
+path: every tree parameter shapes the kernel, so each candidate is a
+bucket whose fold lanes grow in one ``build_tree_kernel`` round over X
+binned once under the edges of the whole X, as in the JAX package (so
+its scores differ from the generic path's, which bins each training
+fold). A fit
 that raises scores ``error_score`` with a :class:`FitFailedWarning`
 (``error_score="raise"`` re-raises). ``preds=True`` adds the out-of-fold
 probabilities (or predictions) at the best params, ``preds_``.
@@ -311,10 +319,11 @@ def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
     )
 
     def model_outputs(params, X):
-        outputs = {"decision": decision_kernel(params["W"], X)}
+        W = est_cls._decision_params(params)
+        outputs = {"decision": decision_kernel(W, X)}
         outputs["predict"] = outputs["decision"]
         if proba_kernel is not None:
-            outputs["proba"] = proba_kernel(params["W"], X)
+            outputs["proba"] = proba_kernel(W, X)
         return outputs
 
     def scores(params, shared, task):
@@ -669,10 +678,20 @@ class DistBaseSearchCV(BaseEstimator):
         killed_gids = {}
         engaged = False
         self.round_stats_ = []
+        # a family that names the params its data prep reads
+        # (``_prep_params``: a tree's quantile edges read ``n_bins``
+        # alone) preps once for every bucket that shares them
+        prep_names = getattr(est_cls, "_prep_params", None)
+        preps = {}
         for static_overrides, cand_indices in buckets.values():
             bucket_est = clone(estimator).set_params(**static_overrides)
             bucket_est._check_supported()
-            data, meta = bucket_est._prep_fit_data(X_arr, y, sample_weight)
+            prep_key = None if prep_names is None else _freeze(
+                {k: getattr(bucket_est, k) for k in prep_names})
+            if prep_key is None or prep_key not in preps:
+                preps[prep_key] = bucket_est._prep_fit_data(
+                    X_arr, y, sample_weight)
+            data, meta = preps[prep_key]
             static = _freeze(bucket_est._static_config(meta))
             kernel = _build_cv_kernel(est_cls, meta, static, scorer_specs,
                                       self.return_train_score)
@@ -680,7 +699,7 @@ class DistBaseSearchCV(BaseEstimator):
                 "X": data["X"], "y": data["y"], "sw": data["sw"],
                 "train_masks": train_masks, "test_masks": test_masks,
             })
-            shared["op"] = est_cls._linear_op(shared["X"], static)
+            shared["op"] = est_cls._fit_operand(shared["X"], meta, static)
             gids = [c * n_splits + s for c in cand_indices
                     for s in range(n_splits)]
             task_args = {

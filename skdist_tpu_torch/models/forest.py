@@ -18,12 +18,20 @@ is stored with each tree, so OOB scoring regenerates its bootstrap.
 The fitted forest is a dict of stacked numpy tree arrays (``_trees``)
 and the bin edges (``_edges``): nothing on the device, nothing live.
 
-Not ported yet (ROADMAP P8): the host C engine (``hist_mode='native'``
-raises), the ``hist_calib`` table, the bin memos (they need the
-backend's ``reuse_broadcast``), and ``n_jobs`` (no host fan-out).
+On the CPU a forest that fits on a ``LocalBackend`` (the plain forests'
+default backend) grows its trees with the host C engine under
+``hist_mode="auto"`` (``models/native_forest.py``, ``n_jobs`` threads),
+and predicts with its walker, as the JAX package's CPU default does;
+the bootstrap weights still come from ``utils/draws.py``, so OOB scoring
+is engine-agnostic. Under ``reuse_broadcast=True`` on the backend, the
+quantile edges and the binned X of a host X are memoised across fits
+(:func:`_memo_edges`, :func:`_memo_apply_bins`).
+
+Not ported yet (ROADMAP Queue 1 item 5.6): the ``hist_calib`` table.
 """
 
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -35,7 +43,7 @@ from ..base import (
     TransformerMixin,
 )
 from ..ops.binning import apply_bins, quantile_bin_edges
-from ..parallel import CUDABackend
+from ..parallel import LocalBackend
 from ..utils import draws
 from ..utils.device import resolve_device
 from .linear import (
@@ -72,6 +80,70 @@ MAX_RAND_SEED = np.iinfo(np.int32).max
 
 #: trees walked at once by the OOB aggregation
 _OOB_TREES = 32
+
+
+# Two separate memos, keyed by a host X's identity and ``n_bins``, each
+# entry holding a weakref to its X (a recycled ``id`` never serves it;
+# collecting X evicts it), as the backend's broadcast cache does:
+#   _EDGE_MEMO: -> (weakref, edges), written only by _memo_edges, so it
+#       only ever holds quantile_bin_edges(X) of that very X;
+#   _XB_MEMO: -> (weakref, edges, Xb on the device), written by
+#       _memo_apply_bins with whatever edges the caller passed (a warm
+#       start applies the edges it inherited).
+# Kept apart, a warm-start apply on a new X cannot leave its inherited
+# edges where _memo_edges would serve them as that X's own, which would
+# change the trees of a later fresh fit. Enabled by the backend's
+# reuse_broadcast, whose contract they share: mutating X after a fit is
+# the caller's error.
+_EDGE_MEMO = {}
+_XB_MEMO = {}
+_BIN_MEMO_MAX = 4
+
+
+def _memo_lookup(memo, X, n_bins, enabled):
+    if not enabled or not isinstance(X, np.ndarray):
+        return None, None
+    key = (id(X), int(n_bins))
+    ent = memo.get(key)
+    if ent is not None:
+        if ent[0]() is X:
+            return key, ent
+        memo.pop(key, None)
+    return key, None
+
+
+def _memo_store(memo, key, X, *values):
+    memo[key] = (weakref.ref(X, lambda _r: memo.pop(key, None)), *values)
+    while len(memo) > _BIN_MEMO_MAX:
+        memo.pop(next(iter(memo)), None)
+
+
+def _memo_edges(X, n_bins, enabled):
+    """``quantile_bin_edges(X, n_bins)``, memoised when ``enabled``."""
+    key, ent = _memo_lookup(_EDGE_MEMO, X, n_bins, enabled)
+    if ent is not None:
+        return ent[1]
+    edges = quantile_bin_edges(X, n_bins)
+    if key is not None:
+        _memo_store(_EDGE_MEMO, key, X, np.asarray(edges))
+    return edges
+
+
+def _memo_apply_bins(X, edges, n_bins, device, enabled):
+    """``X`` binned under ``edges`` on ``device`` (int32), memoised when
+    ``enabled``: a hit needs the same X, the same edges and the same
+    device."""
+    key, ent = _memo_lookup(_XB_MEMO, X, n_bins, enabled)
+    want = torch.device(device)
+    if ent is not None and np.array_equal(ent[1], edges) \
+            and ent[2].device.type == want.type \
+            and want.index in (None, ent[2].device.index):
+        return ent[2]
+    with torch.no_grad():
+        Xb = apply_bins(torch.as_tensor(X).to(device), edges)
+    if key is not None:
+        _memo_store(_XB_MEMO, key, X, np.asarray(edges), Xb)
+    return Xb
 
 
 def make_forest_tree_kernel(d, n_bins, channels, max_depth, max_features,
@@ -124,7 +196,7 @@ class _BaseForest(BaseEstimator):
                  max_features="sqrt", min_samples_split=2, min_samples_leaf=1,
                  min_impurity_decrease=0.0, bootstrap=True, oob_score=False,
                  class_weight=None, warm_start=False, random_state=None,
-                 hist_mode="auto", device=None):
+                 n_jobs=None, hist_mode="auto", device=None):
         self.n_estimators = n_estimators
         self.max_depth = max_depth
         self.n_bins = n_bins
@@ -137,6 +209,7 @@ class _BaseForest(BaseEstimator):
         self.class_weight = class_weight
         self.warm_start = warm_start
         self.random_state = random_state
+        self.n_jobs = n_jobs
         self.hist_mode = hist_mode
         self.device = device
 
@@ -147,7 +220,7 @@ class _BaseForest(BaseEstimator):
     # the distributed wrappers override this to route through their
     # backend and partitions
     def _resolve_fit_backend(self):
-        return CUDABackend(device=self.device), None
+        return LocalBackend(n_jobs=self.n_jobs, device=self.device), None
 
     def fit(self, X, y, sample_weight=None):
         X = as_dense_f32(X)
@@ -155,12 +228,16 @@ class _BaseForest(BaseEstimator):
         sw = prepare_sample_weight(sample_weight, n)
         backend, round_size = self._resolve_fit_backend()
         device = backend.device
+        # binning is a function of (X, n_bins) alone: under the backend's
+        # reuse_broadcast contract a repeat fit on the same host X skips
+        # the quantile pass, the upload and the apply
+        reuse = getattr(backend, "reuse_broadcast", False)
         warm = self.warm_start and getattr(self, "_trees", None) is not None
         if not warm:  # a cold fit replaces any trees converted into it
             self.__dict__.pop("_foreign_seeds", None)
         # existing trees' thresholds are bin ids under the original edges:
         # a warm refit keeps them
-        edges = self._edges if warm else quantile_bin_edges(X, self.n_bins)
+        edges = self._edges if warm else _memo_edges(X, self.n_bins, reuse)
 
         if self._classification:
             y_enc, classes = encode_labels(y)
@@ -202,27 +279,37 @@ class _BaseForest(BaseEstimator):
             if n_prev:  # advance the stream past already-drawn seeds
                 rng.randint(MAX_RAND_SEED, size=n_prev)
             seeds = rng.randint(MAX_RAND_SEED, size=n_more).astype(np.int32)
-            mode = resolve_hist_config(self.hist_mode, device)
-            kernel = make_forest_tree_kernel(
-                d=d, n_bins=self.n_bins, channels=channels,
-                max_depth=self.max_depth,
-                max_features=resolve_max_features(self.max_features, d),
-                min_samples_split=self.min_samples_split,
-                min_samples_leaf=self.min_samples_leaf,
-                min_impurity_decrease=self.min_impurity_decrease,
-                extra=self._extra, classification=self._classification,
-                bootstrap=self.bootstrap, hist_mode=mode,
-            )
-            with torch.no_grad():
-                Xb = apply_bins(torch.as_tensor(X).to(device), edges)
-            shared = backend.place({"Xb": Xb, "y": y_enc, "sw": sw})
-            new_trees = backend.batched_map(
-                kernel, {"seed": seeds}, shared,
-                bytes_per_task=tree_task_bytes(
-                    n, d, self.n_bins, channels, self.max_depth, mode),
-                round_size=round_size,
-            )
-            del shared, Xb
+            # the host engine only on a LocalBackend, as in the JAX
+            # package; a CUDABackend round is a batched kernel
+            mode = resolve_hist_config(
+                self.hist_mode, device,
+                allow_native=isinstance(backend, LocalBackend),
+                n_bins=self.n_bins)
+            if mode == "native":
+                from ..ops.binning import apply_bins_np
+
+                new_trees = self._fit_native(apply_bins_np(X, edges), y_enc,
+                                             sw, seeds, d)
+            else:
+                kernel = make_forest_tree_kernel(
+                    d=d, n_bins=self.n_bins, channels=channels,
+                    max_depth=self.max_depth,
+                    max_features=resolve_max_features(self.max_features, d),
+                    min_samples_split=self.min_samples_split,
+                    min_samples_leaf=self.min_samples_leaf,
+                    min_impurity_decrease=self.min_impurity_decrease,
+                    extra=self._extra, classification=self._classification,
+                    bootstrap=self.bootstrap, hist_mode=mode,
+                )
+                Xb = _memo_apply_bins(X, edges, self.n_bins, device, reuse)
+                shared = backend.place({"Xb": Xb, "y": y_enc, "sw": sw})
+                new_trees = backend.batched_map(
+                    kernel, {"seed": seeds}, shared,
+                    bytes_per_task=tree_task_bytes(
+                        n, d, self.n_bins, channels, self.max_depth, mode),
+                    round_size=round_size,
+                )
+                del shared, Xb
             if prev is not None:
                 new_trees = {k: np.concatenate([prev[k], new_trees[k]])
                              for k in prev}
@@ -232,6 +319,39 @@ class _BaseForest(BaseEstimator):
         if self.oob_score:
             self._compute_oob(X, y_enc, device)
         return self
+
+    def _fit_native(self, Xb, y_enc, sw, seeds, d):
+        """Grow the trees with the host C engine
+        (``models/native_forest.py``) on ``n_jobs`` threads. Each tree's
+        bootstrap weights are ``utils/draws.py bootstrap_counts`` of its
+        seed, the draw of the torch engine, which OOB scoring
+        regenerates; they are made a chunk of trees at a time, so no
+        ``(T, n)`` weight matrix is held."""
+        from ..native import default_threads
+        from .native_forest import grow_forest_native
+
+        n = Xb.shape[0]
+        sw = np.asarray(sw, np.float32)
+        bootstrap = self.bootstrap
+
+        def weights(t0, t1):
+            if bootstrap:
+                counts = draws.bootstrap_counts(
+                    torch.as_tensor(seeds[t0:t1]), n).numpy()
+                return sw[None, :] * counts
+            return np.broadcast_to(sw, (t1 - t0, n)).copy()
+
+        return grow_forest_native(
+            Xb, y_enc, weights, seeds,
+            n_bins=self.n_bins, max_depth=self.max_depth,
+            max_features=resolve_max_features(self.max_features, d),
+            min_samples_split=self.min_samples_split,
+            min_samples_leaf=self.min_samples_leaf,
+            min_impurity_decrease=self.min_impurity_decrease,
+            extra=self._extra, classification=self._classification,
+            n_classes=len(getattr(self, "classes_", ())) or 1,
+            n_threads=default_threads(self.n_jobs),
+        )
 
     def _check_own_draws(self):
         """OOB masks are regenerated from the stored seeds with the
@@ -307,13 +427,22 @@ class _BaseForest(BaseEstimator):
         """Mean over trees of the per-tree leaf outputs -> (n, K_out)."""
         self._check_fitted()
         return walk_trees(self._trees, self._edges, X, self.max_depth,
-                          resolve_device(self.device), "predict")
+                          resolve_device(self.device), "predict",
+                          n_threads=self._walk_threads())
 
     def apply(self, X):
         """(n, n_estimators) leaf ids: sklearn's ``forest.apply``."""
         self._check_fitted()
         return walk_trees(self._trees, self._edges, X, self.max_depth,
-                          resolve_device(self.device), "apply")
+                          resolve_device(self.device), "apply",
+                          n_threads=self._walk_threads())
+
+    def _walk_threads(self):
+        """The host C walker's threads on the CPU: ``n_jobs``, read as
+        the host engine reads it."""
+        from ..native import default_threads
+
+        return default_threads(getattr(self, "n_jobs", None))
 
     @property
     def feature_importances_(self):
@@ -386,15 +515,16 @@ class RandomForestRegressor(_BaseForest, _ForestRegressorMixin):
     def __init__(self, n_estimators=100, max_depth=8, n_bins=32,
                  max_features=1.0, min_samples_split=2, min_samples_leaf=1,
                  min_impurity_decrease=0.0, bootstrap=True, oob_score=False,
-                 warm_start=False, random_state=None, hist_mode="auto",
-                 device=None):
+                 warm_start=False, random_state=None, n_jobs=None,
+                 hist_mode="auto", device=None):
         super().__init__(
             n_estimators=n_estimators, max_depth=max_depth, n_bins=n_bins,
             max_features=max_features, min_samples_split=min_samples_split,
             min_samples_leaf=min_samples_leaf,
             min_impurity_decrease=min_impurity_decrease, bootstrap=bootstrap,
             oob_score=oob_score, warm_start=warm_start,
-            random_state=random_state, hist_mode=hist_mode, device=device,
+            random_state=random_state, n_jobs=n_jobs, hist_mode=hist_mode,
+            device=device,
         )
 
 
@@ -408,14 +538,14 @@ class ExtraTreesClassifier(_BaseForest, _ForestClassifierMixin):
                  max_features="sqrt", min_samples_split=2, min_samples_leaf=1,
                  min_impurity_decrease=0.0, bootstrap=False, oob_score=False,
                  class_weight=None, warm_start=False, random_state=None,
-                 hist_mode="auto", device=None):
+                 n_jobs=None, hist_mode="auto", device=None):
         super().__init__(
             n_estimators=n_estimators, max_depth=max_depth, n_bins=n_bins,
             max_features=max_features, min_samples_split=min_samples_split,
             min_samples_leaf=min_samples_leaf,
             min_impurity_decrease=min_impurity_decrease, bootstrap=bootstrap,
             oob_score=oob_score, class_weight=class_weight,
-            warm_start=warm_start, random_state=random_state,
+            warm_start=warm_start, random_state=random_state, n_jobs=n_jobs,
             hist_mode=hist_mode, device=device,
         )
 
@@ -426,15 +556,16 @@ class ExtraTreesRegressor(_BaseForest, _ForestRegressorMixin):
     def __init__(self, n_estimators=100, max_depth=8, n_bins=32,
                  max_features=1.0, min_samples_split=2, min_samples_leaf=1,
                  min_impurity_decrease=0.0, bootstrap=False, oob_score=False,
-                 warm_start=False, random_state=None, hist_mode="auto",
-                 device=None):
+                 warm_start=False, random_state=None, n_jobs=None,
+                 hist_mode="auto", device=None):
         super().__init__(
             n_estimators=n_estimators, max_depth=max_depth, n_bins=n_bins,
             max_features=max_features, min_samples_split=min_samples_split,
             min_samples_leaf=min_samples_leaf,
             min_impurity_decrease=min_impurity_decrease, bootstrap=bootstrap,
             oob_score=oob_score, warm_start=warm_start,
-            random_state=random_state, hist_mode=hist_mode, device=device,
+            random_state=random_state, n_jobs=n_jobs, hist_mode=hist_mode,
+            device=device,
         )
 
 
@@ -449,14 +580,14 @@ class RandomTreesEmbedding(_BaseForest, TransformerMixin):
     def __init__(self, n_estimators=100, max_depth=5, n_bins=32,
                  min_samples_split=2, min_samples_leaf=1,
                  min_impurity_decrease=0.0, sparse_output=True,
-                 warm_start=False, random_state=None, hist_mode="auto",
-                 device=None):
+                 warm_start=False, random_state=None, n_jobs=None,
+                 hist_mode="auto", device=None):
         super().__init__(
             n_estimators=n_estimators, max_depth=max_depth, n_bins=n_bins,
             max_features=1.0, min_samples_split=min_samples_split,
             min_samples_leaf=min_samples_leaf,
             min_impurity_decrease=min_impurity_decrease, bootstrap=False,
-            warm_start=warm_start, random_state=random_state,
+            warm_start=warm_start, random_state=random_state, n_jobs=n_jobs,
             hist_mode=hist_mode, device=device,
         )
         self.sparse_output = sparse_output

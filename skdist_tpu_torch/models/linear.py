@@ -210,8 +210,10 @@ class _LinearModelBase(BaseEstimator):
     - ``_static_names``: params that shape the kernel; candidates that
       differ here run in separate buckets
     - ``_prep_fit_data(X, y, sample_weight)`` -> (host data, meta)
+    - ``_fit_operand(X, meta, static)`` -> the fit kernels' shared operand
     - ``_build_fit_kernel(meta, static)`` -> batched fit kernel
-    - ``_build_decision_kernel(meta, static)`` -> (W, X) -> raw scores
+    - ``_build_decision_kernel(meta, static)`` -> (W, X) -> raw scores,
+      with ``W = _decision_params(fit outputs)``
     """
 
     _hyper_names = ()
@@ -410,6 +412,19 @@ class _LinearModelBase(BaseEstimator):
     def _linear_op(cls, X, static):
         """The fit problems' matvec interface over device ``X``."""
         return LinearOperator(X, dict(static)["fit_intercept"])
+
+    @classmethod
+    def _fit_operand(cls, X, meta, static):
+        """The batched fit kernels' shared operand over device ``X``, as
+        the searches and the multiclass meta-estimators build it once:
+        the :meth:`_linear_op`."""
+        return cls._linear_op(X, static)
+
+    @classmethod
+    def _decision_params(cls, params):
+        """What the decision and proba kernels read of a batched fit's
+        outputs: the weights ``W``."""
+        return params["W"]
 
     def _static_config(self, meta):
         return {k: getattr(self, k) for k in self._static_names}

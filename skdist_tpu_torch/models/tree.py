@@ -16,7 +16,10 @@ Counterpart of ``skdist_tpu/models/tree.py``, in the same steps:
 Where the JAX package ``vmap``s one tree per lane, :func:`build_tree_kernel`
 here grows a round of T trees at once: ``Xb (n, d)`` is shared by all
 trees, channels are ``(T, n, C)`` and every tree draws from its own seed
-(``utils/draws.py``). The histogram engine (``hist_mode``):
+(``utils/draws.py``). The forests, the searches and one-vs-rest/one-vs-one
+put their trees, folds, classes or class pairs on that axis
+(:class:`_BaseTree` has the searches' batched-fit contract). The
+histogram engine (``hist_mode``):
 
 - ``"pallas"``: K4, the hand-written CUDA kernel ``level_histogram``
   (``ops/hist.py``), on the card; its plain version on the CPU;
@@ -24,9 +27,12 @@ trees, channels are ``(T, n, C)`` and every tree draws from its own seed
 - ``"matmul"``: one-hot ``(n, d*B)`` times ``(n, nl*C)`` through
   ``torch.matmul`` (what the JAX package computes with XLA's dot);
 - ``"matmul_sib"``: the same with sibling subtraction below the root;
-- ``"auto"``: ``"pallas"`` on the card, ``"scatter"`` on the CPU;
-- ``"native"`` (the JAX package's host C engine) is not ported yet and
-  raises.
+- ``"native"``: the host C engine (``models/native_forest.py``), on the
+  CPU only, and never inside a batched kernel;
+- ``"auto"``: ``"pallas"`` on the card; on the CPU ``"native"`` for a
+  single tree and for a forest on a ``LocalBackend`` (the JAX package's
+  CPU calibration), else ``"scatter"`` (a batched kernel: the
+  calibration's ``xla_mode``). See :func:`resolve_hist_config`.
 
 The random draws (``max_features`` subsets, ExtraTrees thresholds) come
 from a counter-based hash keyed by each tree's seed, not from
@@ -39,11 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
-from ..ops.binning import apply_bins, quantile_bin_edges
+from ..ops.binning import apply_bins, apply_bins_np, quantile_bin_edges
 from ..ops.hist import (integer_channels, kernel_bins, level_histogram,
                         level_histogram_ref)
 from ..utils import draws
-from ..utils.device import exact_matmuls, resolve_device
+from ..utils.device import exact_matmuls, lane_sum, resolve_device
 from .linear import as_dense_f32, encode_labels, prepare_sample_weight
 
 __all__ = [
@@ -64,6 +70,9 @@ __all__ = [
 ]
 
 _NEG = -1e30
+
+#: the arrays of one fitted tree
+_TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
 #: rows walked at once by the predict side, times the tree count
 _WALK_ELEMS = 2 ** 24
@@ -140,25 +149,54 @@ def pick_level_splits(gain, node_cnt, *, min_samples_split, w_root,
     return best_f, best_t, best_gain, do_split
 
 
-def resolve_hist_config(hist_mode, device):
-    """The concrete histogram engine for ``hist_mode`` on ``device``:
-    ``"auto"`` is K4 (``"pallas"``) on the card and ``"scatter"`` on the
-    CPU. There is no calibration table yet (``hist_calib.py`` waits,
-    ROADMAP P8), and none of the JAX package's TPU guards applies: K4
-    takes any ``n_bins`` and builds nothing of size ``(n, d*B)``."""
+def resolve_hist_config(hist_mode, device, allow_native=False, n_bins=32):
+    """The concrete histogram engine for ``hist_mode`` on ``device``.
+
+    ``allow_native`` is set by the callers that may run the host C
+    engine (``models/native_forest.py``): a single tree's ``fit``, and a
+    forest's that fits on a ``LocalBackend``; a batched kernel (a forest
+    round on ``CUDABackend``, the searches' and the multiclass lanes) may
+    not, as in the JAX package (``resolve_hist_config(allow_native=
+    False)``). ``"auto"`` is K4 (``"pallas"``) on the card; on the CPU it
+    is ``"native"`` where allowed and the C kernels build for ``n_bins``
+    (at most 256), else ``"scatter"``. An explicit ``"native"`` raises on
+    the card, where not allowed, and where the C engine cannot serve the
+    fit: nothing gives way silently. There is no calibration table yet
+    (``hist_calib.py`` waits, ROADMAP Queue 1 item 5.6), and none of the
+    JAX package's TPU guards applies: K4 takes any ``n_bins`` and builds
+    nothing of size ``(n, d*B)``."""
+    on_card = torch.device(device).type == "cuda"
     if hist_mode == "native":
-        raise NotImplementedError(
-            "hist_mode='native' is the JAX package's host C tree engine "
-            "(models/native_forest.py), which is not ported yet; see "
-            "ROADMAP.md, P8. Use 'auto', 'pallas', 'scatter', 'matmul' or "
-            "'matmul_sib'"
-        )
+        if on_card:
+            raise ValueError(
+                "hist_mode='native' is the host C tree engine and cannot "
+                "run on the card; use 'auto' or 'pallas' there, or "
+                "device='cpu'"
+            )
+        if not allow_native:
+            raise ValueError(
+                "hist_mode='native' is the host (LocalBackend) tree engine "
+                "and cannot run inside a batched kernel (a CUDABackend "
+                "forest round, the searches' and the multiclass lanes); "
+                "use 'auto' or 'scatter'/'matmul'/'pallas'"
+            )
+        from .native_forest import native_supported_or_raise
+
+        native_supported_or_raise(n_bins, True)
+        return "native"
     if hist_mode == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "scatter"
+        if on_card:
+            return "pallas"
+        if allow_native:
+            from .native_forest import native_supported_or_raise
+
+            if native_supported_or_raise(n_bins, False):
+                return "native"
+        return "scatter"
     if hist_mode not in ("scatter", "matmul", "matmul_sib", "pallas"):
         raise ValueError(
-            f"hist_mode must be 'auto', 'scatter', 'matmul', 'matmul_sib' "
-            f"or 'pallas'; got {hist_mode!r}"
+            f"hist_mode must be 'auto', 'native', 'scatter', 'matmul', "
+            f"'matmul_sib' or 'pallas'; got {hist_mode!r}"
         )
     return hist_mode
 
@@ -241,12 +279,13 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
         is_split = torch.zeros((T, N), dtype=torch.bool, device=dev)
         gain_rec = torch.zeros((T, N), dtype=torch.float32, device=dev)
         node_id = torch.zeros((T, n), dtype=torch.int64, device=dev)
+        # lane_sum: a tree's totals do not depend on its slot in the round
         if newton:
-            w_root = torch.sum(Ych[..., 1], dim=1)  # total hessian mass
+            w_root = lane_sum(Ych[..., 1])  # total hessian mass
         elif classification:
-            w_root = torch.sum(Ych[..., :K], dim=(1, 2))
+            w_root = lane_sum(Ych[..., :K])
         else:
-            w_root = torch.sum(Ych[..., 0], dim=1)
+            w_root = lane_sum(Ych[..., 0])
         w_root = w_root[:, None]
 
         Xb = Xb.contiguous()
@@ -467,22 +506,34 @@ def walk_block(walk, trees, edges, X, mode):
     return res.T if mode == "apply" else torch.mean(res, dim=0)
 
 
-def walk_trees(trees, edges, X, max_depth, device, mode):
+def walk_trees(trees, edges, X, max_depth, device, mode, n_threads=None):
     """Walk a stack of fitted trees (numpy ``(T, N)`` arrays) over ``X``
-    on ``device``, in row blocks. ``mode="apply"`` returns the final node
-    ids ``(n, T)``; ``"predict"`` the mean leaf value ``(n, K)``."""
-    walk = tree_predict_kernel(max_depth, return_nodes=(mode == "apply"))
-    keys = ("feat", "thr", "is_split") + (("leaf",) if mode != "apply"
-                                         else ())
-    dev_trees = {k: torch.tensor(np.asarray(trees[k])).to(device)
-                 for k in keys}
-    T = dev_trees["feat"].shape[0]
+    on ``device``. ``mode="apply"`` returns the final node ids ``(n,
+    T)``; ``"predict"`` the mean leaf value ``(n, K)``. On the CPU the
+    host C walker (``native/hist_tree.c``, ``n_threads`` threads) walks
+    when it built, as the JAX package's CPU walk does; else, and on the
+    card, the torch walker walks in row blocks."""
     X = as_dense_f32(X)
     if X.shape[1] != len(edges):
         raise ValueError(
             f"X has {X.shape[1]} features; the model was fitted on "
             f"{len(edges)}"
         )
+    if torch.device(device).type == "cpu":
+        from ..native import forest_walk_native, hist_tree_available
+
+        if hist_tree_available():
+            out = forest_walk_native(apply_bins_np(X, edges), trees,
+                                     max_depth, mode=mode,
+                                     n_threads=n_threads)
+            if out is not None:
+                return out.astype(np.int64) if mode == "apply" else out
+    walk = tree_predict_kernel(max_depth, return_nodes=(mode == "apply"))
+    keys = ("feat", "thr", "is_split") + (("leaf",) if mode != "apply"
+                                         else ())
+    dev_trees = {k: torch.tensor(np.asarray(trees[k])).to(device)
+                 for k in keys}
+    T = dev_trees["feat"].shape[0]
     edges_t = torch.as_tensor(np.asarray(edges, np.float32)).to(device)
     step = max(1, _WALK_ELEMS // max(T, 1))
     outs = []
@@ -508,9 +559,30 @@ class _BaseTree(BaseEstimator):
     unless ``device="cpu"``.
 
     ``splitter='random'`` gives ExtraTree behaviour (random thresholds).
-    The JAX package's batched-search hooks (``_build_fit_kernel``) wait
-    with forests inside ``DistGridSearchCV`` (ROADMAP P8).
+    On the CPU, ``hist_mode="auto"`` fits with the host C engine
+    (``models/native_forest.py``) and predicts with its walker, as the
+    JAX package does there; on the card it runs K4.
+
+    The batched-fit contract of :mod:`skdist_tpu_torch.distribute.search`
+    and the multiclass meta-estimators marks every parameter static (a
+    candidate that changes one is a bucket of its own) and nothing rides
+    the task axis: a round of T lanes (folds, classes, class pairs) is
+    one :func:`build_tree_kernel` call over X binned once under the
+    quantile edges of the whole X (as the JAX kernel's ``aux["edges"]``
+    does), each lane with its own weights and, for a classifier, its own
+    labels (``_lane_labels``), and every lane with the seed
+    ``random_state or 0``.
     """
+
+    _hyper_names = ()
+    _static_names = (
+        "max_depth", "n_bins", "max_features", "min_samples_split",
+        "min_samples_leaf", "min_impurity_decrease", "splitter",
+        "random_state", "hist_mode",
+    )
+    #: the params :meth:`_prep_fit_data` reads: a search preps the whole
+    #: X's edges once for every bucket of one ``n_bins``
+    _prep_params = ("n_bins",)
 
     def __init__(self, max_depth=8, n_bins=32, max_features=None,
                  min_samples_split=2, min_samples_leaf=1,
@@ -531,45 +603,144 @@ class _BaseTree(BaseEstimator):
     def _classification(self):
         return isinstance(self, ClassifierMixin)
 
-    def fit(self, X, y, sample_weight=None):
-        device = resolve_device(self.device)
-        mode = resolve_hist_config(self.hist_mode, device)
+    # ---- the batched-fit contract --------------------------------------
+    def _check_supported(self):
+        """Raise for invalid settings (also those set through
+        ``set_params``)."""
+
+    def _prep_fit_data(self, X, y, sample_weight=None):
+        """``(host data, meta)`` of a fit: ``X`` dense float32, ``y``
+        (encoded class indices, or float32 targets), ``sw``; ``meta``
+        holds the quantile ``edges`` of the whole ``X``, which every lane
+        of a batched round bins with."""
         X = as_dense_f32(X)
-        n, d = X.shape
-        sw = prepare_sample_weight(sample_weight, n)
-        edges = quantile_bin_edges(X, self.n_bins)
-        meta = {"n_features": d}
-        sw_t = torch.as_tensor(sw).to(device)
+        sw = prepare_sample_weight(sample_weight, X.shape[0])
+        meta = {"n_features": X.shape[1], "x_format": "dense",
+                "edges": quantile_bin_edges(X, self.n_bins)}
         if self._classification:
             y_idx, classes = encode_labels(y)
             meta.update(classes=classes, n_classes=len(classes))
-            C = len(classes) + 1
-            Ych = classification_channels(
-                torch.as_tensor(y_idx).to(device), sw_t, len(classes))
-        else:
-            C = 4
-            y_t = torch.as_tensor(np.asarray(y, np.float32)).to(device)
-            Ych = regression_channels(y_t, sw_t)
+            return {"X": X, "y": y_idx, "sw": sw}, meta
+        return {"X": X, "y": np.asarray(y, np.float32), "sw": sw}, meta
+
+    def _static_config(self, meta):
+        """Every parameter that shapes the fit, plus the class count and
+        the width (``_n_classes``, ``_n_features``)."""
+        cfg = {k: getattr(self, k) for k in self._static_names}
+        cfg["_n_classes"] = meta.get("n_classes", 0)
+        cfg["_n_features"] = meta["n_features"]
+        return cfg
+
+    @classmethod
+    def _fit_operand(cls, X, meta, static):
+        """The fit kernels' shared operand: device ``X`` binned under the
+        whole X's edges, once for every round."""
+        return apply_bins(X, meta["edges"])
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        """``kernel(Xb, y, sw, hyper) -> trees``: one round of T trees
+        over the shared bins ``Xb (n, d)`` (:meth:`_fit_operand`), with
+        weights ``sw (T, n)`` and labels ``y``, ``(n,)`` or one vector a
+        lane ``(T, n)``; ``hyper`` is empty. Returns ``{feat, thr,
+        is_split, gain: (T, N), leaf: (T, N, K)}``. The histogram engine
+        resolves on the device of ``Xb`` with no host engine (a batched
+        kernel): K4 on the card, the scatter on the CPU."""
+        st = dict(static)
+        d, K = st["_n_features"], st["_n_classes"]
+        classification = K > 0
         grow = build_tree_kernel(
-            n_features=d, n_bins=self.n_bins, channels=C,
-            max_depth=self.max_depth,
-            max_features=resolve_max_features(self.max_features, d),
-            min_samples_split=self.min_samples_split,
-            min_samples_leaf=self.min_samples_leaf,
-            min_impurity_decrease=self.min_impurity_decrease,
-            extra=(self.splitter == "random"),
-            classification=self._classification, hist_mode=mode,
+            n_features=d, n_bins=st["n_bins"],
+            channels=(K + 1) if classification else 4,
+            max_depth=st["max_depth"],
+            max_features=resolve_max_features(st["max_features"], d),
+            min_samples_split=st["min_samples_split"],
+            min_samples_leaf=st["min_samples_leaf"],
+            min_impurity_decrease=st["min_impurity_decrease"],
+            extra=(st["splitter"] == "random"),
+            classification=classification, hist_mode=st["hist_mode"],
         )
-        seeds = torch.tensor([self.random_state or 0], dtype=torch.int64)
-        with torch.no_grad(), exact_matmuls():
-            Xb = apply_bins(torch.as_tensor(X).to(device), edges)
-            tree = grow(Xb, Ych[None], seeds)
-        self._params = {k: v[0].cpu().numpy() for k, v in tree.items()}
-        self._params["edges"] = edges
-        self._meta = meta
-        self.n_features_in_ = d
+        seed = st["random_state"] or 0
+
+        def kernel(Xb, y, sw, hyper):
+            if classification:
+                Ych = classification_channels(y, sw, K)
+            else:
+                Ych = regression_channels(y, sw)
+            seeds = torch.full((sw.shape[0],), seed, dtype=torch.int64,
+                               device=Xb.device)
+            return grow(Xb, Ych, seeds)
+
+        return kernel
+
+    @classmethod
+    def _decision_params(cls, params):
+        """What the decision kernel reads of a batched fit's outputs: the
+        stacked trees themselves."""
+        return params
+
+    @classmethod
+    def _batched_task_bytes(cls, meta, static, n):
+        st = dict(static)
+        K = st["_n_classes"]
+        C = (K + 1) if K else 4
+        # the lane's tree, its walk over X for the scores (int64 nodes,
+        # the gathers and the leaf values)
+        return tree_task_bytes(n, st["_n_features"], st["n_bins"], C,
+                               st["max_depth"], st["hist_mode"]) \
+            + n * (8 * 4 + 4 * K)
+
+    @classmethod
+    def _batched_round_bytes(cls, meta, static, n):
+        """The shared int32 bins, K4's padded uint8 copy of them and the
+        scores' binning of X, held once a round."""
+        d = dict(static)["_n_features"]
+        return n * (4 * d + 16 * -(-d // 16) + 4 * d)
+
+    def _set_fitted(self, params, meta):
+        """Fitted state from one lane of a batched fit: the tree's arrays
+        and the edges it was grown under."""
+        self._params = {k: np.asarray(params[k]) for k in _TREE_KEYS}
+        self._params["edges"] = np.asarray(meta["edges"], np.float32)
+        self._meta = {k: v for k, v in meta.items() if k != "edges"}
+        self.n_features_in_ = meta["n_features"]
         if "classes" in meta:
             self.classes_ = meta["classes"]
+
+    # ---- fit and predict -----------------------------------------------
+    def fit(self, X, y, sample_weight=None):
+        device = resolve_device(self.device)
+        mode = resolve_hist_config(self.hist_mode, device, allow_native=True,
+                                   n_bins=self.n_bins)
+        data, meta = self._prep_fit_data(X, y, sample_weight)
+        d = meta["n_features"]
+        if mode == "native":
+            from .native_forest import grow_single_tree_native
+
+            params = grow_single_tree_native(
+                apply_bins_np(data["X"], meta["edges"]), data["y"],
+                data["sw"], self.random_state or 0,
+                n_bins=self.n_bins, max_depth=self.max_depth,
+                max_features=resolve_max_features(self.max_features, d),
+                min_samples_split=self.min_samples_split,
+                min_samples_leaf=self.min_samples_leaf,
+                min_impurity_decrease=self.min_impurity_decrease,
+                extra=(self.splitter == "random"),
+                classification=self._classification,
+                n_classes=meta.get("n_classes", 0) or 1,
+            )
+            self._set_fitted(params, meta)
+            return self
+        static = self._static_config(meta)
+        static["hist_mode"] = mode
+        kernel = self._build_fit_kernel(meta, tuple(static.items()))
+        with torch.no_grad(), exact_matmuls():
+            Xb = self._fit_operand(
+                torch.as_tensor(data["X"]).to(device), meta, None)
+            tree = kernel(Xb, torch.as_tensor(data["y"]).to(device),
+                          torch.as_tensor(data["sw"]).to(device)[None], {})
+        self._set_fitted({k: v[0].cpu().numpy() for k, v in tree.items()},
+                         meta)
         return self
 
     def _check_fitted(self):
@@ -577,11 +748,6 @@ class _BaseTree(BaseEstimator):
             raise AttributeError(
                 f"This {type(self).__name__} instance is not fitted yet."
             )
-
-    def _static_config(self, meta):
-        """The parameters that shape the predict plan: the depth of the
-        walk."""
-        return {"max_depth": self.max_depth}
 
     def _kernel_params(self):
         """The fitted arrays the decision kernel reads: the tree's nodes
@@ -591,20 +757,21 @@ class _BaseTree(BaseEstimator):
 
     @classmethod
     def _build_decision_kernel(cls, meta, static):
-        """``decision(params, X) -> (n, K)`` leaf values (``(n,)`` for a
-        one-output regressor) of one fitted tree over a dense device
-        block ``X``: bins and walk, the per-block step of
-        :func:`walk_trees`. ``params`` is :meth:`_kernel_params` on X's
-        device. There is no proba kernel, as in the JAX package: a
-        classifier's leaf values are its probabilities, and
-        ``predict_proba`` of a plan-driven caller takes the host path."""
+        """``decision(params, X)``: the leaf values of fitted trees over a
+        dense device block ``X``, binned with ``params["edges"]`` (else
+        ``meta["edges"]``: a batched fit's lanes). One tree (arrays
+        ``(N,)``) gives ``(n, K)``, a stack of lanes (``(T, N)``) gives
+        ``(T, n, K)``; a one-output regressor's last axis is dropped.
+        There is no proba kernel, as in the JAX package: a classifier's
+        leaf values are its probabilities, and ``predict_proba`` of a
+        plan-driven caller takes the host path."""
         walk = tree_predict_kernel(dict(static)["max_depth"])
 
         def decision(params, X):
-            trees = {k: params[k][None]
-                     for k in ("feat", "thr", "is_split", "leaf")}
-            out = walk_block(walk, trees, params["edges"], X, "predict")
-            return out[:, 0] if out.shape[1] == 1 else out
+            edges = params["edges"] if "edges" in params else meta["edges"]
+            trees = {k: params[k] for k in ("feat", "thr", "is_split", "leaf")}
+            out = walk(trees, apply_bins(X, edges))
+            return out[..., 0] if out.shape[-1] == 1 else out
 
         return decision
 
@@ -632,6 +799,10 @@ class _BaseTree(BaseEstimator):
 
 
 class DecisionTreeClassifier(_BaseTree, ClassifierMixin):
+    #: one-vs-rest and one-vs-one batch its binary sub-problems, one label
+    #: vector a lane
+    _lane_labels = True
+
     def predict_proba(self, X):
         return self._leaf_values(X)
 

@@ -22,6 +22,8 @@ search path, host-model prediction chunks): a thread pool, as in the
 JAX package. :class:`LocalBackend` is the JAX package's host backend:
 its fan-out is serial unless ``n_jobs`` says otherwise, and its batched
 calls run on its ``device`` as :class:`CUDABackend`'s do.
+``reuse_broadcast=True`` keeps the device copies of large shared host
+arrays across fits (:func:`_cached_put`).
 :func:`resolve_backend` normalises a user's ``backend=`` argument.
 
 Not ported yet (ROADMAP): elastic mode, fault retries, streaming, AOT
@@ -30,8 +32,10 @@ and the device mesh.
 
 import math
 import os
+import threading
 import time
 import warnings
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -367,13 +371,15 @@ def run_threads(fn, tasks, n_jobs):
         return list(pool.map(fn, tasks))
 
 
-def _place(tree, device):
+def _place(tree, device, reuse=False):
     if isinstance(tree, dict):
-        return {k: _place(v, device) for k, v in tree.items()}
+        return {k: _place(v, device, reuse) for k, v in tree.items()}
     if isinstance(tree, PackedX):
         return tree.to(device)
-    if isinstance(tree, (np.ndarray, torch.Tensor)):
-        return torch.as_tensor(tree).to(device)
+    if isinstance(tree, np.ndarray):
+        return _cached_put(tree, device, reuse)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
     return tree
 
 
@@ -385,9 +391,66 @@ def _host_rows(tree, rows, device):
 
 
 def _leading_dim(tree):
+    """The task count of a dict tree: the leading axis of its first
+    array (an empty dict, such as the hypers of a family with none,
+    holds none); None when there is no array."""
     if isinstance(tree, dict):
-        return _leading_dim(next(iter(tree.values())))
+        for v in tree.values():
+            n = _leading_dim(v)
+            if n is not None:
+                return n
+        return None
     return int(np.shape(tree)[0])
+
+
+# The device-broadcast reuse cache (opt-in: ``CUDABackend(reuse_broadcast=
+# True)``): ``id`` of a shared host array and its device -> the device
+# copy. An entry holds a weakref to its host array and serves only while
+# that reference still is the very array, so a recycled ``id`` can never
+# serve a stale copy; the weakref's callback evicts the entry (freeing
+# the device memory) once the host array is collected. Eviction is LRU
+# (a hit refreshes recency), bounded by _BCAST_MAX, which exceeds the
+# large leaves one fit places (a search's X, y, sw and its two mask
+# stacks), so a fit's own placement never evicts its X.
+_BCAST_CACHE = {}
+_BCAST_MAX = 16
+#: smaller host arrays are copied every time: caching them gains nothing
+_BCAST_MIN_BYTES = 1 << 20
+#: cache hits so far (read by the tests)
+_BCAST_HITS = 0
+_BCAST_LOCK = threading.Lock()
+
+
+def _cached_put(leaf, device, enabled):
+    """``leaf`` as a tensor on ``device``, through the reuse cache when
+    ``enabled`` and ``leaf`` is a host ndarray of at least
+    ``_BCAST_MIN_BYTES``. Mutating a host array after handing it over is
+    the caller's error, as with a Spark broadcast: the cached copy would
+    go stale."""
+    global _BCAST_HITS
+    if not enabled or not isinstance(leaf, np.ndarray) \
+            or leaf.nbytes < _BCAST_MIN_BYTES:
+        return torch.as_tensor(leaf).to(device)
+    key = (id(leaf), str(device))
+    with _BCAST_LOCK:
+        ent = _BCAST_CACHE.get(key)
+        if ent is not None:
+            ref, dev = ent
+            if ref() is leaf:
+                _BCAST_HITS += 1
+                _BCAST_CACHE.pop(key, None)  # LRU refresh
+                _BCAST_CACHE[key] = ent
+                return dev
+            _BCAST_CACHE.pop(key, None)  # a recycled id: never serve it
+    # a copy even on the CPU: an entry that aliased its host array would
+    # keep it alive, and the weakref could never evict it
+    dev = torch.as_tensor(leaf).to(device, copy=True)
+    with _BCAST_LOCK:
+        _BCAST_CACHE[key] = (
+            weakref.ref(leaf, lambda _r: _BCAST_CACHE.pop(key, None)), dev)
+        while len(_BCAST_CACHE) > _BCAST_MAX:
+            _BCAST_CACHE.pop(next(iter(_BCAST_CACHE)), None)
+    return dev
 
 
 class CUDABackend(TaskBackend):
@@ -398,21 +461,33 @@ class CUDABackend(TaskBackend):
     as many tasks as free device memory fits. ``n_jobs`` sizes the host
     fan-out of :meth:`run_tasks`: by default every CPU, as the JAX
     package's device backend does (``n_jobs or -1``).
+
+    ``reuse_broadcast=True`` keeps the device copy of every shared host
+    array of at least 1 MiB that :meth:`place` uploads, keyed by the
+    array's identity, so a later fit on the same X skips the upload (the
+    JAX package's ``TPUBackend(reuse_broadcast=True)``, the analogue of
+    reusing one Spark broadcast); it also lets the forests keep their
+    bin edges and binned X across fits on the same X
+    (``models/forest.py``). Mutating a host array after a fit handed it
+    over is the caller's error, as with a broadcast. Off by default.
     """
 
     is_device_backend = True
 
-    def __init__(self, device=None, round_size=None, n_jobs=None):
+    def __init__(self, device=None, round_size=None, n_jobs=None,
+                 reuse_broadcast=False):
         self.device = resolve_device(device)
         self.round_size = round_size
         self.n_jobs = n_jobs
+        self.reuse_broadcast = reuse_broadcast
 
     def run_tasks(self, fn, tasks, verbose=0):
         return run_threads(fn, tasks, self.n_jobs or -1)
 
     def place(self, tree):
-        """Host arrays (and PackedX) of a dict tree as device tensors."""
-        return _place(tree, self.device)
+        """Host arrays (and PackedX) of a dict tree as device tensors,
+        through the reuse cache under ``reuse_broadcast``."""
+        return _place(tree, self.device, self.reuse_broadcast)
 
     def free_device_bytes(self):
         """Bytes the next round can allocate: free device memory plus
@@ -894,8 +969,10 @@ class LocalBackend(CUDABackend):
 
     is_device_backend = False
 
-    def __init__(self, n_jobs=None, device=None, round_size=None):
-        super().__init__(device=device, round_size=round_size, n_jobs=n_jobs)
+    def __init__(self, n_jobs=None, device=None, round_size=None,
+                 reuse_broadcast=False):
+        super().__init__(device=device, round_size=round_size, n_jobs=n_jobs,
+                         reuse_broadcast=reuse_broadcast)
 
     def run_tasks(self, fn, tasks, verbose=0):
         return run_threads(fn, tasks, self.n_jobs)

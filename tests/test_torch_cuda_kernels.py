@@ -386,6 +386,31 @@ def test_small_forest_on_card_equals_cpu(cuda):
                                rtol=0, atol=1e-6)
 
 
+def test_batched_tree_search_on_card_equals_cpu(cuda):
+    """A tree base inside ``DistGridSearchCV`` runs batched on the card:
+    one K4 launch a level of each candidate's round of fold lanes, then
+    the refit's levels, and the same scores as the CPU's scatter engine
+    (integer channels: exact histograms on both)."""
+    from skdist_tpu_torch import CUDABackend, DistGridSearchCV
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+
+    rng = np.random.RandomState(1)
+    X = rng.rand(3000, 8).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] + 0.3 * rng.randn(3000) > 1).astype(int)
+    grid = {"max_depth": [3, 5], "min_samples_leaf": [1, 20]}
+    before = kh.level_histogram.launches
+    card = DistGridSearchCV(DecisionTreeClassifier(), grid, cv=3).fit(X, y)
+    levels = sum(st["rounds"] * p["max_depth"] for st, p in
+                 zip(card.round_stats_, card.cv_results_["params"]))
+    assert kh.level_histogram.launches == \
+        before + levels + card.best_params_["max_depth"]
+    cpu = DistGridSearchCV(DecisionTreeClassifier(device="cpu"), grid, cv=3,
+                           backend=CUDABackend(device="cpu")).fit(X, y)
+    for k in ("split0_test_score", "split1_test_score", "split2_test_score",
+              "mean_test_score"):
+        np.testing.assert_array_equal(card.cv_results_[k], cpu.cv_results_[k])
+
+
 # ---------------------------------------------------------------------------
 # K3: the weighted gram. Each term is the plain version's term bitwise, so
 # integer data must give the plain version's gram exactly; fractional

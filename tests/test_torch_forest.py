@@ -281,6 +281,14 @@ def test_default_device_is_the_card():
                 DecisionTreeClassifier()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             est.fit(X, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the host C engine runs on the CPU only, and only on a LocalBackend
+    # (the plain forests' default), never inside a batched kernel
+    forest = tf.RandomForestClassifier(n_estimators=2, hist_mode="native",
+                                       device="cpu").fit(X, y)
+    assert forest.predict_proba(X).shape == (len(X), 2)
+    with pytest.raises(ValueError, match="batched kernel"):
+        te.DistRandomForestClassifier(n_estimators=2, hist_mode="native",
+                                      device="cpu").fit(X, y)
+    with pytest.raises(ValueError, match="n_bins"):
         tf.RandomForestClassifier(n_estimators=2, hist_mode="native",
-                                  device="cpu").fit(X, y)
+                                  n_bins=300, device="cpu").fit(X, y)

@@ -113,10 +113,14 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "from skdist_tpu_torch.distribute import ensemble, multiclass, search\n"
         "from skdist_tpu_torch.distribute import predict\n"
         "from skdist_tpu_torch.models import forest, linear, tree\n"
+        "from skdist_tpu_torch.models import native_forest\n"
+        "from skdist_tpu_torch import native\n"
+        "native.hist_tree_available()\n"
         "from skdist_tpu_torch.ops import binning, hist, packed_sparse, _build\n"
         "from skdist_tpu_torch.utils import cv, device, draws, validation\n"
         "p.DistGridSearchCV, p.LogisticRegression, p.CUDABackend\n"
         "p.DistRandomForestClassifier, p.DistRandomTreesEmbedding\n"
+        "p.DistForestClassifier, p.DistForestRegressor\n"
         "p.Ridge, p.RidgeClassifier, p.LinearRegression\n"
         "p.LinearSVC, p.DistOneVsRestClassifier, p.DistOneVsOneClassifier\n"
         "p.LocalBackend, p.batch_predict, p.get_prediction_udf\n"

@@ -174,15 +174,34 @@ def test_draws_shape_randomised_trees():
 
 
 def test_hist_modes_resolve_and_native_raises():
+    """The engine table: on the CPU ``"auto"`` is the host C engine where
+    it may run (a single tree, a LocalBackend forest) and the scatter in
+    a batched kernel; on the card it is K4. An explicit ``"native"``
+    resolves and fits on the CPU, and raises for the card, inside a
+    batched kernel and with ``n_bins=300``."""
     assert tt.resolve_hist_config("auto", "cpu") == "scatter"
+    assert tt.resolve_hist_config("auto", "cpu", allow_native=True) == "native"
+    assert tt.resolve_hist_config("auto", "cuda", allow_native=True) == "pallas"
     assert tt.resolve_hist_config("matmul", "cpu") == "matmul"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert tt.resolve_hist_config("native", "cpu", allow_native=True) \
+        == "native"
+    with pytest.raises(ValueError, match="card"):
+        tt.resolve_hist_config("native", "cuda", allow_native=True)
+    with pytest.raises(ValueError, match="batched kernel"):
         tt.resolve_hist_config("native", "cpu")
+    with pytest.raises(ValueError, match="batched kernel"):
+        tt.build_tree_kernel(hist_mode="native", **_cfg("clf", 3))
+    with pytest.raises(ValueError, match="n_bins"):
+        tt.resolve_hist_config("native", "cpu", allow_native=True,
+                               n_bins=300)
     with pytest.raises(ValueError, match="hist_mode"):
         tt.build_tree_kernel(hist_mode="bogus", **_cfg("clf", 3))
     X, y, _sw, _e, _Xb = _problem("clf")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.DecisionTreeClassifier(hist_mode="native", device="cpu").fit(X, y)
+    est = tt.DecisionTreeClassifier(hist_mode="native", device="cpu").fit(X, y)
+    assert est.predict_proba(X).shape == (len(X), 3)
+    with pytest.raises(ValueError, match="n_bins"):
+        tt.DecisionTreeClassifier(hist_mode="native", n_bins=300,
+                                  device="cpu").fit(X, y)
 
 
 @pytest.mark.parametrize("kind", ["clf", "reg"])
