@@ -7,6 +7,7 @@
     python3 chip_smoke.py --profile-config5
     python3 chip_smoke.py --phases-17-19
     python3 chip_smoke.py --phase-20
+    python3 chip_smoke.py --phase-21
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -153,10 +154,12 @@ result line:
     launches on the prediction and generic search paths, K1, K2 and the
     row forms on phase 18's search and 19(a)'s refit), then, last, the
     result line ``{"ok": true, "device": {...}}``; both are printed after
-    phase 19.
+    phase 21.
 13. BASELINE config 2 at full width: ``DistRandomizedSearchCV(
-    SGDClassifier(max_iter=20, random_state=0), {"alpha": logspace(-6,
-    -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` on
+    SGDClassifier(max_iter=5, random_state=0), {"alpha": logspace(-6,
+    -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` (5
+    epochs, config 2's 20 cut to keep the whole run inside its time
+    target; printed) on
     covtype's shape (``make_tabular(581012, 54, 7, seed=1)``), 300 fits
     and the refit on the compacted path (mini-batch SGD through
     ``torch.matmul``; no hand kernel is on this path). Printed: the
@@ -323,6 +326,40 @@ result line:
     device="cpu")`` on 20000 rows, native against the torch engine: the
     same trees, leaves and seeds, the recorded gains within 1e-5 of the
     largest (float64 in C, float32 in torch).
+21. Histogram gradient boosting on K4's Newton channels, and naive
+    Bayes. (k) K4 against its plain version at the boosting round's
+    shapes: 200000 x 28 bins of 64, channels ``[s*g, s*h, count]`` of
+    1, 6, 7 and 48 lanes under cv=3 fold masks, every level of
+    ``max_depth=5`` (nl = 1 to 16): the count channel bitwise under its
+    ``integer_channels`` proof, the gradient and hessian within the
+    float32 summation bound; each level's time beside its bound and
+    ``index_add_``'s. (a) ``DistHistGradientBoostingClassifier()`` (the
+    JAX package's defaults, early stopping on) on phase 20's 200000 x 28
+    problem: K4 launches exactly ``n_iter_ x 5``, a second identical fit
+    compared bit for bit (reported), rows summing to 1, pickled = live, a
+    profiled 5-round fit (K4 against glue), and 20 rounds on 20000 rows
+    on the card against the CPU, within 10x of what one ulp of weight
+    noise moves the card's own fit. (b) A 7-class fit on phase 20b's
+    problem: 7 trees ride each launch, K4 launches ``n_iter_ x 5``. (c)
+    ``DistGridSearchCV`` over 8 log-spaced learning rates x
+    ``l2_regularization`` in {0, 1}, cv=3 (48 lanes), ``neg_log_loss``,
+    compacted, K4 launches exactly 5 a boosting round of each round of
+    lanes plus the refit's; two lanes of a six-lane batch (lambda 0 and
+    1) against lone fits within 10x their ulp-noise gap; then
+    ``HalvingSpec(eta=3, min_slices=4)`` kills candidates and keeps the
+    exhaustive best. (d) The regressor on a regression target of the same X. (e)
+    ``batch_predict`` of (a)'s model over 1M rows equals its
+    ``predict_proba`` within 1e-6; a GBDT and a GaussianNB fitted by the
+    JAX package (``build_tools/torch_reference_models.npz``) converted
+    with ``convert.py`` and predicted on the card against the JAX
+    package's stored outputs. (f) ``DistGridSearchCV`` over 12
+    ``MultinomialNB`` alphas and 12 ``GaussianNB`` var_smoothing values
+    at cv=5 on the dense flagship (11314 x 4096, 20 classes), an alpha's
+    split scores on the CPU within 1e-5 of the card's, GaussianNB's
+    decisions card against CPU within 1e-5 of the largest at the grid's
+    best var_smoothing (at the default the comparison is printed: a class
+    feature's variance there is float32 residue), and a
+    ``DistMultiModelSearch`` of GaussianNB beside LogisticRegression.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -340,7 +377,7 @@ runs must agree on epochs and ``best_score_``.
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
 the kernels and runs phases 17-19 alone, with no result line;
-``--phase-20`` does the same for phase 20.
+``--phase-20`` and ``--phase-21`` do the same for phases 20 and 21.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -2190,11 +2227,16 @@ def phase_ridge_regressor(torch, X, alphas, backend):
 #: whole run inside its time target
 SGD_N, SGD_D, SGD_K = 581012, 54, 7
 SGD_AB_N = 25_000
+#: phase 13's epochs: config 2's 20 cut to 5, so that the whole run
+#: keeps its time target beside phase 21 (at 10 its lanes stopped on tol
+#: after 7-10 epochs, and a run on an H100 took up to 1134 s)
+SGD_EPOCHS = 5
 
 SGD_ALPHAS = list(np.logspace(-6, -2, 60))
 
 
-def sgd_search(torch, X, y, alphas, backend, compaction=True, **kw):
+def sgd_search(torch, X, y, alphas, backend, compaction=True, max_iter=20,
+               **kw):
     """A timed config-2 search (``n_iter`` = every alpha) with the
     compacted path on or off; returns the search and its wall."""
     from skdist_tpu_torch import DistRandomizedSearchCV, SGDClassifier
@@ -2204,7 +2246,8 @@ def sgd_search(torch, X, y, alphas, backend, compaction=True, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gs = DistRandomizedSearchCV(
-            SGDClassifier(max_iter=20, random_state=0), {"alpha": alphas},
+            SGDClassifier(max_iter=max_iter, random_state=0),
+            {"alpha": alphas},
             n_iter=len(alphas), cv=5, scoring="accuracy", random_state=0,
             backend=backend, **kw,
         ).fit(X, y)
@@ -2280,12 +2323,14 @@ def phase_sgd(torch, backend, alphas):
     t0 = time.perf_counter()
     X, y = make_tabular(SGD_N, SGD_D, SGD_K, seed=1)
     n_fits = 5 * len(alphas)
-    say(f"phase 13: DistRandomizedSearchCV(SGDClassifier(max_iter=20), "
-        f"{len(alphas)} alpha, n_iter={len(alphas)}, cv=5, accuracy) on "
-        f"covtype-shaped {X.shape}, {SGD_K} classes: {n_fits} fits + refit "
-        f"(data {time.perf_counter() - t0:.1f}s)")
+    say(f"phase 13: DistRandomizedSearchCV(SGDClassifier(max_iter="
+        f"{SGD_EPOCHS}), {len(alphas)} alpha, n_iter={len(alphas)}, cv=5, "
+        f"accuracy) on covtype-shaped {X.shape}, {SGD_K} classes: {n_fits} "
+        f"fits + refit (data {time.perf_counter() - t0:.1f}s)")
+    say(f"CUT: phase 13 runs {SGD_EPOCHS} epochs, not config 2's 20 (its "
+        "steps are launch-bound: the wall goes with the epochs)")
     torch.cuda.reset_peak_memory_stats()
-    gs, wall = sgd_search(torch, X, y, alphas, backend)
+    gs, wall = sgd_search(torch, X, y, alphas, backend, max_iter=SGD_EPOCHS)
     st = gs.round_stats_[0]
     search = wall - gs.refit_time_
     n_batches = -(-SGD_N // 64)
@@ -3900,6 +3945,503 @@ def phase_trees(torch, warm_wall):
     return search_launches, ovr_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: histogram gradient boosting on K4's Newton channels, and naive
+# Bayes
+# ---------------------------------------------------------------------------
+
+#: 21c's grid, cv=3: 8 log-spaced learning rates x two lambdas = 48 lanes
+GBDT_GRID = {"learning_rate": list(np.logspace(-2, 0, 8)),
+             "l2_regularization": [0.0, 1.0]}
+#: K4 at the boosting round's shapes: lanes a launch (one binary fit, one
+#: 7-class round, 21c's compacted round of 6, and all 48 of its lanes)
+#: and the levels of max_depth=5
+GBDT_K4_T = (1, 6, 7, 48)
+GBDT_K4_NL = (1, 2, 4, 8, 16)
+#: 21f's grids at cv=5: 12 values each, 60 lanes
+NB_ALPHAS = list(np.logspace(-3, 1, 12))
+NB_SMOOTHING = list(np.logspace(-9, -1, 12))
+#: the JAX-fitted models of 21e (build_tools/make_torch_reference_models.py)
+REFERENCE_MODELS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "build_tools", "torch_reference_models.npz")
+
+
+class FittedReference:
+    """A fitted JAX estimator's state as the port's converters read it:
+    ``_params``, ``_meta`` and ``get_params``, rebuilt from the arrays of
+    ``REFERENCE_MODELS`` (the card's machine has no JAX)."""
+
+    def __init__(self, params, meta, est_params):
+        self._params, self._meta, self._est_params = params, meta, est_params
+
+    def get_params(self, deep=False):
+        return dict(self._est_params)
+
+
+def reference_models():
+    """``(X, {name: (fitted reference, JAX proba, JAX decision)})``: the
+    rows the JAX package predicted and its GBDT and GaussianNB."""
+    z = np.load(REFERENCE_MODELS)
+    X, _ = balanced_tabular(int(z["n_fit"]), seed=int(z["seed"]))
+    out = {}
+    for name, cls_name in (("gbdt", "DistHistGradientBoostingClassifier"),
+                           ("gnb", "GaussianNB")):
+        head = f"{name}.params."
+        params = {k[len(head):]: z[k] for k in z.files if k.startswith(head)}
+        meta = json.loads(str(z[f"{name}.meta"]))
+        meta["classes"] = np.asarray(meta["classes"])
+        ref = type(cls_name, (FittedReference,), {})(
+            params, meta, json.loads(str(z[f"{name}.get_params"])))
+        out[name] = (ref, z[f"{name}.proba"], z[f"{name}.decision"])
+    return X[:int(z["n_check"])], out
+
+
+def newton_lanes(torch, y, T, n, seed):
+    """A boosting round's channels of ``T`` lanes: sigmoid gradients and
+    hessians of random margins on the labels ``y``, each lane under its
+    cv=3 fold mask (lane t trains on the rows outside fold ``t % 3``)."""
+    from skdist_tpu_torch.models.tree import newton_channels
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.sigmoid(torch.randn((T, n), generator=g, device="cuda"))
+    yt = torch.as_tensor(y[:n], dtype=torch.float32).cuda()
+    fold = torch.arange(n, device="cuda") % 3
+    w = (fold[None] != torch.arange(T, device="cuda")[:, None] % 3).float()
+    return newton_channels(p - yt, p * (1 - p), w), g
+
+
+def gbdt_k4(torch, X, y):
+    """21k: K4 against its plain version at the boosting round's shapes
+    (n=200000, d=28, B=64, C=3 Newton channels, T lanes a launch, every
+    level of max_depth=5), its time a level beside the bound and the
+    ``index_add_`` yardstick; the plain version's time at T=48, nl=16.
+    Returns (max error, {(T, nl): times})."""
+    from skdist_tpu_torch.ops import hist as kh
+    from skdist_tpu_torch.ops.binning import apply_bins, quantile_bin_edges
+
+    n, d = X.shape
+    B = 64
+    Xb = apply_bins(torch.as_tensor(X).cuda(), quantile_bin_edges(X, B))
+    Xs = kh.kernel_bins(Xb, B)
+    errs, times = [], {}
+    for T in GBDT_K4_T:
+        Y, g = newton_lanes(torch, y, T, n, seed=T)
+        proof = kh.integer_channels(Y)
+        if proof is None or proof.mask != 0b100:
+            raise AssertionError("phase 21k: the count channel's proof is "
+                                 f"not the only one: {proof and proof.mask}")
+        src = Y[:, None].expand(T, d, n, 3).reshape(-1, 3)
+        live = torch.any(Y != 0, dim=-1)
+        for nl in GBDT_K4_NL:
+            key = torch.randint(0, nl, (T, n), generator=g, device="cuda",
+                                dtype=torch.int32)
+            key = torch.where(live, key, nl).to(torch.int32)
+            err, exact = check_k4(torch, kh, Xs, Xb, key, Y, nl, B,
+                                  f"GBDT T={T} nl={nl}")
+            if exact != [2]:
+                raise AssertionError(f"phase 21k: channels {exact} held "
+                                     "bitwise, not the count channel")
+            errs.append(err)
+            ms = cuda_ms(torch, lambda: kh.level_histogram(
+                Xs, key, Y, nl, B, integer=proof), 5)
+            lib_call, lib_result = k4_yardstick(torch, Xb, key, Y, nl, B, src)
+            lib_ms = cuda_ms(torch, lib_call, 2)
+            del lib_call, lib_result
+            times[(T, nl)] = {"ms": ms, "library_ms": lib_ms, "err": err,
+                              "bound": k4_bound(key, Xs, 3, nl, B, d)}
+        del src
+        torch.cuda.empty_cache()
+    times["plain_ms"] = cuda_ms(
+        torch, lambda: kh.level_histogram_ref(Xb, key, Y, nl, B), 2)
+    say(f"phase 21k: K4 at the boosting round's shapes (n={n}, d={d}, B={B},"
+        " C=3: s*g, s*h fractional in float cells, the count in int32 "
+        "cells under its proof; cv=3 fold masks folded out of the keys): "
+        "count channel bitwise, g and h within the float32 summation "
+        f"bound, max err {max(errs):.3e}")
+    for T in GBDT_K4_T:
+        row = [times[(T, nl)] for nl in GBDT_K4_NL]
+        say(f"  T={T}: " + "; ".join(
+            f"nl={nl} {v['ms']:.4f} ms (bound {v['bound'][0]:.4f} ms "
+            f"{v['bound'][1]}, {v['ms'] / v['bound'][0]:.1f}x; index_add_ "
+            f"{v['library_ms']:.3f} ms)"
+            for nl, v in zip(GBDT_K4_NL, row)))
+        say(f"    the 5 levels: K4 {sum(v['ms'] for v in row):.4f} ms, bound "
+            f"{sum(v['bound'][0] for v in row):.4f} ms, index_add_ "
+            f"{sum(v['library_ms'] for v in row):.3f} ms")
+    say(f"  plain version at T=48, nl=16: {times['plain_ms']:.3f} ms")
+    return max(errs), times
+
+
+def ulp_weights(n, seed):
+    """Sample weights of one ulp of noise: 1 +- 2**-23 at random. A
+    tree's bins absorb an ulp of noise in X (both sides of every edge
+    move together), so a boosted fit's own rounding scale is read through
+    the weights, which scale every gradient and hessian term."""
+    rng = np.random.RandomState(seed)
+    return (1.0 + rng.choice([-1.0, 1.0], n) * 2.0 ** -23).astype(np.float32)
+
+
+def hold_to_ulp(label, z, z_other, z_ulps):
+    """Gate: ``z_other`` within 10x of what one ulp of weight noise moves
+    the card's own decisions ``z`` (the largest gap of ``z_ulps``), plus
+    1e-5 of max|z| for fits the noise leaves unmoved. Returns the gaps."""
+    gap = float(np.abs(z - z_other).max())
+    ulp = max(float(np.abs(z - u).max()) for u in z_ulps)
+    scale = float(np.abs(z).max())
+    if not gap <= 10 * ulp + 1e-5 * scale:
+        raise AssertionError(f"{label}: gap {gap:.3e} is over 10x the ulp "
+                             f"gap {ulp:.3e} (+1e-5 of {scale:.3e})")
+    return gap, ulp, scale
+
+
+def gbdt_binary(torch):
+    """21a: one binary fit at full width with the JAX package's defaults
+    (early stopping on above 10000 rows); its K4 launches, two identical
+    fits' bits, rows summing to 1, the pickle, a profiled 5-round fit,
+    and the card against the CPU on 20000 rows. Returns (model, X,
+    launches)."""
+    from skdist_tpu_torch import DistHistGradientBoostingClassifier as GBC
+    from skdist_tpu_torch.ops import hist as kh
+
+    X, y = balanced_tabular(200_000)
+    say(f"phase 21a: DistHistGradientBoostingClassifier() on {X.shape} "
+        "(max_iter=100, max_depth=5, max_bins=64, learning_rate=0.1, "
+        "early_stopping='auto': on)")
+    kh.level_histogram.launches = 0
+    est, wall = timed_call(torch, lambda: GBC().fit(X, y))
+    launches = kh.level_histogram.launches
+    again, wall2 = timed_call(torch, lambda: GBC().fit(X, y))
+    same = [k for k in est._params
+            if np.array_equal(est._params[k], again._params[k])]
+    proba = est.predict_proba(X)
+    row_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    acc = float(np.mean(est.predict(X) == y))
+    loaded = pickle.loads(pickle.dumps(est))
+    pickled = all(np.array_equal(loaded._params[k], est._params[k])
+                  for k in est._params) and np.array_equal(
+        loaded.predict_proba(X[:5000]), proba[:5000])
+    say(f"  wall {wall:.3f} s (again {wall2:.3f} s), n_iter_ {est.n_iter_} "
+        f"({est.n_iter_ / wall:.1f} rounds/s), K4 launches {launches} "
+        f"(n_iter_ x 5 = {est.n_iter_ * 5}); train accuracy {acc:.4f}; rows "
+        f"sum to 1 within {row_err:.1e}; pickled = live: {pickled}; a "
+        "second identical fit: "
+        + ("bitwise equal" if len(same) == len(est._params)
+           else f"equal only in {same}, n_iter_ {again.n_iter_}"))
+    if launches != est.n_iter_ * 5 or row_err > 1e-6 or not pickled:
+        raise AssertionError("phase 21a: K4 launches, rows or the pickle")
+    split = profile_device_split(
+        torch, lambda: GBC(max_iter=5, early_stopping=False).fit(X, y),
+        {"K4": ("level_histogram",)}, window=True, top=4)
+    if split is None:
+        say("  profiled 5-round fit: the profiler saw no device time")
+    else:
+        busy, span = split["window"]
+        say(f"  profiled 5-round fit: device {split['total'] / 5:.3f} ms a "
+            f"round, K4 {split['K4'] / 5:.3f} ms, glue "
+            f"{(split['total'] - split['K4']) / 5:.3f} ms; busy {busy:.1f} "
+            f"of {span:.1f} ms ({100 * busy / span:.1f}%); top glue "
+            + ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in split["top_rest"]))
+    # the card against the CPU, and against one ulp of weight noise
+    Xs, ys = X[:20_000], y[:20_000]
+    kw = dict(max_iter=20, early_stopping=False)
+    card = GBC(**kw).fit(Xs, ys)
+    cpu, wall_cpu = timed_call(torch, lambda: GBC(device="cpu", **kw).fit(
+        Xs, ys))
+    ulps = [GBC(**kw).fit(Xs, ys, sample_weight=ulp_weights(len(ys), s))
+            for s in (1, 2)]
+    z = card.decision_function(Xs)
+    gap, ulp, scale = hold_to_ulp(
+        "phase 21a card vs CPU", z, cpu.decision_function(Xs),
+        [u.decision_function(Xs) for u in ulps])
+    trees = sum(np.array_equal(card._params[k], cpu._params[k])
+                for k in ("feat", "thr", "is_split"))
+    say(f"  card vs CPU ({kw}, 20000 rows; CPU {wall_cpu:.2f} s): max|dz| "
+        f"{gap:.3e}, one ulp of weight noise moves the card's fit "
+        f"{ulp:.3e}, max|z| {scale:.3e}; trees "
+        + ("equal" if trees == 3 else "differ (a near tie broken by another "
+           "summation order)"))
+    return est, launches
+
+
+def gbdt_multiclass(torch):
+    """21b: a 7-class fit on phase 20b's problem; K trees ride each
+    launch. Returns the K4 launches."""
+    from skdist_tpu_torch import DistHistGradientBoostingClassifier as GBC
+    from skdist_tpu_torch.ops import hist as kh
+
+    X, y = make_tabular(200_000, 28, 7, seed=6)
+    kh.level_histogram.launches = 0
+    est, wall = timed_call(torch, lambda: GBC().fit(X, y))
+    launches = kh.level_histogram.launches
+    proba = est.predict_proba(X)
+    acc = float(np.mean(est.predict(X) == y))
+    majority = float(np.bincount(y).max() / len(y))
+    row_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    say(f"phase 21b: DistHistGradientBoostingClassifier() on {X.shape}, 7 "
+        f"classes: wall {wall:.3f} s, n_iter_ {est.n_iter_} (7 trees a "
+        f"round), K4 launches {launches} (n_iter_ x 5 = {est.n_iter_ * 5}); "
+        f"train accuracy {acc:.4f} (majority {majority:.4f}); rows sum to 1 "
+        f"within {row_err:.1e}")
+    if launches != est.n_iter_ * 5 or proba.shape != (len(y), 7) \
+            or row_err > 1e-6 or not acc > majority:
+        raise AssertionError("phase 21b: K4 launches, proba or accuracy off")
+    return launches
+
+
+def gbdt_lanes_vs_lone(torch, X, y):
+    """21c's lane check: six lanes of the grid (its compacted round's
+    width) fitted as one batch, lanes 0 and 1 (one learning rate, lambda
+    0 and 1, folds 0 and 1) against lone fits of their candidates on
+    their folds, each held to 10x what one ulp of weight noise moves the
+    lone fit. Returns the gaps."""
+    from skdist_tpu_torch import DistHistGradientBoostingClassifier as GBC
+    from skdist_tpu_torch.models.linear import _freeze
+
+    est = GBC(early_stopping=False)
+    data, meta = est._prep_fit_data(X, y)
+    static = _freeze(est._static_config(meta))
+    kernel = GBC._build_fit_kernel(meta, static)
+    decide = GBC._build_decision_kernel(meta, static)
+    lrs = GBDT_GRID["learning_rate"]
+    cands = [(lrs[5], 0.0), (lrs[5], 1.0), (lrs[7], 0.0), (lrs[7], 1.0),
+             (lrs[2], 0.0), (lrs[2], 1.0)]
+    n = len(y)
+    fold = np.arange(n) % 3
+    W = np.stack([(fold != t % 3).astype(np.float32) for t in range(6)])
+    hyper = {"learning_rate": np.float32([c[0] for c in cands]),
+             "l2_regularization": np.float32([c[1] for c in cands]),
+             "tol": np.full(6, 1e-7, np.float32)}
+    with torch.no_grad():
+        Xd = torch.as_tensor(X).cuda()
+        Xb = GBC._fit_operand(Xd, meta, static)
+        yd = torch.as_tensor(data["y"]).cuda()
+        Wd = torch.as_tensor(W).cuda()
+        hd = {k: torch.as_tensor(v).cuda() for k, v in hyper.items()}
+        batch = decide(kernel(Xb, yd, Wd, hd), Xd).cpu().numpy()
+        gaps = []
+        for t in (0, 1):
+            one = {k: v[t:t + 1] for k, v in hd.items()}
+            lone = decide(kernel(Xb, yd, Wd[t:t + 1], one), Xd)[0]
+            ulps = [decide(kernel(Xb, yd, Wd[t:t + 1] * torch.as_tensor(
+                ulp_weights(n, 3 + t)).cuda(), one), Xd)[0].cpu().numpy()]
+            gaps.append(hold_to_ulp(f"phase 21c lane {t}",
+                                    lone.cpu().numpy(), batch[t], ulps))
+    return gaps
+
+
+def gbdt_search(torch):
+    """21c: ``DistGridSearchCV`` over GBDT_GRID, cv=3 (48 lanes) on
+    200000 x 28, compacted; two lanes against lone fits; then
+    ``HalvingSpec(eta=3, min_slices=4)``. Returns the K4 launches of the
+    search."""
+    from skdist_tpu_torch import (DistGridSearchCV, HalvingSpec,
+                                  DistHistGradientBoostingClassifier as GBC)
+    from skdist_tpu_torch.ops import hist as kh
+
+    X, y = balanced_tabular(200_000)
+    say(f"phase 21c: DistGridSearchCV(DistHistGradientBoostingClassifier("
+        f"early_stopping=False), 8 log-spaced learning_rate x "
+        f"l2_regularization {{0, 1}}, cv=3, neg_log_loss) on {X.shape}: 48 "
+        "fits + refit")
+    kh.level_histogram.launches = 0
+    est = GBC(early_stopping=False)
+    gs, wall = timed_call(torch, lambda: DistGridSearchCV(
+        est, GBDT_GRID, cv=3, scoring="neg_log_loss").fit(X, y))
+    launches = kh.level_histogram.launches
+    st = gs.round_stats_[0]
+    say(f"  wall {wall:.3f} s ({48 / (wall - gs.refit_time_):.2f} fits/s; "
+        f"refit {gs.refit_time_:.3f} s), K4 launches {launches} (5 levels x "
+        f"100 rounds x {-(-48 // st['chunk'])} rounds of lanes + the "
+        f"refit's); " + lane_readout(st))
+    say(f"  best_params_ {gs.best_params_}, best_score_ {gs.best_score_:.6f}")
+    if st["mode"] != "compacted" or st["tasks"] != 48:
+        raise AssertionError(f"phase 21c ran {st['mode']} over {st['tasks']}")
+    if not np.all(np.isfinite(gs.cv_results_["mean_test_score"])):
+        raise AssertionError("phase 21c: a score is not finite")
+    # no lane stops early: every round of lanes boosts all 100 rounds, 5
+    # levels each, and so does the refit
+    want = 5 * (100 * -(-48 // st["chunk"]) + gs.best_estimator_.n_iter_)
+    if launches != want:
+        raise AssertionError(f"phase 21c: K4 launched {launches} times, not "
+                             f"{want}")
+    gaps = gbdt_lanes_vs_lone(torch, X, y)
+    say("  lanes 0 and 1 of a six-lane batch (lambda 0 and 1) against lone "
+        "fits: max|dz| " + ", ".join(f"{g:.3e} (ulp gap {u:.3e})"
+                                     for g, u, _ in gaps))
+    # a rung every 4 slices (52 of 100 rounds): with one every slice the
+    # last rung fell at 39 rounds, where the fastest rate leads, and the
+    # race kept learning_rate=1.0 over the exhaustive best's 0.518 on an
+    # H100 (PERF.md)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ad, wall_ad = timed_call(torch, lambda: DistGridSearchCV(
+            est, GBDT_GRID, cv=3, scoring="neg_log_loss",
+            adaptive=HalvingSpec(eta=3, min_slices=4)).fit(X, y))
+    rung = np.asarray(ad.cv_results_["rung_"])
+    sa = ad.round_stats_[0]
+    say(f"  HalvingSpec(eta=3, min_slices=4): wall {wall_ad:.3f} s against "
+        f"{wall:.3f} s exhaustive; rung history "
+        f"{[(h['slice'], h['n_groups'], h['n_killed']) for h in sa['rung_history']]}"
+        " (slice, candidates, lanes killed)")
+    say(f"  candidates killed {int((rung >= 0).sum())} of 16 "
+        f"(rungs {sorted(set(rung[rung >= 0].tolist()))}), lanes "
+        f"rung-killed {sa['retired_rung']}, best_params_ {ad.best_params_}")
+    if not (rung >= 0).any() or rung[ad.best_index_] != -1 \
+            or ad.best_params_ != gs.best_params_:
+        raise AssertionError("phase 21c: the race killed nothing or lost the "
+                             "exhaustive best")
+    return launches
+
+
+def gbdt_regressor(torch):
+    """21d: the regressor (defaults) on a regression target of 21a's X.
+    Returns the K4 launches."""
+    from skdist_tpu_torch import DistHistGradientBoostingRegressor as GBR
+    from skdist_tpu_torch.ops import hist as kh
+
+    X, _ = balanced_tabular(200_000)
+    rng = np.random.RandomState(8)
+    t = (X @ rng.randn(28) + 0.5 * rng.randn(len(X))).astype(np.float32)
+    kh.level_histogram.launches = 0
+    est, wall = timed_call(torch, lambda: GBR().fit(X, t))
+    launches = kh.level_histogram.launches
+    r2 = est.score(X, t)
+    say(f"phase 21d: DistHistGradientBoostingRegressor() on {X.shape}: wall "
+        f"{wall:.3f} s, n_iter_ {est.n_iter_}, K4 launches {launches}; train "
+        f"r2 {r2:.4f}")
+    if launches != est.n_iter_ * 5 or not r2 > 0.5:
+        raise AssertionError("phase 21d: K4 launches or r2 off")
+    return launches
+
+
+def gbdt_predict(torch, est):
+    """21e: ``batch_predict`` of 21a's model over 1M rows against its own
+    ``predict_proba``; the JAX-fitted GBDT and GaussianNB converted and
+    predicted on the card."""
+    from skdist_tpu_torch import batch_predict, convert
+
+    X, _ = balanced_tabular(PREDICT_N)
+    cold, wall_cold = timed_call(torch, lambda: batch_predict(
+        est, X, "predict_proba"))
+    warm, wall_warm = timed_call(torch, lambda: batch_predict(
+        est, X, "predict_proba"))
+    direct = est.predict_proba(X)
+    err = float(np.abs(warm - direct).max())
+    say(f"phase 21e: batch_predict(21a's model, {X.shape}, 'predict_proba'):"
+        f" cold {wall_cold:.3f} s, warm {wall_warm:.3f} s "
+        f"({PREDICT_N / wall_warm:.0f} rows/s); against predict_proba max "
+        f"err {err:.1e}; repeat bitwise: {np.array_equal(cold, warm)}")
+    if err > 1e-6:
+        raise AssertionError("phase 21e: batch_predict differs")
+    rows, refs = reference_models()
+    for name, (ref, proba, dec) in refs.items():
+        conv = (convert.gbdt_from_reference if name == "gbdt"
+                else convert.naive_bayes_from_reference)(ref)
+        z = conv.decision_function(rows)
+        dz = float(np.abs(z - dec).max()) / float(np.abs(dec).max())
+        dp = float(np.abs(conv.predict_proba(rows) - proba).max())
+        tol = 1e-6 if name == "gbdt" else 1e-5
+        say(f"  the JAX package's {type(ref).__name__} converted, on the "
+            f"card: decisions within {dz:.1e} of the largest, probabilities "
+            f"within {dp:.1e} of the JAX package's (gate {tol:g} of the "
+            "largest decision)")
+        if dz > tol or dp > tol * max(1.0, float(np.abs(dec).max())):
+            raise AssertionError(f"phase 21e: the converted {name} differs")
+
+
+def nb_searches(torch):
+    """21f: naive Bayes searches on the dense flagship; a MultinomialNB
+    candidate's scores on the CPU against the card's, GaussianNB's
+    decisions card against CPU, and a DistMultiModelSearch of GaussianNB
+    beside LogisticRegression."""
+    from skdist_tpu_torch import (CUDABackend, DistGridSearchCV,
+                                  DistMultiModelSearch, GaussianNB,
+                                  LogisticRegression, MultinomialNB)
+
+    X, y = make_20news_shaped()
+    say(f"phase 21f: naive Bayes on the dense flagship {X.shape}, 20 "
+        "classes, cv=5")
+    out = {}
+    for name, est, grid in (
+            ("MultinomialNB", MultinomialNB(), {"alpha": NB_ALPHAS}),
+            ("GaussianNB", GaussianNB(), {"var_smoothing": NB_SMOOTHING})):
+        gs, wall = timed_call(torch, lambda: DistGridSearchCV(
+            est, grid, cv=5).fit(X, y))
+        st = gs.round_stats_[0]
+        scores = gs.cv_results_["mean_test_score"]
+        say(f"  {name}, {len(next(iter(grid.values())))} values x 5 folds: "
+            f"wall {wall:.3f} s ({60 / (wall - gs.refit_time_):.1f} fits/s), "
+            f"{st['mode']}, {st['rounds']} round(s) x {st['tasks_per_round']}"
+            f" lanes; best_params_ {gs.best_params_}, best accuracy "
+            f"{gs.best_score_:.4f}")
+        if st["mode"] != "classic" or not np.all(np.isfinite(scores)):
+            raise AssertionError(f"phase 21f: {name}'s search")
+        out[name] = gs
+    alpha = NB_ALPHAS[6]
+    cpu, wall_cpu = timed_call(torch, lambda: DistGridSearchCV(
+        MultinomialNB(device="cpu"), {"alpha": [alpha]}, cv=5,
+        backend=CUDABackend(device="cpu")).fit(X, y))
+    keys = [k for k in cpu.cv_results_ if k.startswith("split")]
+    gap = max(abs(float(cpu.cv_results_[k][0])
+                  - float(out["MultinomialNB"].cv_results_[k][6]))
+              for k in keys)
+    say(f"  MultinomialNB(alpha={alpha:.4g}) on the CPU ({wall_cpu:.2f} s): "
+        f"split scores within {gap:.1e} of the card's")
+    if gap > 1e-5:
+        raise AssertionError("phase 21f: the CPU's scores differ")
+    # GaussianNB card against CPU at the search's best var_smoothing. At
+    # the default 1e-9 a feature a class never uses has a variance that is
+    # the float32 residual of its centred moments (about 1e-11 against a
+    # smoothing of about 1e-10), so both devices' decisions there are
+    # rounding noise (on an H100: 0.33 of the largest apart, 98.2% of the
+    # predictions equal; PERF.md); it is printed, not gated
+    for vs, gated in ((NB_SMOOTHING[-1], True), (1e-9, False)):
+        g_card = GaussianNB(var_smoothing=vs).fit(X, y)
+        g_cpu = GaussianNB(var_smoothing=vs, device="cpu").fit(X, y)
+        z = g_card.decision_function(X)
+        dz = float(np.abs(z - g_cpu.decision_function(X)).max()
+                   / np.abs(z).max())
+        agree = float(np.mean(g_card.predict(X) == g_cpu.predict(X)))
+        say(f"  GaussianNB(var_smoothing={vs:g}) card vs CPU: decisions "
+            f"within {dz:.1e} of the largest ({float(np.abs(z).max()):.3e});"
+            f" predictions agree on {agree:.6f} of the rows"
+            + ("" if gated else " (not gated)"))
+        if gated and dz > 1e-5:
+            raise AssertionError("phase 21f: GaussianNB's card and CPU "
+                                 "differ")
+    mm, wall_mm = timed_call(torch, lambda: DistMultiModelSearch(
+        [("gnb", GaussianNB(), {"var_smoothing": NB_SMOOTHING[:4]}),
+         ("lr", LogisticRegression(max_iter=30), {"C": [0.1, 1.0]})],
+        n=2, cv=3, scoring="accuracy", random_state=0).fit(X, y))
+    modes = [s["round_stats"][0]["mode"] for s in mm.round_stats_]
+    say(f"  DistMultiModelSearch(GaussianNB, LogisticRegression(max_iter=30))"
+        f": wall {wall_mm:.3f} s, modes {modes}, best "
+        f"{mm.best_model_name_} {mm.best_params_} {mm.best_score_:.4f}")
+    if not np.all(np.isfinite(mm.cv_results_["mean_test_score"])):
+        raise AssertionError("phase 21f: a multi-model score is not finite")
+
+
+def phase_gbdt(torch):
+    """Phase 21 (``--phase-21`` runs only it): returns the K4 launches of
+    21a-21d and 21k's K4 times."""
+    t0 = time.perf_counter()
+    X, y = balanced_tabular(200_000)
+    k4_err, k4_times = gbdt_k4(torch, X, y)
+    torch.cuda.empty_cache()
+    est, fit_launches = gbdt_binary(torch)
+    multi_launches = gbdt_multiclass(torch)
+    search_launches = gbdt_search(torch)
+    reg_launches = gbdt_regressor(torch)
+    torch.cuda.empty_cache()
+    gbdt_predict(torch, est)
+    torch.cuda.empty_cache()
+    nb_searches(torch)
+    say(f"phase 21 seconds: {time.perf_counter() - t0:.1f}")
+    return {"gbdt_fit": fit_launches, "gbdt_multiclass": multi_launches,
+            "gbdt_search": search_launches, "gbdt_regressor": reg_launches}, \
+        k4_err, k4_times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -3921,6 +4463,10 @@ def main():
     ap.add_argument("--phase-20", action="store_true",
                     help="build the kernels and run only phase 20 (no "
                     "result line): a short check of the tree-family phase")
+    ap.add_argument("--phase-21", action="store_true",
+                    help="build the kernels and run only phase 21 (no "
+                    "result line): a short check of boosting and naive "
+                    "Bayes")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -3976,6 +4522,10 @@ def main():
     say(f"phase 1 build seconds: {time.perf_counter() - t0:.1f}")
     if args.phase_20:
         phase_trees(torch, float("nan"))
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+    if args.phase_21:
+        phase_gbdt(torch)
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -4226,6 +4776,10 @@ def main():
     tree_search_launches, tree_ovr_launches = phase_trees(
         torch, forest_walls["warm"])
 
+    # ---- phase 21: boosting on K4's Newton channels, naive Bayes --------
+    torch.cuda.empty_cache()
+    gbdt_launches, gbdt_k4_err, _gbdt_k4_times = phase_gbdt(torch)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -4260,14 +4814,14 @@ def main():
         {"name": "level_histogram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/level_histogram.cu",
          "replaces": "skdist_tpu/ops/pallas_hist.py:124",
-         "launches": k4_launches, "max_abs_err": k4_err,
+         "launches": k4_launches, "max_abs_err": max(k4_err, gbdt_k4_err),
          "ms": k4_times["K4"], "plain_ms": k4_times["K4_plain"],
          "bound_ms": k4_bound_ms, "bound_by": k4_by,
          "library_ms": k4_times["K4_library"],
          "paths": {"forest": k4_launches,
                    "generic_search": generic_launches,
                    "tree_search": tree_search_launches,
-                   "tree_ovr": tree_ovr_launches}},
+                   "tree_ovr": tree_ovr_launches, **gbdt_launches}},
         {"name": "packed_row_matvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
          "launches": row_launches["packed_row_matvec"],

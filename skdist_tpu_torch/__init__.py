@@ -30,7 +30,11 @@ scorers, any fit params, ``preds``); the f64 host engine of
 ``LogisticRegression``/``LinearSVC`` (``engine='host'``, and ``'auto'``
 where ``device="cpu"``) with the searches' warm C path;
 ``DistMultiModelSearch``; warm start (``coef_init``/``intercept_init``)
-and ``matmul_dtype='bfloat16'``. The searches' convergence-compacted path
+and ``matmul_dtype='bfloat16'``; histogram gradient boosting
+(``DistHistGradientBoostingClassifier``/``Regressor``, on the
+level-histogram kernel's Newton channels, batched in the searches and
+one-vs-rest) and naive Bayes (``GaussianNB``, ``MultinomialNB``). The
+searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
 halving (``adaptive=HalvingSpec(...)``). ROADMAP.md lists what is still
@@ -46,6 +50,11 @@ _EXPORTS = {
     **{name: "skdist_tpu_torch.models.linear" for name in (
         "LogisticRegression", "LinearSVC", "SGDClassifier", "Ridge",
         "LinearRegression", "RidgeClassifier")},
+    **{name: "skdist_tpu_torch.models.gbdt" for name in (
+        "DistHistGradientBoostingClassifier",
+        "DistHistGradientBoostingRegressor")},
+    **{name: "skdist_tpu_torch.models.naive_bayes" for name in (
+        "GaussianNB", "MultinomialNB")},
     **{name: "skdist_tpu_torch.distribute.multiclass" for name in (
         "DistOneVsRestClassifier", "DistOneVsOneClassifier")},
     **{name: "skdist_tpu_torch.parallel" for name in (

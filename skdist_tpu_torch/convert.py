@@ -4,7 +4,10 @@
 the port's (below), and ``tree_from_reference`` a single tree; ``ridge_from_reference`` does the same for a fitted
 ``Ridge``, ``LinearRegression`` or ``RidgeClassifier``, and
 ``multiclass_from_reference`` for a fitted ``DistOneVsRestClassifier``
-or ``DistOneVsOneClassifier`` (each binary estimator converted).
+or ``DistOneVsOneClassifier`` (each binary estimator converted),
+``gbdt_from_reference`` for a fitted ``DistHistGradientBoosting*`` (its
+tree bank) and ``naive_bayes_from_reference`` for a fitted
+``GaussianNB`` or ``MultinomialNB``.
 ``logistic_regression_from_reference``, ``linear_svc_from_reference``
 and ``sgd_from_reference`` take the fitted state of a JAX ``skdist_tpu``
 ``LogisticRegression``, ``LinearSVC`` or ``SGDClassifier`` as plain
@@ -24,10 +27,11 @@ from .distribute import multiclass
 from .models import linear
 from .models.linear import LinearSVC, LogisticRegression, SGDClassifier
 
-__all__ = ["forest_from_reference", "linear_svc_from_reference",
+__all__ = ["forest_from_reference", "gbdt_from_reference",
+           "linear_svc_from_reference",
            "logistic_regression_from_reference", "multiclass_from_reference",
-           "ridge_from_reference", "sgd_from_reference",
-           "tree_from_reference"]
+           "naive_bayes_from_reference", "ridge_from_reference",
+           "sgd_from_reference", "tree_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
@@ -260,4 +264,64 @@ def multiclass_from_reference(ref, device=None):
     for attr in ("pairs_", "binary_", "multilabel_"):
         if hasattr(ref, attr):
             setattr(est, attr, getattr(ref, attr))
+    return est
+
+
+def _fitted_meta(ref, keys):
+    """The port's ``_meta`` of a fitted JAX estimator: ``keys`` of its
+    ``_meta``, the classes as numpy, dense input."""
+    meta = {k: ref._meta[k] for k in keys if k in ref._meta}
+    meta["n_features"] = int(ref._meta["n_features"])
+    meta["x_format"] = "dense"
+    if "classes" in ref._meta:
+        meta["classes"] = np.asarray(ref._meta["classes"])
+        meta["n_classes"] = len(meta["classes"])
+    return meta
+
+
+def gbdt_from_reference(ref, device=None):
+    """A fitted port ``DistHistGradientBoostingClassifier`` or
+    ``...Regressor`` from a fitted JAX one: its parameters, its tree bank
+    (``_params``: ``feat/thr/is_split/leaf`` ``(max_iter, Kt, N)``,
+    ``baseline``, ``n_iter``, ``edges``) and ``_meta``. Both walk the
+    same trees over the same bins, so the port's decision, probabilities
+    and predictions then equal the JAX model's."""
+    from .models import gbdt
+
+    name = type(ref).__name__
+    cls = getattr(gbdt, name, None)
+    if cls is None or not name.startswith("DistHistGradientBoosting"):
+        raise ValueError(f"{name} is not a histogram boosting model")
+    if not hasattr(ref, "_params"):
+        raise ValueError(f"{name} is not fitted")
+    names = cls._get_param_names()
+    est = cls(**{k: v for k, v in ref.get_params(deep=False).items()
+                 if k in names and k != "device"}, device=device)
+    params = {k: np.array(ref._params[k]) for k in
+              ("feat", "thr", "is_split", "leaf", "baseline", "n_iter")}
+    meta = _fitted_meta(ref, ("n_samples",))
+    meta["edges"] = np.array(ref._params["edges"], np.float32)
+    return est._set_fitted(params, meta)
+
+
+def naive_bayes_from_reference(ref, device=None):
+    """A fitted port ``GaussianNB`` or ``MultinomialNB`` from a fitted JAX
+    one: its parameters, ``_params`` (``gmean/means_c/var/log_prior``, or
+    the linear ``W``) and ``_meta``; the port's decision and
+    probabilities then equal the JAX model's."""
+    from .models import naive_bayes
+
+    name = type(ref).__name__
+    if name not in ("GaussianNB", "MultinomialNB"):
+        raise ValueError(f"{name} is not a naive Bayes model")
+    if not hasattr(ref, "_params"):
+        raise ValueError(f"{name} is not fitted")
+    cls = getattr(naive_bayes, name)
+    names = cls._get_param_names()
+    est = cls(**{k: v for k, v in ref.get_params(deep=False).items()
+                 if k in names and k != "device"}, device=device)
+    params = {k: np.array(v, np.float32) for k, v in ref._params.items()}
+    meta = _fitted_meta(ref, ())
+    meta["cw_arr"] = None
+    est._set_fitted(params, meta)
     return est

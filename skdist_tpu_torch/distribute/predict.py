@@ -64,7 +64,7 @@ class DevicePredictPlan:
     answer."""
 
     __slots__ = ("model", "method", "kernel", "params", "packed",
-                 "n_features", "out_width")
+                 "n_features", "out_width", "row_bytes")
 
     def postprocess(self, out):
         """Raw kernel outputs as the method's answer (a classifier's
@@ -112,6 +112,11 @@ def device_predict_plan(model, method="predict", serve_dtype="float32"):
     plan.n_features = int(model._meta["n_features"])
     classes = getattr(model, "classes_", None)
     plan.out_width = len(classes) if classes is not None else 1
+    # a row's input and output as float32, and what the kernel holds a
+    # row beside them (``_plan_row_bytes``: a boosted bank's node ids)
+    extra = getattr(type(model), "_plan_row_bytes", None)
+    plan.row_bytes = 4 * (plan.n_features + plan.out_width) + (
+        int(extra(model._meta, static)) if extra is not None else 0)
     return plan
 
 
@@ -168,12 +173,13 @@ def batch_predict(model, X, method="predict", backend=None, batch_size=None,
 
 def _default_batch_size(n, backend, plan):
     """Rows a block by default: what the backend's free device memory
-    fits, each row billed ``4 * (n_features + out_width)`` bytes (its
-    input and output as float32), at most ``1 << 18``. With no memory
-    reading (the CPU, a model without a plan) it is ``1 << 18``."""
+    fits, each row billed the plan's ``row_bytes`` (its input and output
+    as float32, and what the model's kernel holds a row beside them), at
+    most ``1 << 18``. With no memory reading (the CPU, a model without a
+    plan) it is ``1 << 18``."""
     cap = None
     if plan is not None and hasattr(backend, "round_cap"):
-        cap = backend.round_cap(4 * (plan.n_features + plan.out_width))
+        cap = backend.round_cap(plan.row_bytes)
     size = _MAX_DEFAULT_BATCH if cap is None else min(_MAX_DEFAULT_BATCH,
                                                        int(cap))
     return max(1, min(n, size))

@@ -535,9 +535,11 @@ class DistBaseSearchCV(BaseEstimator):
             if specs is not None and buckets is not None and not (
                     needs_proba and not hasattr(type(estimator),
                                                 "_build_proba_kernel")):
-                return self._run_batched(
+                done = self._run_batched(
                     backend, estimator, X, y, candidate_params, splits,
                     specs, sw, buckets)
+                if done is not None:
+                    return done
         if host and getattr(estimator, "_host_warm_startable", False):
             return self._run_host_warm(
                 backend, estimator, X, y, candidate_params, splits, scorers,
@@ -659,7 +661,8 @@ class DistBaseSearchCV(BaseEstimator):
         """Dispatch (candidate x fold) tasks bucket by bucket. Returns the
         per-task score dicts in task order (candidate-major, split
         fastest), the rung kills ``{task id: rung}`` and whether an
-        adaptive search ran its rungs."""
+        adaptive search ran its rungs; None when a bucket's data prep
+        raises (the caller then runs the generic path)."""
         from ..models.linear import _freeze, hyper_float, prepare_fit_X
 
         X_arr = prepare_fit_X(X, estimator)
@@ -689,8 +692,14 @@ class DistBaseSearchCV(BaseEstimator):
             prep_key = None if prep_names is None else _freeze(
                 {k: getattr(bucket_est, k) for k in prep_names})
             if prep_key is None or prep_key not in preps:
-                preps[prep_key] = bucket_est._prep_fit_data(
-                    X_arr, y, sample_weight)
+                try:
+                    preps[prep_key] = bucket_est._prep_fit_data(
+                        X_arr, y, sample_weight)
+                except Exception:
+                    # the estimator's own input checks (MultinomialNB's
+                    # negative counts, say) fail per task on the generic
+                    # path, under error_score, as in the JAX package
+                    return None
             data, meta = preps[prep_key]
             static = _freeze(bucket_est._static_config(meta))
             kernel = _build_cv_kernel(est_cls, meta, static, scorer_specs,

@@ -7,6 +7,10 @@ from .forest import (
     RandomForestRegressor,
     RandomTreesEmbedding,
 )
+from .gbdt import (
+    DistHistGradientBoostingClassifier,
+    DistHistGradientBoostingRegressor,
+)
 from .linear import (
     LinearRegression,
     LinearSVC,
@@ -15,6 +19,7 @@ from .linear import (
     RidgeClassifier,
     SGDClassifier,
 )
+from .naive_bayes import GaussianNB, MultinomialNB
 from .tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
@@ -25,13 +30,17 @@ from .tree import (
 __all__ = [
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "DistHistGradientBoostingClassifier",
+    "DistHistGradientBoostingRegressor",
     "ExtraTreeClassifier",
     "ExtraTreeRegressor",
     "ExtraTreesClassifier",
     "ExtraTreesRegressor",
+    "GaussianNB",
     "LinearRegression",
     "LinearSVC",
     "LogisticRegression",
+    "MultinomialNB",
     "RandomForestClassifier",
     "RandomForestRegressor",
     "RandomTreesEmbedding",

@@ -454,7 +454,10 @@ class _LinearModelBase(BaseEstimator):
         kernel = getattr(type(self), f"_build_{which}_kernel")(
             self._meta, static
         )
-        W = torch.as_tensor(self._kernel_params()).to(device)
+        params = self._kernel_params()
+        W = ({k: torch.as_tensor(v).to(device) for k, v in params.items()}
+             if isinstance(params, dict)
+             else torch.as_tensor(params).to(device))
         with exact_matmuls(), torch.no_grad():
             out = kernel(W, to_device_X(X, device))
         return out.cpu().numpy()
@@ -477,10 +480,18 @@ class _LinearModelBase(BaseEstimator):
         classifier) rather than ``(d,)``."""
         return isinstance(self, ClassifierMixin)
 
+    def _linear_W(self):
+        """The fitted linear weights ``W``; an ``AttributeError`` for a
+        model whose decision is not linear (the JAX package's)."""
+        self._check_fitted()
+        if "W" not in self._params:
+            raise AttributeError(
+                f"{type(self).__name__} has no linear coefficients")
+        return np.asarray(self._params["W"])
+
     @property
     def coef_(self):
-        self._check_fitted()
-        W = np.asarray(self._params["W"])  # (d[+1], k) or (d[+1],)
+        W = self._linear_W()  # (d[+1], k) or (d[+1],)
         w = W[: self.n_features_in_]
         if w.ndim == 1:
             return w.reshape(1, -1) if self._sklearn_2d_coef() else w
@@ -488,8 +499,7 @@ class _LinearModelBase(BaseEstimator):
 
     @property
     def intercept_(self):
-        self._check_fitted()
-        W = np.asarray(self._params["W"])
+        W = self._linear_W()
         if not self.fit_intercept:
             k = 1 if W.ndim == 1 else W.shape[1]
             return np.zeros(k, dtype=W.dtype)

@@ -82,13 +82,44 @@ def n_tree_nodes(max_depth):
     return 2 ** (max_depth + 1) - 1
 
 
+#: bins a block of the CPU's bin scan (:func:`bin_cumsum`)
+_SCAN_BLOCK = 16
+
+
+def bin_cumsum(hist, dim):
+    """Cumulative sums of a histogram over its bins (axis ``dim``).
+
+    On the CPU in the JAX package's float32 order there (XLA's CPU
+    cumsum): a sequential float32 scan within blocks of 16 bins, each
+    block then offset by the running total of the blocks before it. So
+    fractional channels' split gains round as the JAX package's do, and
+    its exact ties (a classifier's first boosting round has many) break
+    the same way; ``torch.cumsum`` accumulates in float64 on the CPU. On
+    the card it is ``torch.cumsum``."""
+    if hist.is_cuda:
+        return torch.cumsum(hist, dim=dim)
+    x = hist.movedim(dim, -1)
+    out = torch.empty_like(x)
+    total = None
+    for lo in range(0, x.shape[-1], _SCAN_BLOCK):
+        acc = x[..., lo]
+        for i in range(lo, min(lo + _SCAN_BLOCK, x.shape[-1])):
+            if i > lo:
+                acc = acc + x[..., i]
+            out[..., i] = acc if total is None else acc + total
+        total = acc if total is None else total + acc
+    return out.movedim(-1, dim)
+
+
 def histogram_node_scores(hist_cum, lam=None, *, newton=False,
                           classification=False, K=1):
     """``hist_cum (..., d, nl, B, C)`` cumulative over bins -> per
     (feature, node, threshold) gains and counts. Returns ``(gain, cnt_l,
     cnt_r, node_totals)`` with ``node_totals (..., d, nl, C)``. ``lam``
     is the Newton lambda (a float, or a tensor broadcastable to the gain),
-    read only by the newton objective."""
+    read only by the newton objective: a per-tree lambda is ``(T, 1, 1,
+    1)`` against a ``(T, d, nl, B)`` gain, and its last axis is dropped
+    for the node totals."""
     tot = hist_cum[..., -1, :]
     L = hist_cum  # left stats for threshold t = bins <= t
     R = tot[..., None, :] - L
@@ -98,10 +129,11 @@ def histogram_node_scores(hist_cum, lam=None, *, newton=False,
         g_l, h_l = L[..., 0], L[..., 1]
         g_r, h_r = R[..., 0], R[..., 1]
         g_t, h_t = tot[..., 0], tot[..., 1]
+        lam_t = lam[..., 0] if torch.is_tensor(lam) and lam.ndim else lam
         gain = (
             g_l ** 2 / torch.clamp(h_l + lam, min=1e-12)
             + g_r ** 2 / torch.clamp(h_r + lam, min=1e-12)
-            - (g_t ** 2 / torch.clamp(h_t + lam, min=1e-12))[..., None]
+            - (g_t ** 2 / torch.clamp(h_t + lam_t, min=1e-12))[..., None]
         )
     elif classification:
         wl = torch.sum(L[..., :K], dim=-1)
@@ -237,8 +269,10 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
       newton C = 3: ``[s*g, s*h, count(s>0)]``;
     - ``seeds (T,)`` integer seeds of the trees' draws
       (``max_features`` subsets, ExtraTrees thresholds);
-    - ``l2``: the Newton lambda (``newton=True`` only), one float for
-      the round.
+    - ``l2``: the Newton lambda (``newton=True`` only): a float for
+      every tree of the round, or a ``(T,)`` tensor, one lambda a tree
+      (a GBDT search's lanes, each class of a lane with its lane's).
+      A scalar gives the bits it gave before per-tree lambdas existed.
 
     ``trees`` = ``{feat, thr, is_split, gain: (T, N), leaf: (T, N,
     K_out)}`` with N = 2**(D+1) - 1 heap-indexed nodes (children of i:
@@ -271,9 +305,12 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
             lam = torch.as_tensor(0.0 if l2 is None else l2,
                                   dtype=torch.float32, device=dev)
             if lam.ndim:
-                raise NotImplementedError(
-                    "a per-tree l2 (a lambda grid on the tree axis) waits "
-                    "for GBDT; see ROADMAP.md, P9")
+                if tuple(lam.shape) != (T,):
+                    raise ValueError(
+                        f"l2 must be a float or one lambda a tree, shape "
+                        f"({T},); got {tuple(lam.shape)}")
+                # against the (T, d, nl, B) gain; the leaves take lam[:, None]
+                lam = lam[:, None, None, None]
         feat = torch.full((T, N), -1, dtype=torch.int32, device=dev)
         thr = torch.zeros((T, N), dtype=torch.int32, device=dev)
         is_split = torch.zeros((T, N), dtype=torch.bool, device=dev)
@@ -343,7 +380,7 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
             else:
                 node_key = torch.where(at_level, rel, nl).to(torch.int32)
                 hist = level_histogram_ref(Xb, node_key, Ych, nl, B)
-            cum = torch.cumsum(hist, dim=3)
+            cum = bin_cumsum(hist, 3)
             gain, cnt_l, cnt_r, tot = node_scores(cum, lam)
 
             # ---- validity
@@ -400,8 +437,9 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
         stats = stats.reshape(T, N, C)
         if newton:
             # empty nodes hold exact 0 (their stats are all zero)
+            lam_n = lam[:, :, 0, 0] if lam.ndim else lam
             leaf = (-stats[..., 0]
-                    / torch.clamp(stats[..., 1] + lam, min=1e-12))[..., None]
+                    / torch.clamp(stats[..., 1] + lam_n, min=1e-12))[..., None]
         elif classification:
             wsum = torch.sum(stats[..., :K], dim=-1, keepdim=True)
             leaf = stats[..., :K] / torch.clamp(wsum, min=1e-12)

@@ -16,6 +16,10 @@ import torch.nn.functional as F
 #: :func:`lane_sum` on the card
 _LANE_BLOCK = 8
 
+#: the CPU's reduction grain: PyTorch cuts a reduction of this many
+#: elements or more across threads, as the batch's shape falls
+_CPU_GRAIN = 32768
+
 
 def resolve_device(device=None):
     """``torch.device`` for ``device``: None means ``"cuda"``. Raises when
@@ -72,10 +76,15 @@ def lane_sum(x):
     number of vectors (n = 11314 samples, say) sum in orders that
     alternate from lane to lane. There, each lane's row is padded with
     zeros to whole 32-byte blocks first (a copy when the rows are not
-    already aligned). The CPU's sums do not depend on alignment, and
-    there this is the plain sum."""
+    already aligned). The CPU's sums do not depend on alignment, but a
+    batch of long rows (``_CPU_GRAIN`` elements or more) is cut across
+    threads by the batch's shape: there each lane's row is summed alone,
+    as a lone lane's is. Otherwise, and for one lane, this is the plain
+    sum."""
     dims = tuple(range(1, x.ndim))
     if not x.is_cuda:
+        if x.shape[0] > 1 and x[0].numel() >= _CPU_GRAIN:
+            return torch.stack([torch.sum(row) for row in x])
         return torch.sum(x, dim=dims)
     x = x.reshape(x.shape[0], -1)
     pad = -x.shape[1] % _LANE_BLOCK

@@ -14,7 +14,9 @@ The port cannot reproduce that stream; it draws from a hash of
 - OOB scoring regenerates each tree's bootstrap from its stored seed;
 - an SGD epoch's row order is a function of ``(seed, epoch)`` alone
   (:func:`epoch_permutation`), so slicing a solve into resumable parts,
-  or restarting a lane in another slot, cannot change it.
+  or restarting a lane in another slot, cannot change it;
+- a boosting fit's early-stopping validation rows are a function of its
+  seed and row count alone (``models/gbdt.py validation_uniforms``).
 
 The hash is the murmur3 32-bit finalizer chained over the key words.
 Values are uint32 held in int64 tensors: torch has no unsigned 64-bit
@@ -29,6 +31,7 @@ __all__ = [
     "EXTRA_THRESHOLD",
     "FEATURE_SUBSET",
     "SHUFFLE",
+    "VALIDATION",
     "bits32",
     "bootstrap_counts",
     "epoch_permutation",
@@ -41,6 +44,8 @@ FEATURE_SUBSET = 2
 EXTRA_THRESHOLD = 3
 #: an SGD epoch's row order
 SHUFFLE = 4
+#: a boosting fit's early-stopping validation rows
+VALIDATION = 5
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9

@@ -1,0 +1,514 @@
+"""Histogram gradient boosting of the port (``skdist_tpu_torch/models/
+gbdt.py``) against the JAX package's (``skdist_tpu/models/gbdt.py``) on
+the CPU, on the same numpy inputs made from a seed. The JAX side is
+pinned to ``hist_mode="scatter"``, the engine its batched kernels take on
+the CPU (the port's ``"auto"`` there).
+
+Tolerances: trees (``feat``, ``thr``, ``is_split``) and ``n_iter_`` equal;
+leaves and decisions within 1e-5 of the largest (both packages run the
+same float32 rounds and differ by the summation order of a few sums, about
+1e-7 here); search scores within 1e-5 (the searches' standing tolerance);
+converted models' decisions within 1e-6. Trees are equal because the
+port's CPU bin scan sums in the JAX package's float32 order
+(``models/tree.py bin_cumsum``): a classifier's first round has constant
+hessians, so splits with equal counts and label sums tie exactly, and a
+float64-accumulated scan broke such ties the other way. The early-stopping validation
+split is drawn from the port's counter hash, so a test that holds an
+early-stopped fit to the JAX package injects the JAX mask
+(``jax_mask``).
+
+Bitwise contracts of the port alone: a round of lanes with different
+lambdas equals lone fits (the tree kernel and a whole boosting fit); a
+sliced fit equals the fused one; compacted = classic, refill = resident
+and ``eta=inf`` = exhaustive at equal round size; a scalar lambda gives
+the bits a one-valued per-tree lambda gives.
+"""
+
+import pickle
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from skdist_tpu.distribute.multiclass import DistOneVsRestClassifier as JaxOvR
+from skdist_tpu.distribute.search import DistGridSearchCV as JaxGrid
+from skdist_tpu.models import gbdt as jg
+from skdist_tpu_torch import (
+    CUDABackend,
+    DistGridSearchCV,
+    DistOneVsRestClassifier,
+    HalvingSpec,
+    LocalBackend,
+    batch_predict,
+    convert,
+    device_predict_plan,
+)
+from skdist_tpu_torch.models import gbdt as tg
+from skdist_tpu_torch.models.linear import _freeze, hyper_float
+from skdist_tpu_torch.models.tree import (
+    bin_cumsum,
+    build_tree_kernel,
+    newton_channels,
+)
+from skdist_tpu_torch.ops.binning import apply_bins, quantile_bin_edges
+from skdist_tpu_torch.utils.device import lane_sum
+
+KW = dict(max_iter=12, max_depth=3, early_stopping=False, min_samples_leaf=5)
+GRID = {"learning_rate": [0.02, 0.05, 0.1, 0.3],
+        "l2_regularization": [0.0, 1.0]}  # 8 x 3 folds = 24 tasks
+
+
+def _data(seed=0, n=300, d=6):
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    s = X @ rng.normal(size=d) + 0.3 * rng.normal(size=n)
+    return X, {"bin": (s > 0).astype(np.int64),
+               "multi": np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])),
+               "reg": s.astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _data()
+
+
+def _pair(kind, **kw):
+    kw = {**KW, **kw}
+    if kind == "reg":
+        return (jg.DistHistGradientBoostingRegressor(hist_mode="scatter",
+                                                     **kw),
+                tg.DistHistGradientBoostingRegressor(device="cpu", **kw))
+    return (jg.DistHistGradientBoostingClassifier(hist_mode="scatter", **kw),
+            tg.DistHistGradientBoostingClassifier(device="cpu", **kw))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+
+
+def _hold(ref, ours, X):
+    """Hold a port fit to the JAX package's: trees equal, ``n_iter_``
+    equal, baselines, leaves and decisions within 1e-5 of the largest."""
+    for key in ("feat", "thr", "is_split"):
+        np.testing.assert_array_equal(np.asarray(ref._params[key]),
+                                      ours._params[key], err_msg=key)
+    assert ours.n_iter_ == ref.n_iter_
+    assert _rel(ref._params["baseline"], ours._params["baseline"]) <= 1e-5
+    assert _rel(ref._params["leaf"], ours._params["leaf"]) <= 1e-5
+    assert _rel(ref.decision_function(X), ours.decision_function(X)) <= 1e-5
+
+
+@pytest.fixture
+def jax_mask(monkeypatch):
+    """The JAX package's early-stopping draw in the port's place."""
+
+    def uniforms(seed, n, device):
+        u = jax.random.uniform(jax.random.PRNGKey(seed ^ 0x5DEECE66), (n,))
+        return torch.as_tensor(np.asarray(u), device=device)
+
+    monkeypatch.setattr(tg, "validation_uniforms", uniforms)
+
+
+@pytest.mark.parametrize("kind", ["bin", "multi", "reg"])
+def test_fit_matches_jax(data, kind):
+    X, ys = data
+    ref, ours = _pair(kind)
+    ref.fit(X, ys[kind])
+    ours.fit(X, ys[kind])
+    _hold(ref, ours, X)
+    if kind != "reg":
+        proba = ours.predict_proba(X)
+        np.testing.assert_allclose(proba, ref.predict_proba(X), atol=1e-6)
+        np.testing.assert_allclose(proba.sum(axis=1), 1.0, rtol=1e-6)
+        np.testing.assert_array_equal(ours.predict(X), ref.predict(X))
+
+
+def test_sample_weight_matches_jax(data):
+    X, ys = data
+    sw = np.random.RandomState(3).uniform(0.2, 3.0, len(X)).astype(
+        np.float32)
+    ref, ours = _pair("bin")
+    ref.fit(X, ys["bin"], sample_weight=sw)
+    ours.fit(X, ys["bin"], sample_weight=sw)
+    _hold(ref, ours, X)
+    # (n, 1) column weights flatten as a vector's
+    col = _pair("bin")[1].fit(X, ys["bin"], sample_weight=sw[:, None])
+    np.testing.assert_array_equal(col._params["leaf"], ours._params["leaf"])
+
+
+@pytest.mark.parametrize("kind", ["bin", "multi", "reg"])
+def test_early_stopping_matches_jax_with_its_mask(data, jax_mask, kind):
+    X, ys = data
+    kw = dict(max_iter=40, early_stopping=True, validation_fraction=0.25,
+              n_iter_no_change=3, tol=1e-3, learning_rate=0.3)
+    ref, ours = _pair(kind, **kw)
+    ref.fit(X, ys[kind])
+    ours.fit(X, ys[kind])
+    assert ref.n_iter_ < 40  # the rule fired
+    _hold(ref, ours, X)
+
+
+def test_early_stopping_own_mask_and_auto():
+    X, ys = _data(1, n=400)
+    est = tg.DistHistGradientBoostingClassifier(
+        max_iter=60, max_depth=3, early_stopping=True,
+        validation_fraction=0.3, n_iter_no_change=3, tol=1e-3,
+        device="cpu").fit(X, ys["bin"])
+    assert 3 <= est.n_iter_ < 60
+    u = tg.validation_uniforms(0, 400, "cpu")
+    assert u.dtype == torch.float32 and float(u.min()) >= 0.0 \
+        and float(u.max()) < 1.0
+    # 'auto' is off at <= 10000 rows
+    st = dict(_freeze(tg.DistHistGradientBoostingClassifier()
+                      ._static_config({"n_features": 2, "n_samples": 400})))
+    assert st["_early_stopping"] is False
+
+
+def test_per_tree_lambda():
+    """A round of lanes with their own lambda and weights equals lone fits
+    of each, bitwise; a scalar lambda gives the bits of a per-tree lambda
+    of one value."""
+    rng = np.random.RandomState(0)
+    n, d = 200, 5
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Xb = apply_bins(torch.as_tensor(X),
+                    torch.as_tensor(quantile_bin_edges(X, 16)))
+    g = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.2, 1.5, (3, n)).astype(np.float32))
+    w = torch.as_tensor((rng.rand(3, n) > 0.3).astype(np.float32))
+    lam = torch.tensor([0.0, 1.0, 7.5])
+    grow = build_tree_kernel(
+        n_features=d, n_bins=16, channels=3, max_depth=3, max_features=d,
+        min_samples_split=2, min_samples_leaf=3, min_impurity_decrease=0.0,
+        extra=False, classification=False, hist_mode="scatter", newton=True)
+    Ych = newton_channels(g, h, w)
+    seeds = torch.zeros(3, dtype=torch.int64)
+    batch = grow(Xb, Ych, seeds, lam)
+    for t in range(3):
+        lone = grow(Xb, Ych[t:t + 1], seeds[:1], float(lam[t]))
+        for k, v in lone.items():
+            assert torch.equal(batch[k][t], v[0]), (t, k)
+    same = grow(Xb, Ych, seeds, torch.full((3,), 1.0))
+    scalar = grow(Xb, Ych, seeds, 1.0)
+    for k in scalar:
+        assert torch.equal(same[k], scalar[k]), k
+    assert not torch.equal(batch["leaf"][0], same["leaf"][0])
+    with pytest.raises(ValueError, match="one lambda a tree"):
+        grow(Xb, Ych, seeds, torch.ones(2))
+
+
+def test_lanes_equal_lone_fits():
+    """A round of lanes, each with its own rate, lambda and fold, is
+    bitwise its lanes' lone fits on the CPU, at a row count past the CPU's
+    reduction grain (where ``lane_sum`` sums each lane's row alone) and
+    with early stopping on (the monitor's sums and softplus)."""
+    X, ys = _data(2, n=40_000, d=4)
+    est = tg.DistHistGradientBoostingClassifier(
+        max_iter=4, max_depth=3, early_stopping=True,
+        validation_fraction=0.2, n_iter_no_change=2, device="cpu")
+    cls, meta, static, Xb, y, sw = _contract(est, X, ys["bin"])
+    fold = torch.arange(len(sw)) % 3
+    W = torch.stack([sw * (fold != t % 3) for t in range(4)])
+    hyper = {"learning_rate": torch.tensor([0.1, 0.3, 0.1, 0.05]),
+             "l2_regularization": torch.tensor([0.0, 1.0, 5.0, 0.0]),
+             "tol": torch.full((4,), 1e-7)}
+    kernel = cls._build_fit_kernel(meta, static)
+    batch = kernel(Xb, y, W, hyper)
+    for t in range(4):
+        lone = kernel(Xb, y, W[t:t + 1], {k: v[t:t + 1]
+                                          for k, v in hyper.items()})
+        for k, v in lone.items():
+            assert torch.equal(batch[k][t], v[0]), (t, k)
+    sums = lane_sum(W)
+    assert all(torch.equal(sums[t:t + 1], lane_sum(W[t:t + 1]))
+               for t in range(4))
+
+
+@pytest.mark.parametrize("B", [16, 20, 64, 256])
+def test_bin_cumsum_is_the_jax_cpu_order(B):
+    """The CPU bin scan gives jnp.cumsum's float32 bits on the CPU."""
+    rng = np.random.RandomState(B)
+    x = (rng.randn(3, 4, 2, B, 3)
+         * rng.choice([1.0, 1e3, 1e-3], (3, 4, 2, B, 3))).astype(np.float32)
+    ref = np.asarray(jax.numpy.cumsum(jax.numpy.asarray(x), axis=3))
+    np.testing.assert_array_equal(bin_cumsum(torch.as_tensor(x), 3).numpy(),
+                                  ref)
+
+
+def test_newton_leaf_values():
+    """A stump's leaves are the Newton steps -G/(H+lambda) of their rows."""
+    rng = np.random.RandomState(0)
+    X = rng.normal(size=(64, 3)).astype(np.float32)
+    g = rng.normal(size=64).astype(np.float32)
+    h = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+    Xb = apply_bins(torch.as_tensor(X),
+                    torch.as_tensor(quantile_bin_edges(X, 16)))
+    grow = build_tree_kernel(
+        n_features=3, n_bins=16, channels=3, max_depth=1, max_features=3,
+        min_samples_split=2, min_samples_leaf=1, min_impurity_decrease=0.0,
+        extra=False, classification=False, hist_mode="scatter", newton=True)
+    lam = 0.7
+    tree = grow(Xb, newton_channels(torch.as_tensor(g)[None],
+                                    torch.as_tensor(h)[None],
+                                    torch.ones(1, 64)),
+                torch.zeros(1, dtype=torch.int64), torch.tensor([lam]))
+    f, t = int(tree["feat"][0, 0]), int(tree["thr"][0, 0])
+    left = Xb[:, f].numpy() <= t
+    for mask, node in ((left, 1), (~left, 2)):
+        np.testing.assert_allclose(float(tree["leaf"][0, node, 0]),
+                                   -g[mask].sum() / (h[mask].sum() + lam),
+                                   rtol=1e-5)
+
+
+def _contract(est, X, y, sw=None):
+    cls = type(est)
+    data, meta = est._prep_fit_data(X, y, sw)
+    static = _freeze(est._static_config(meta))
+    Xb = cls._fit_operand(torch.as_tensor(data["X"]), meta, static)
+    return cls, meta, static, Xb, torch.as_tensor(data["y"]), \
+        torch.as_tensor(data["sw"])
+
+
+@pytest.mark.parametrize("n_slice", [1, 5, 7, 40])
+def test_sliced_fit_bitwise_equals_fused(data, n_slice):
+    X, ys = data
+    est = tg.DistHistGradientBoostingClassifier(
+        max_iter=18, max_depth=3, early_stopping=True,
+        validation_fraction=0.25, n_iter_no_change=3, tol=1e-4,
+        device="cpu")
+    cls, meta, static, Xb, y, sw = _contract(est, X, ys["multi"])
+    # three lanes: their own rates, lambdas and weights
+    W = torch.stack([sw, sw * (torch.arange(len(sw)) % 3 > 0), sw])
+    hyper = {"learning_rate": torch.tensor([0.1, 0.3, 0.05]),
+             "l2_regularization": torch.tensor([0.0, 1.0, 4.0]),
+             "tol": torch.full((3,), 1e-4)}
+    fused = cls._build_fit_kernel(meta, static)(Xb, y, W, hyper)
+    ks = cls._build_fit_slice_kernels(meta, static, n_slice)
+    carry = ks["init"](Xb, y, W, hyper)
+    for _ in range(-(-18 // n_slice)):
+        carry = ks["step"](Xb, y, W, hyper, carry)
+    assert bool(carry["done"].all())
+    assert bool(ks["converged"](Xb, y, W, hyper, carry).any())
+    sliced = ks["finalize"](Xb, y, W, hyper, carry)
+    for k in fused:
+        assert torch.equal(fused[k], sliced[k]), k
+    # a lane restarted in place runs as a fresh one
+    again = ks["restart"](Xb, y, W, hyper, carry,
+                          torch.tensor([1], dtype=torch.int64))
+    assert int(again["it"][1]) == 0 and not bool(again["done"][1])
+    for _ in range(-(-18 // n_slice)):
+        again = ks["step"](Xb, y, W, hyper, again)
+    redo = ks["finalize"](Xb, y, W, hyper, again)
+    for k in fused:
+        assert torch.equal(fused[k], redo[k]), k
+
+
+def test_live_carry_scoreable(data):
+    X, ys = data
+    est = tg.DistHistGradientBoostingClassifier(max_iter=20, max_depth=3,
+                                                early_stopping=False,
+                                                device="cpu")
+    cls, meta, static, Xb, y, sw = _contract(est, X, ys["bin"])
+    hyper = {k: torch.tensor([hyper_float(getattr(est, k))])
+             for k in cls._hyper_names}
+    ks = cls._build_fit_slice_kernels(meta, static, 4)
+    carry = ks["step"](Xb, y, sw[None], hyper,
+                       ks["init"](Xb, y, sw[None], hyper))
+    params = ks["score_params"](Xb, y, sw[None], hyper, carry)
+    assert int(params["n_iter"][0]) == 4
+    z = cls._build_decision_kernel(meta, static)(params, torch.as_tensor(X))
+    assert z.shape == (1, len(X))
+    assert float(np.mean((z[0].numpy() > 0) == ys["bin"])) > 0.7
+
+
+def _score_keys(results):
+    return [k for k in results if "test_" in k and "_time" not in k]
+
+
+def test_search_matches_jax_and_compacted_equals_classic(data, monkeypatch):
+    X, ys = data
+    ref = JaxGrid(_pair("multi")[0], GRID, cv=3, refit=False).fit(X,
+                                                                  ys["multi"])
+    ours = DistGridSearchCV(_pair("multi")[1], GRID, cv=3,
+                            backend=CUDABackend(device="cpu")).fit(
+        X, ys["multi"])
+    st = ours.round_stats_[0]
+    assert st["mode"] == "compacted" and st["tasks"] == 24
+    for k in _score_keys(ref.cv_results_):
+        if k.startswith("rank"):
+            continue
+        np.testing.assert_allclose(ours.cv_results_[k], ref.cv_results_[k],
+                                   rtol=0, atol=1e-5, err_msg=k)
+    assert ours.best_params_ == {
+        k: v for k, v in ref.cv_results_["params"][
+            int(np.argmin(ref.cv_results_["rank_test_score"]))].items()}
+    # the classic path at the compacted chunk gives the same bits
+    monkeypatch.setenv("SKDIST_COMPACTION", "0")
+    classic = DistGridSearchCV(_pair("multi")[1], GRID, cv=3, refit=False,
+                               partitions=-(-24 // st["chunk"]),
+                               backend=CUDABackend(device="cpu")).fit(
+        X, ys["multi"])
+    assert classic.round_stats_[0]["mode"] == "classic"
+    for k in _score_keys(ours.cv_results_):
+        np.testing.assert_array_equal(classic.cv_results_[k],
+                                      ours.cv_results_[k], err_msg=k)
+    # the refit is a lone fit of the winner
+    lone = _pair("multi", **ours.best_params_)[1].fit(X, ys["multi"])
+    np.testing.assert_array_equal(ours.best_estimator_._params["leaf"],
+                                  lone._params["leaf"])
+
+
+def test_refill_regime_equals_resident(data, monkeypatch):
+    X, ys = data
+    run = lambda: DistGridSearchCV(  # noqa: E731
+        _pair("reg")[1], GRID, cv=3, refit=False, partitions=8,
+        backend=CUDABackend(device="cpu")).fit(X, ys["reg"])
+    resident = run()
+    monkeypatch.setattr(CUDABackend, "round_cap",
+                        lambda self, *a, **k: 6)
+    refill = run()
+    assert refill.round_stats_[0]["regime"] == "refill"
+    assert refill.round_stats_[0]["refills"] > 0
+    for k in _score_keys(resident.cv_results_):
+        np.testing.assert_array_equal(refill.cv_results_[k],
+                                      resident.cv_results_[k], err_msg=k)
+
+
+SKEWED = {"learning_rate": [1e-4, 1e-3, 1e-2, 0.3],
+          "l2_regularization": [0.0, 1e12]}
+
+
+def test_asha_eta_inf_is_exhaustive_and_eta3_kills(data):
+    """A quality-skewed grid (tiny rates barely move the logits; an absurd
+    lambda zeroes every leaf) raced on log loss, which, unlike accuracy,
+    sees a learning rate's scale."""
+    X, ys = data
+    y = ys["multi"]
+    est = tg.DistHistGradientBoostingClassifier(max_iter=16, max_depth=3,
+                                                early_stopping=False,
+                                                device="cpu")
+    run = lambda **kw: DistGridSearchCV(  # noqa: E731
+        est, SKEWED, cv=3, refit=False, scoring="neg_log_loss",
+        backend=CUDABackend(device="cpu"), **kw).fit(X, y)
+    ex = run()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        inf = run(adaptive=HalvingSpec(eta=float("inf")))
+        ad = run(adaptive=HalvingSpec(eta=3))
+    for k in _score_keys(ex.cv_results_):
+        np.testing.assert_array_equal(inf.cv_results_[k], ex.cv_results_[k],
+                                      err_msg=k)
+    assert np.all(np.asarray(inf.cv_results_["rung_"]) == -1)
+    rung = np.asarray(ad.cv_results_["rung_"])
+    assert (rung >= 0).any()
+    assert rung[ad.best_index_] == -1
+    assert ad.best_params_ == ex.best_params_
+    st = ad.round_stats_[0]
+    assert st["retired_rung"] > 0
+    assert st["retired_rung"] + st["retired_convergence"] == 24
+
+
+def test_rung_metric_fallbacks(data):
+    X, ys = data
+    est = _pair("reg", max_iter=24)[1]
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        s = DistGridSearchCV(
+            est, GRID, cv=3, refit=False, scoring="neg_mean_squared_error",
+            backend=CUDABackend(device="cpu"),
+            adaptive=HalvingSpec(eta=2.0, metric="neg_mean_squared_error"),
+        ).fit(X, ys["reg"])
+    assert not any("could not engage" in str(x.message) for x in w)
+    assert np.isfinite(s.best_score_)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        s = DistGridSearchCV(
+            est, GRID, cv=3, refit=False, scoring="r2",
+            backend=CUDABackend(device="cpu"),
+            adaptive=HalvingSpec(eta=2.0, metric="neg_log_loss"),
+        ).fit(X, ys["reg"])
+    assert any("could not engage" in str(x.message) for x in w)
+    assert np.all(np.asarray(s.cv_results_["rung_"]) == -1)
+    # a regression metric on the classifier: the generic path
+    s = DistGridSearchCV(_pair("bin", max_iter=4)[1],
+                         {"learning_rate": [0.1, 0.3]}, cv=2, refit=False,
+                         scoring="r2", backend=CUDABackend(device="cpu")).fit(
+        X, ys["bin"])
+    assert s.round_stats_[0]["mode"] == "generic"
+
+
+def test_ovr_takes_the_class_axis(data):
+    X, ys = data
+    ref = JaxOvR(_pair("bin")[0]).fit(X, ys["multi"])
+    ovr = DistOneVsRestClassifier(_pair("bin")[1],
+                                  backend=CUDABackend(device="cpu")).fit(
+        X, ys["multi"])
+    st = ovr.round_stats_[0]
+    assert st["mode"] == "classic" and st["tasks"] == 3
+    np.testing.assert_allclose(ovr.predict_proba(X), ref.predict_proba(X),
+                               atol=1e-5)
+    lone = _pair("bin")[1].fit(X, (ys["multi"] == 1).astype(np.int64))
+    for k, v in lone._params.items():
+        np.testing.assert_array_equal(ovr.estimators_[1]._params[k], v,
+                                      err_msg=k)
+
+
+def test_batch_predict_pickle_and_convert(data):
+    X, ys = data
+    for kind in ("bin", "multi", "reg"):
+        ref, ours = _pair(kind)
+        ref.fit(X, ys[kind])
+        ours.fit(X, ys[kind])
+        method = "predict" if kind == "reg" else "predict_proba"
+        direct = getattr(ours, method)(X)
+        got = batch_predict(ours, X, method,
+                            backend=LocalBackend(device="cpu"), batch_size=64)
+        np.testing.assert_allclose(got, direct, rtol=0, atol=1e-6)
+        plan = device_predict_plan(ours, method)
+        assert plan is not None and plan.row_bytes > 4 * (X.shape[1] + 1)
+        loaded = pickle.loads(pickle.dumps(ours))
+        np.testing.assert_array_equal(getattr(loaded, method)(X), direct)
+        assert loaded.n_iter_ == ours.n_iter_
+        conv = convert.gbdt_from_reference(ref, device="cpu")
+        assert type(conv) is type(ours) and conv.n_iter_ == ref.n_iter_
+        assert _rel(ref.decision_function(X), conv.decision_function(X)) \
+            <= 1e-6
+        np.testing.assert_array_equal(conv.predict(X), ref.predict(X))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        device_predict_plan(ours, "predict", serve_dtype="int8")
+
+
+def test_validation_and_refusals(data):
+    X, ys = data
+    T = tg.DistHistGradientBoostingClassifier
+    with pytest.raises(ValueError, match="loss"):
+        T(loss="exponential")
+    with pytest.raises(ValueError, match="loss"):
+        tg.DistHistGradientBoostingRegressor(loss="absolute_error")
+    with pytest.raises(ValueError, match="max_bins"):
+        T(max_bins=1)
+    with pytest.raises(ValueError, match="early_stopping"):
+        T(early_stopping="yes")
+    with pytest.raises(ValueError, match="learning_rate"):
+        T(learning_rate=-0.5)
+    est = T(max_iter=2, device="cpu")
+    with pytest.raises(ValueError, match="log_loss"):
+        est.set_params(loss="exponential").fit(X, ys["bin"])
+    with pytest.raises(ValueError, match="l2_regularization"):
+        T(device="cpu").set_params(l2_regularization=-1.0).fit(X, ys["bin"])
+    with pytest.raises(ValueError, match="n_iter_no_change"):
+        T(device="cpu", n_iter_no_change=0).fit(X, ys["bin"])
+    with pytest.raises(ValueError, match="native"):
+        T(max_iter=2, hist_mode="native", device="cpu").fit(X, ys["bin"])
+
+    class ChunkedDataset:
+        pass
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        T(device="cpu").fit(ChunkedDataset(), ys["bin"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T(max_iter=2).fit(X, ys["bin"])

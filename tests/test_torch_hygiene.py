@@ -114,6 +114,7 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "from skdist_tpu_torch.distribute import predict\n"
         "from skdist_tpu_torch.models import forest, linear, tree\n"
         "from skdist_tpu_torch.models import native_forest\n"
+        "from skdist_tpu_torch.models import gbdt, naive_bayes\n"
         "from skdist_tpu_torch import native\n"
         "native.hist_tree_available()\n"
         "from skdist_tpu_torch.ops import binning, hist, packed_sparse, _build\n"
@@ -124,6 +125,9 @@ def test_port_imports_no_jax_no_reference_no_sklearn():
         "p.Ridge, p.RidgeClassifier, p.LinearRegression\n"
         "p.LinearSVC, p.DistOneVsRestClassifier, p.DistOneVsOneClassifier\n"
         "p.LocalBackend, p.batch_predict, p.get_prediction_udf\n"
+        "p.DistHistGradientBoostingClassifier, p.GaussianNB\n"
+        "p.DistHistGradientBoostingRegressor, p.MultinomialNB\n"
+        "convert.gbdt_from_reference, convert.naive_bayes_from_reference\n"
         "p.device_predict_plan, predict.batch_predict\n"
         "convert.tree_from_reference\n"
         "convert.multiclass_from_reference, convert.linear_svc_from_reference\n"
