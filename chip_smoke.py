@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases-17-19
     python3 chip_smoke.py --phase-20
     python3 chip_smoke.py --phase-21
+    python3 chip_smoke.py --phase-22
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -51,12 +52,15 @@ result line:
    ``fill_`` as the launch floor. Each is read four ways: CUDA events
    over 50 back-to-back calls, the profiler's device time a call, a CUDA
    graph of 50 calls replayed under events, and the host's time a call.
-3. The sparse main path at full size: ``DistGridSearchCV(
-   LogisticRegression(max_iter=100), {"C": logspace(-3, 2, 96)}, cv=5,
-   scoring="f1_weighted")`` on a 20news-shaped hashed-text CSR (n=11314,
-   d=2**18, 20 classes), 480 fits on the card, on the search's default
-   convergence-compacted path (the refill regime: the lanes do not all
-   fit on the card at once). The kernels' launch counters are zeroed
+3. The sparse main path at full width: ``DistGridSearchCV(
+   LogisticRegression(max_iter=100), {"C": logspace(-3, 2, 96)[::4]},
+   cv=5, scoring="f1_weighted")`` on a 20news-shaped hashed-text CSR
+   (n=11314, d=2**18, 20 classes), 120 fits on the card (every fourth C
+   of config 1's 96, the span kept: a printed cut that keeps the whole
+   run inside its time limit; the 480-fit grid took 228 s of it), on
+   the search's default convergence-compacted path (the refill regime:
+   the lanes do not all fit on the card at once). Phase 2's main path
+   shape is this grid's round. The kernels' launch counters are zeroed
    just before it and read just after; both must be > 0. Printed: the
    wall, the scheduler's regime, chunk, slices and refills, the lanes'
    ``n_iter`` (min, median, p90, max), how many stopped at ``max_iter``
@@ -64,16 +68,19 @@ result line:
    pickled ``best_estimator_`` must predict as the live one, and one
    refit on the card is held to the same refit on the CPU (to 10x the
    gap one ulp of input noise opens on the card). Then one round of the
-   grid (19 C x 5 folds, ``max_iter`` cut to 20, one chunk) timed alone
+   grid (as many C as fill it x 5 folds, ``max_iter`` cut to 20, one
+   chunk) timed alone
    and then under ``torch.profiler``: device time in K1, K2 and the
    rest, and the device's idle share of the round's wall.
-3b. Classic against compacted at full width: the sparse grid cut to 24
-   C (spanning it) x 5 folds, both ways at equal chunk in one process;
+3b. Classic against compacted at full width: the sparse grid cut to 12
+   C (the first 12 of phase 3's) x 5 folds, both ways at equal chunk in
+   one process, on a backend whose rounds hold at most 30 lanes (as if
+   the card's memory held no more: the refill regime at a cut size);
    ``cv_results_`` and the refit ``coef_`` must be bitwise equal, and
    the compacted run must have refilled a slot and retired a lane
    (stalled or converged) before ``max_iter`` (else the comparison
    would be trivial).
-4. The dense headline on the card: every fourth C of the same grid (24
+4. The dense headline on the card: every sixth C of the same grid (16
    of 96, the span kept; a printed cut that keeps the run inside its
    time limit) on the dense 11314 x 4096 problem (``torch.matmul``, no
    hand kernel), compacted
@@ -139,7 +146,8 @@ result line:
     and K1's be > 0; every score finite (the count of lanes whose
     Cholesky failed is printed); the pickled ``best_estimator_`` must
     predict as the live one; the refit on the card is held to the same
-    refit on the CPU (one thread, so that it repeats itself bitwise) as
+    refit on the CPU (one thread, so that it repeats itself bitwise; the
+    four CPU refits of the phase run at once, each on its own thread) as
     in phase 3, and both to a float64 solve on the card (the card's
     error at most 10x the CPU's), at the best alpha and at alpha = 1.
     The sizer's bytes beside the peak device memory, and a
@@ -172,7 +180,7 @@ result line:
     score must be finite, ``best_score_`` above the majority class's
     share, and the pickled ``best_estimator_`` must predict as the live
     one.
-13b. The same search on ``make_tabular(25000, 54, 7, seed=1)`` (a quarter
+13b. The same search on ``make_tabular(12500, 54, 7, seed=1)`` (an eighth
     of the JAX package's own benchmark size, a cut that keeps the run
     inside its time target; printed): compacted, then classic
     (``SKDIST_COMPACTION=0``) at the same chunk, ``cv_results_`` and the
@@ -360,6 +368,39 @@ result line:
     best var_smoothing (at the default the comparison is printed: a class
     feature's variance there is float32 residue), and a
     ``DistMultiModelSearch`` of GaussianNB beside LogisticRegression.
+22. Feature elimination at BASELINE row 7's covtype shape (581012 x 54,
+    7 classes, 14 junk columns; ``examples/eliminate/covtype.py``'s
+    generator and settings). (a) ``DistFeatureEliminator(
+    LogisticRegression(max_iter=40), min_features_to_select=10, step=4,
+    cv=5, scoring="accuracy", partitions=1)``: 12 sets x 5 folds = 60
+    masked lanes as one compacted round (the default's 8 rounds of 8
+    only multiply the host-paced iterations when every lane runs to
+    ``max_iter``): walls of the initial fit, the grid and the refit,
+    scores, kept columns, peak memory; three lanes, each run as a round
+    of one (a lane's bits depend on its round's shape; a round of all
+    three is printed beside them) for 10 iterations: bitwise the round
+    over the materialised ``X * fmask``, and against a lone fit of the
+    column-dropped X (fold weights) within 10x of what one ulp of random
+    input noise moves the lane, masked weights exactly 0; on 3000 rows
+    at the default's 8 rounds of 8 (``partitions=8``), the classic path
+    bitwise the compacted one, which must have retired a lane before
+    ``max_iter`` and merged rounds, and the card against the
+    CPU (scores within three flipped test rows a set, the same best set
+    or a near tie, refits within 10x of what ulp noise moves the card's);
+    pickled = live. (b) The same with ``HalvingSpec(eta=3)`` at the
+    default rounds: a rung fires, killed sets score NaN and never win,
+    ``rung_`` filled; whether the race keeps the exhaustive best set is
+    printed. (c) The eliminator over ``DecisionTreeClassifier(
+    max_depth=8)``: K4 under per-lane feature masks, launches exactly 8
+    a round plus the initial fit's and the refit's; the round's lanes as
+    the eliminator grew them, every one free of masked splits and three
+    bitwise their lone fits of the column-zeroed X; K4 at this round's
+    shape (T=60, C=8 whole-number channels) bitwise its plain version at
+    levels 1, 16 and 128, and its time a level there beside its bound
+    and its plain version. (d) ``SimpleVoter`` hard and
+    soft over a card-fitted LogisticRegression,
+    DistRandomForestClassifier and GaussianNB on 20000 rows, each vote
+    equal to a numpy recount; pickled = live.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -367,7 +408,7 @@ out-of-memory downgrade is an error in every phase: the up-front sizing
 must hold on the card.
 
 ``--ab-sgd DIR`` runs none of the phases above: it times phase 13b's
-compacted search (on ``--ab-rows`` rows, 25000 by default) in turns on
+compacted search (on ``--ab-rows`` rows, 12500 by default) in turns on
 the checkout at DIR (a parent commit, unpacked with ``git archive``) and
 on this one, ``--pairs`` pairs (default 6) ordered parent, this, this,
 parent, one process a run, and
@@ -377,7 +418,8 @@ runs must agree on epochs and ``best_score_``.
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
 the kernels and runs phases 17-19 alone, with no result line;
-``--phase-20`` and ``--phase-21`` do the same for phases 20 and 21.
+``--phase-20``, ``--phase-21`` and ``--phase-22`` do the same for
+phases 20, 21 and 22.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -400,6 +442,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -462,6 +505,19 @@ def make_tabular(n, d, k, seed=0, noise=0.7):
     W = rng.normal(size=(d, k)).astype(np.float32)
     y = np.argmax(X @ W + noise * rng.normal(size=(n, k)), axis=1)
     return X, y
+
+
+#: the clock of :func:`lap`: when the previous group of phases ended
+_LAP = {"t": None}
+
+
+def lap(label=None):
+    """Print ``label``'s seconds, those since the previous call; with no
+    label only restart the clock (after phases that print their own)."""
+    now = time.perf_counter()
+    if label is not None:
+        say(f"{label} seconds: {now - _LAP['t']:.1f}")
+    _LAP["t"] = now
 
 
 def say(*parts):
@@ -1386,17 +1442,35 @@ def fit_grid(torch, X, y, Cs, backend, compaction=True, **kw):
         del os.environ["SKDIST_COMPACTION"]
 
 
-def phase_sparse_ab(torch, X, y, Cs, backend):
-    """Phase 3b: the sparse grid cut to 24 C (spanning it) x 5 folds,
-    classic against compacted at equal chunk (two rounds' worth), in one
-    process: ``cv_results_`` and the refit ``coef_`` must be bitwise
-    equal, the card's proof that a lane's bits do not depend on its slot
-    at the main path's shapes (the refill regime restarts lanes in any
-    freed slot)."""
-    Cs_ab = Cs[::max(1, len(Cs) // 24)][:24]
+def capped_backend(cap):
+    """A ``CUDABackend`` whose rounds hold at most ``cap`` tasks, as if
+    the card's memory held no more: the compacted path's refill regime
+    at a cut size."""
+    from skdist_tpu_torch import CUDABackend
+
+    class CappedBackend(CUDABackend):
+        def round_cap(self, *args, **kw):
+            got = super().round_cap(*args, **kw)
+            return got if got is None else min(got, cap)
+
+    return CappedBackend()
+
+
+def phase_sparse_ab(torch, X, y, Cs):
+    """Phase 3b: the sparse grid cut to 12 C (the first 12 of phase 3's)
+    x 5 folds, 60 fits in two rounds of 30 on a backend whose rounds hold
+    at most 30 tasks (so the two do not fit at once), classic against
+    compacted at equal chunk, in one process: ``cv_results_`` and the
+    refit ``coef_`` must be bitwise equal, the card's proof that a lane's
+    bits do not depend on its slot at the main path's shapes (the refill
+    regime restarts lanes in any freed slot)."""
+    Cs_ab = Cs[:12]
     n_fits = 5 * len(Cs_ab)
+    backend = capped_backend(n_fits // 2)
     say(f"phase 3b: sparse grid, {len(Cs_ab)} C x 5 folds = {n_fits} fits, "
         "compacted against classic at equal chunk")
+    say(f"CUT: phase 3b runs {len(Cs_ab)} of its 24 C, on a backend whose "
+        f"rounds hold at most {n_fits // 2} tasks")
     comp, wall_c = fit_grid(torch, X, y, Cs_ab, backend, partitions=2)
     st = comp.round_stats_[0]
     say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
@@ -2085,26 +2159,37 @@ def phase_ridge(torch, X, y, alphas, backend):
     torch.cuda.empty_cache()
 
     def cpu_refit(Xs, ys, alpha):
-        # on one thread: the multithreaded LAPACK Cholesky does not
-        # repeat itself bitwise, which would make the check below a coin
-        # toss
-        threads = torch.get_num_threads()
+        # set in the worker thread itself: OpenMP's and MKL's thread
+        # counts are the calling thread's
         torch.set_num_threads(1)
-        try:
-            return RidgeClassifier(alpha=alpha, device="cpu").fit(Xs, ys)
-        finally:
-            torch.set_num_threads(threads)
+        t0 = time.perf_counter()
+        fit = RidgeClassifier(alpha=alpha, device="cpu").fit(Xs, ys)
+        return fit, time.perf_counter() - t0
 
-    def hold_refit(Xs, ys, alpha, label, gate_ulp, again):
+    X1, y1 = ridge_data(seed=1)
+    # the CPU refits first, all at once, each on one thread: the
+    # multithreaded LAPACK Cholesky does not repeat itself bitwise, which
+    # would make the check below a coin toss; a single-threaded one does,
+    # beside other threads as well (the refit at the best alpha runs twice
+    # to show it)
+    jobs = {"best": (X, y, best), "again": (X, y, best), "one": (X, y, 1.0),
+            "seed1": (X1, y1, best)}
+    threads = torch.get_num_threads()
+    try:
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            cpu_fits = dict(zip(jobs, pool.map(lambda a: cpu_refit(*a),
+                                               jobs.values())))
+    finally:
+        torch.set_num_threads(threads)
+
+    def hold_refit(Xs, ys, alpha, label, gate_ulp, key):
         X_ulp = Xs.copy()
         X_ulp.data *= np.float32(1 + 2.0 ** -23)
         exact, G64, b64 = ridge_f64(torch, Xs, ys)
         t0 = time.perf_counter()
         on_card = RidgeClassifier(alpha=alpha).fit(Xs, ys)
         t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        on_cpu = cpu_refit(Xs, ys, alpha)
-        t_cpu = time.perf_counter() - t0
+        on_cpu, t_cpu = cpu_fits[key]
         on_card_ulp = RidgeClassifier(alpha=alpha).fit(X_ulp, ys)
         coef64 = exact(alpha)
         dcoef = float(np.abs(on_card.coef_ - on_cpu.coef_).max())
@@ -2113,8 +2198,8 @@ def phase_ridge(torch, X, y, alphas, backend):
         e_card = float(np.abs(on_card.coef_ - coef64).max())
         e_cpu = float(np.abs(on_cpu.coef_ - coef64).max())
         rerun = ""
-        if again:
-            gap = np.abs(on_cpu.coef_ - cpu_refit(Xs, ys, alpha).coef_)
+        if key == "best":
+            gap = np.abs(on_cpu.coef_ - cpu_fits["again"][0].coef_)
             rerun = f", cpu vs cpu again {float(gap.max()):.3e}"
         say(f"  refit {label}alpha={alpha:.4g}: card {t_card:.2f} s, cpu "
             f"(one thread) {t_cpu:.2f} s; max|coef| {scale:.3e}, card vs "
@@ -2135,12 +2220,10 @@ def phase_ridge(torch, X, y, alphas, backend):
         del exact, G64, b64
         torch.cuda.empty_cache()
 
-    for alpha in (best, 1.0):
-        hold_refit(X, y, alpha, "", gate_ulp=alpha == best,
-                   again=alpha == best)
-    X1, y1 = ridge_data(seed=1)
-    hold_refit(X1, y1, best, "on seed 1, ", gate_ulp=False, again=False)
-    del X1, y1
+    hold_refit(X, y, best, "", gate_ulp=True, key="best")
+    hold_refit(X, y, 1.0, "", gate_ulp=False, key="one")
+    hold_refit(X1, y1, best, "on seed 1, ", gate_ulp=False, key="seed1")
+    del X1, y1, cpu_fits
 
     # one round's device time, split by torch.profiler over kernel names
     # (the factorisation and the solve share cuBLAS kernels, so they are
@@ -2226,10 +2309,11 @@ def phase_ridge_regressor(torch, X, alphas, backend):
 #: JAX package's own benchmark size (100000 rows), a cut that keeps the
 #: whole run inside its time target
 SGD_N, SGD_D, SGD_K = 581012, 54, 7
-SGD_AB_N = 25_000
+SGD_AB_N = 12_500
 #: phase 13's epochs: config 2's 20 cut to 5, so that the whole run
 #: keeps its time target beside phase 21 (at 10 its lanes stopped on tol
-#: after 7-10 epochs, and a run on an H100 took up to 1134 s)
+#: after 7-10 epochs, and a run on an H100 took up to 1134 s); fewer than
+#: 5 would take the search off the compacted path (a slice is 4 epochs)
 SGD_EPOCHS = 5
 
 SGD_ALPHAS = list(np.logspace(-6, -2, 60))
@@ -2484,7 +2568,7 @@ print(json.dumps({"wall": wall, "refit": gs.refit_time_,
 
 def ab_sgd(parent, pairs, rows):
     """``--ab-sgd``: config 2's compacted search on ``rows`` rows (phase
-    13b's 25000 by default, phase 13's 581012 at full size) in turns on
+    13b's 12500 by default, phase 13's 581012 at full size) in turns on
     the tree at ``parent`` and on this checkout, ``pairs`` pairs ordered
     parent, this, this, parent, ..., one process a run. Prints every run and each tree's median, least and largest
     search and refit walls; every run must give the same epochs and
@@ -4442,6 +4526,541 @@ def phase_gbdt(torch):
         k4_err, k4_times
 
 
+# ---------------------------------------------------------------------------
+# phase 22: feature elimination (BASELINE row 7's covtype shape) and the
+# voter
+# ---------------------------------------------------------------------------
+
+#: BASELINE row 7: covtype's shape, 581012 x 54, 7 classes, 14 junk columns
+COVTYPE_N = 581012
+#: the repo example's eliminator settings (examples/eliminate/covtype.py):
+#: 12 feature sets x 5 folds = 60 lanes
+ELIM_KW = dict(min_features_to_select=10, step=4, cv=5, scoring="accuracy")
+#: the rows of 22a's classic and CPU checks, and 22d's voter rows
+ELIM_CPU_N = 3_000
+VOTER_N = 20_000
+
+
+def make_covtype_shaped(n=40_000, seed=0, d=54, k=7, n_junk=14):
+    """Covtype-shaped synthetic problem (a copy of
+    ``examples/eliminate/covtype.py``'s): ``d - n_junk`` informative
+    gaussian columns, a 7-class label from a random projection plus
+    noise, and ``n_junk`` pure-noise columns at random places. Returns
+    ``(X, y, junk column set)``."""
+    rng = np.random.RandomState(seed)
+    d_inf = d - n_junk
+    W = rng.normal(size=(d_inf, k))
+    X_inf = rng.normal(size=(n, d_inf)).astype(np.float32)
+    y = (X_inf @ W + 2.0 * rng.normal(size=(n, k))).argmax(1)
+    X = np.empty((n, d), dtype=np.float32)
+    junk_cols = rng.choice(d, size=n_junk, replace=False)
+    inf_cols = np.setdiff1d(np.arange(d), junk_cols)
+    X[:, inf_cols] = X_inf
+    X[:, junk_cols] = rng.normal(size=(n, n_junk))
+    return X, y, set(junk_cols.tolist())
+
+
+class FitWalls:
+    """Records the wall of every ``cls.fit`` call (the device synchronised
+    before and after) while active: the eliminator's initial fit is the
+    first, its refit the last."""
+
+    def __init__(self, torch, cls):
+        self.torch, self.cls, self.walls = torch, cls, []
+
+    def __enter__(self):
+        torch, walls, orig = self.torch, self.walls, self.cls.fit
+        self.own = "fit" in vars(self.cls)
+        self.orig = orig
+
+        def fit(est, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(est, *a, **k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            self.cls.fit = self.orig
+        else:
+            del self.cls.fit
+
+
+def eliminate(torch, est, X, y, **kw):
+    """A timed ``DistFeatureEliminator(est, **ELIM_KW, **kw).fit(X, y)``
+    on the card; returns the model, its wall and its (initial, refit)
+    fit walls."""
+    from skdist_tpu_torch import DistFeatureEliminator
+
+    with FitWalls(torch, type(est)) as fw:
+        fe, wall = timed_call(torch, lambda: DistFeatureEliminator(
+            est, **{**ELIM_KW, **kw}).fit(X, y))
+    return fe, wall, (fw.walls[0], fw.walls[-1])
+
+
+def elim_readout(fe, wall, fits, junk, label):
+    """One model's walls, scheduler counts, scores and kept columns."""
+    st = fe.round_stats_[0]
+    grid = st.get("wall_s", sum(st.get("round_walls_s", [])))
+    kept = set(fe.best_features_.tolist())
+    say(f"  {label}: wall {wall:.2f} s (initial fit {fits[0]:.2f} s, "
+        f"{len(fe.scores_) * ELIM_KW['cv']}-lane grid {grid:.2f} s, refit "
+        f"{fits[1]:.2f} s)")
+    if st["mode"] == "compacted":
+        say("    " + lane_readout(st))
+    else:
+        say(f"    {st['mode']}, {st['rounds']} round(s) x "
+            f"{st['tasks_per_round']} lanes, bytes per task "
+            f"{st['bytes_per_task'] / 2**20:.1f} MiB")
+    say(f"    scores_ {np.round(fe.scores_, 6).tolist()}")
+    say(f"    best_features_ ({fe.n_features_}) {fe.best_features_.tolist()}"
+        f", best_score_ {fe.best_score_:.6f}; junk columns kept "
+        f"{len(kept & junk)}/{len(junk)}")
+
+
+def ulp_noise(X, seed):
+    """``X`` with one ulp of noise in every entry: ``X * (1 +- 2**-23)``,
+    the sign at random. Unlike a uniform ``1 + 2**-23`` scale, which moves
+    every term of a sum the same way, it perturbs a fit as a change of
+    summation order does."""
+    rng = np.random.RandomState(seed)
+    return X * (1.0 + rng.choice([-1.0, 1.0], X.shape)
+                * 2.0 ** -23).astype(np.float32)
+
+
+#: iterations of 22a's lane checks (the eliminator's fits run 40)
+LANE_ITERS = 10
+
+
+def masked_lanes(torch, X, y, masks, weights):
+    """One round of the eliminator's kernel on the card:
+    ``LogisticRegression(max_iter=LANE_ITERS)`` fits of ``weights (T, n)``
+    over X seen through the mask view under ``masks (T, d)`` (or, for
+    ``masks=None``, over X itself); returns their ``W (T, p, 7)``."""
+    from skdist_tpu_torch import LogisticRegression
+    from skdist_tpu_torch.models.linear import _freeze
+    from skdist_tpu_torch.sparse import LinearOperator, MaskedLinearOperator
+    from skdist_tpu_torch.utils.device import exact_matmuls
+
+    est = LogisticRegression(max_iter=LANE_ITERS)
+    data, meta = est._prep_fit_data(X, y)
+    kernel = LogisticRegression._build_fit_kernel(
+        meta, _freeze(est._static_config(meta)))
+    T = len(weights)
+    with exact_matmuls(), torch.no_grad():
+        op = LinearOperator(torch.as_tensor(X).cuda(), True)
+        if masks is not None:
+            op = MaskedLinearOperator(op, torch.as_tensor(masks).cuda())
+        return kernel(op, torch.as_tensor(data["y"]).cuda(),
+                      torch.as_tensor(weights).cuda(),
+                      {"C": torch.ones(T, device="cuda"),
+                       "tol": torch.full((T,), 1e-4, device="cuda")}
+                      )["W"].cpu().numpy()
+
+
+def masked_lanes_vs_lone(torch, X, y, sets, splits, picks):
+    """22a's lane check, for each (set, fold) lane of ``picks`` run as a
+    round of one (a lane's bits on the card depend on its round's shape,
+    printed for a round of all three): bitwise the same round over the
+    materialised ``X * fmask``; against a lone fit of its column-dropped
+    X (the fold's training rows as sample weights, as the lane has them)
+    within 10x what one ulp of input noise moves the lane (the round on
+    :func:`ulp_noise` of X), plus 1e-6 of max|W|; masked weights exactly
+    0."""
+    from skdist_tpu_torch import LogisticRegression
+
+    d = X.shape[1]
+    masks = np.ones((len(picks), d), np.float32)
+    sw = np.zeros((len(picks), len(y)), np.float32)
+    for i, (s, f) in enumerate(picks):
+        masks[i, np.setdiff1d(np.arange(d), sets[s])] = 0.0
+        sw[i, splits[f][0]] = 1.0
+    X_ulp = ulp_noise(X, 22)
+    W3 = masked_lanes(torch, X, y, masks, sw)
+    shape_gap = 0.0
+    for i, (s, f) in enumerate(picks):
+        keep = sets[s]
+        one = slice(i, i + 1)
+        W = masked_lanes(torch, X, y, masks[one], sw[one])[0]
+        Wz = masked_lanes(torch, X * masks[i], y, None, sw[one])[0]
+        W_ulp = masked_lanes(torch, X_ulp, y, masks[one], sw[one])[0]
+        lone = LogisticRegression(max_iter=LANE_ITERS).fit(
+            X[:, keep], y, sample_weight=sw[i])._params["W"]
+        rows = np.concatenate([keep, [d]])
+        dropped = np.setdiff1d(np.arange(d), keep)
+        dW = float(np.abs(W[rows] - lone).max())
+        dulp = float(np.abs(W - W_ulp).max())
+        scale = float(np.abs(lone).max())
+        zero = bool(np.all(W[dropped] == 0))
+        exact = np.array_equal(W, Wz)
+        shape_gap = max(shape_gap, float(np.abs(W3[i] - W).max()))
+        say(f"    lane (set {s}, fold {f}, {len(keep)} columns): over "
+            "X * fmask " + ("bitwise equal" if exact else "DIFFERS")
+            + f"; max|W| {scale:.3e}, against the lone fit max|dW| "
+            f"{dW:.3e}, on ulp-noised X {dulp:.3e}; masked weights "
+            + ("exactly 0" if zero else "NOT 0"))
+        if not (exact and zero and dW <= 10 * dulp + 1e-6 * scale):
+            raise AssertionError(
+                f"phase 22a: lane (set {s}, fold {f}) is not its lone fit")
+    say(f"    the three lanes in one round against the same lanes alone: "
+        f"max|dW| {shape_gap:.3e} (the round's shape sets cuBLAS's "
+        "summation order)")
+
+
+def elim_subset_checks(torch, X, y):
+    """22a's checks on ``ELIM_CPU_N`` rows, at the default's 8 rounds of
+    8 lanes (``partitions=8`` on both paths, so that the rounds are
+    equal): the card's eliminator on the compacted path against the
+    classic path (``SKDIST_COMPACTION=0``), bitwise, where the compacted
+    run must have retired a lane before ``max_iter`` and merged rounds
+    (else the comparison would be trivial); and against the same
+    eliminator on the CPU.
+    A set's score may differ from the CPU's by three flipped test rows (a
+    mean over the folds of accuracy: 1 / n a row); the best sets must be
+    equal, or a near tie the card scores within twice that; where they
+    are equal, the refits' W within 10x of what one ulp of input noise
+    moves the card's refit (plus 1e-6 of max|W|)."""
+    from skdist_tpu_torch import DistFeatureEliminator, LogisticRegression
+
+    Xs, ys = X[:ELIM_CPU_N], y[:ELIM_CPU_N]
+    tol = 3.0 / ELIM_CPU_N
+
+    def run(device=None):
+        return DistFeatureEliminator(
+            LogisticRegression(max_iter=40, engine="xla", device=device),
+            partitions=8, **ELIM_KW).fit(Xs, ys)
+
+    say(f"CUT: phase 22a's classic and CPU checks run {ELIM_CPU_N} of "
+        f"{len(y)} rows")
+    card, wall_card = timed_call(torch, run)
+    os.environ["SKDIST_COMPACTION"] = "0"
+    try:
+        classic, wall_classic = timed_call(torch, run)
+    finally:
+        del os.environ["SKDIST_COMPACTION"]
+    st, sc = card.round_stats_[0], classic.round_stats_[0]
+    say("    " + lane_readout(st))
+    retired = st["lanes_stalled"] + st["lanes_converged"]
+    if retired < 1 or st["compactions"] < 1:
+        raise AssertionError(
+            f"phase 22a: lanes retired before max_iter {retired}, "
+            f"compactions {st['compactions']}: the compacted path's lane "
+            "retirement went untested")
+    same = (np.array_equal(classic.scores_, card.scores_)
+            and np.array_equal(classic.estimator_._params["W"],
+                               card.estimator_._params["W"]))
+    say(f"  22a on {Xs.shape}: compacted {wall_card:.2f} s ({st['mode']}, "
+        f"chunk {st['chunk']}), classic {wall_classic:.2f} s ({sc['mode']}, "
+        f"{sc['rounds']} rounds of {sc['tasks_per_round']}): scores_ and the "
+        "refit " + ("bitwise equal" if same else "DIFFER"))
+    if st["mode"] != "compacted" or sc["mode"] != "classic" or not same \
+            or sc["tasks_per_round"] != st["chunk"]:
+        raise AssertionError("phase 22a: compacted and classic differ")
+    cpu, wall_cpu = timed_call(torch, lambda: run("cpu"))
+    ds = float(np.abs(card.scores_ - cpu.scores_).max())
+    same = np.array_equal(card.best_features_, cpu.best_features_)
+    b_card = int(np.argmax(card.scores_ == card.best_score_))
+    b_cpu = int(np.argmax(cpu.scores_ == cpu.best_score_))
+    tie = abs(card.scores_[b_card] - card.scores_[b_cpu])
+    say(f"  card against CPU ({wall_cpu:.2f} s): scores max|d| {ds:.3e} "
+        f"(three test rows {tol:.1e}); best_features_ "
+        + ("equal" if same else f"differ: sets {b_card} and {b_cpu}, "
+           f"{tie:.1e} apart on the card"))
+    if not ds <= tol:
+        raise AssertionError("phase 22a: card and CPU scores differ by more "
+                             "than three test rows")
+    if not same and not tie <= 2 * tol:
+        raise AssertionError("phase 22a: card and CPU choose different "
+                             "feature sets")
+    if same:
+        keep = card.best_features_
+        Wc = card.estimator_._params["W"]
+        Wp = cpu.estimator_._params["W"]
+        Wu = LogisticRegression(max_iter=40, engine="xla").fit(
+            ulp_noise(Xs, 23)[:, keep], ys)._params["W"]
+        dW = float(np.abs(Wc - Wp).max())
+        dWu = float(np.abs(Wc - Wu).max())
+        scale = float(np.abs(Wp).max())
+        say(f"    refits: max|W| {scale:.3e}, card vs CPU {dW:.3e}, card vs "
+            f"card on ulp-noised X {dWu:.3e}")
+        if not dW <= 10 * dWu + 1e-6 * scale:
+            raise AssertionError("phase 22a: card and CPU refits differ")
+
+
+def phase_eliminate_linear(torch, X, y, junk):
+    """22a and 22b: the repo example's eliminator on the full covtype
+    shape, compacted; classic against compacted; three lanes against
+    lone fits; the card against the CPU; pickle; then the ASHA race."""
+    from skdist_tpu_torch import HalvingSpec, LogisticRegression
+    from skdist_tpu_torch.distribute.adaptive import RungKilledWarning
+    from skdist_tpu_torch.utils.cv import check_cv
+
+    say(f"phase 22a: DistFeatureEliminator(LogisticRegression(max_iter=40), "
+        f"{ELIM_KW}) on covtype-shaped {X.shape}, 7 classes, "
+        f"{len(junk)} junk columns")
+    say("  the 60 lanes as one compacted round (partitions=1): every lane "
+        "runs to max_iter, so the default's 8 rounds of 8 would only "
+        "multiply the solver's host-paced iterations")
+    torch.cuda.reset_peak_memory_stats()
+    fe, wall, fits = eliminate(torch, LogisticRegression(max_iter=40), X, y,
+                               partitions=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    elim_readout(fe, wall, fits, junk, "compacted")
+    st = fe.round_stats_[0]
+    say(f"    peak device memory {peak:.2f} GiB (one copy of X a lane "
+        f"would be {60 * X.nbytes / 2**30:.1f} GiB)")
+    if not np.all(np.isfinite(fe.scores_)):
+        raise AssertionError("phase 22a: a set's score is not finite")
+    if st["mode"] != "compacted" or st["regime"] != "resident" \
+            or st["tasks"] != 60:
+        raise AssertionError(f"phase 22a did not run its 60 lanes compacted "
+                             f"and resident: {st['mode']}, "
+                             f"{st.get('regime')}")
+    splits = list(check_cv(5, y, classifier=True).split(X, y))
+    say(f"CUT: phase 22a's lane checks run {LANE_ITERS} of the fits' 40 "
+        "iterations")
+    masked_lanes_vs_lone(torch, X, y, removal_sets(fe, X, y), splits,
+                         [(0, 0), (6, 2), (11, 4)])
+    elim_subset_checks(torch, X, y)
+    loaded = pickle.loads(pickle.dumps(fe))
+    if not np.array_equal(loaded.predict(X[:20000]), fe.predict(X[:20000])):
+        raise AssertionError("phase 22a: the pickled eliminator differs")
+    say("  pickled eliminator predicts as the live one")
+
+    say("phase 22b: the same grid with adaptive=HalvingSpec(eta=3), at "
+        "the default rounds (8 of 8: the race frees whole rounds)")
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        warnings.filterwarnings("error", message=OOM_DOWNGRADE)
+        ad, wall_a, _ = eliminate(torch, LogisticRegression(max_iter=40), X,
+                                  y, adaptive=HalvingSpec(eta=3))
+    sa = ad.round_stats_[0]
+    hist = sa.get("rung_history", [])
+    kills = [h["n_killed"] for h in hist]
+    killed = ad.rung_ >= 0
+    best = int(np.nanargmax(np.asarray(ad.scores_)))
+    say(f"  wall {wall_a:.2f} s (the grid {sa['wall_s']:.2f} s, "
+        f"{sa['rounds']} round-slices); "
+        f"{len(hist)} rungs, lanes killed at each {kills}; rung_ "
+        f"{ad.rung_.tolist()}; best_features_ ({ad.n_features_}) "
+        + ("the exhaustive run's" if np.array_equal(
+            ad.best_features_, fe.best_features_) else
+           f"differ from the exhaustive run's ({fe.n_features_})")
+        + f", best_score_ {ad.best_score_:.6f}")
+    if not hist or not killed.any():
+        raise AssertionError("phase 22b: no rung fired or killed a set")
+    if not any(issubclass(w.category, RungKilledWarning) for w in ws):
+        raise AssertionError("phase 22b: no RungKilledWarning")
+    if len(ad.rung_) != len(ad.scores_) \
+            or not np.isnan(np.asarray(ad.scores_)[killed]).all() \
+            or ad.rung_[best] != -1:
+        raise AssertionError("phase 22b: a killed set scored or won")
+
+
+def removal_sets(fe, X, y):
+    """The kept columns of each of ``fe``'s feature sets, ranked as its
+    fit ranks them: the initial fit's squared coefficients summed over
+    the classes, removed ``step`` at a time."""
+    from skdist_tpu_torch import LogisticRegression
+
+    coefs = LogisticRegression(max_iter=40).fit(X, y).coef_
+    d = X.shape[1]
+    ranks = np.argsort((coefs ** 2).sum(axis=0))[
+        : d - ELIM_KW["min_features_to_select"]]
+    sets = [np.arange(d)]
+    removed = 0
+    while removed < d - ELIM_KW["min_features_to_select"]:
+        removed += ELIM_KW["step"]
+        sets.append(np.setdiff1d(np.arange(d), ranks[:removed]))
+    # the eliminator's choice: the last best score (ties to fewer columns)
+    best = len(fe.scores_) - 1 - int(np.argmax(fe.scores_[::-1]))
+    if len(sets) != len(fe.scores_) or not np.array_equal(
+            sets[best], fe.best_features_):
+        raise AssertionError("phase 22a: the removal sets do not rebuild")
+    return sets
+
+
+def phase_eliminate_tree(torch, X, y, junk):
+    """22c: the eliminator over ``DecisionTreeClassifier(max_depth=8)`` on
+    22a's X: K4 under per-lane feature masks. Returns its K4 launches and
+    K4's times a level at this shape."""
+    from skdist_tpu_torch.models.tree import DecisionTreeClassifier
+    from skdist_tpu_torch.ops import hist as kh
+    from skdist_tpu_torch.ops.binning import apply_bins
+    from skdist_tpu_torch.sparse import MaskedColumns
+
+    say(f"phase 22c: DistFeatureEliminator(DecisionTreeClassifier("
+        f"max_depth=8), {ELIM_KW}) on {X.shape}: K4 under feature masks")
+    # the masked rounds as the eliminator runs them: their kernel, bins,
+    # masks, labels, weights and trees
+    rounds = []
+    orig = DecisionTreeClassifier._build_fit_kernel
+
+    def build(cls, meta, static):
+        kernel = orig(meta, static)
+
+        def recording(op, yd, sw, hyper):
+            out = kernel(op, yd, sw, hyper)
+            if isinstance(op, MaskedColumns):
+                rounds.append((kernel, meta, op.base, op.mask, yd, sw, out))
+            return out
+
+        return recording
+
+    DecisionTreeClassifier._build_fit_kernel = classmethod(build)
+    try:
+        kh.level_histogram.launches = 0
+        fe, wall, fits = eliminate(torch, DecisionTreeClassifier(max_depth=8),
+                                   X, y)
+        launches = kh.level_histogram.launches
+    finally:
+        del DecisionTreeClassifier._build_fit_kernel
+    elim_readout(fe, wall, fits, junk, "batched")
+    st = fe.round_stats_[0]
+    want = 8 * st["rounds"] + 8 + 8
+    say(f"    K4 launches {launches} (8 levels x {st['rounds']} round(s), "
+        f"+ 8 of the initial fit and 8 of the refit: {want})")
+    if st["mode"] != "classic" or launches != want or len(rounds) != 1:
+        raise AssertionError(f"phase 22c: {st['mode']} path in "
+                             f"{len(rounds)} rounds, K4 launched {launches} "
+                             f"times, not {want}")
+    if not np.all(np.isfinite(fe.scores_)):
+        raise AssertionError("phase 22c: a set's score is not finite")
+    # the round's lanes: no split on a masked feature, and three lanes
+    # against lone fits of their column-zeroed X under the same edges
+    kernel, meta, Xb, masks, yd, sw, trees = rounds[0]
+    T = masks.shape[0]
+    with torch.no_grad():
+        bad = [t for t in range(T) if not bool(
+            masks[t][trees["feat"][t][trees["is_split"][t]].long()].all())]
+        Xd = torch.as_tensor(X).cuda()
+        differ = []
+        for t in (0, T // 2, T - 1):
+            Xz = apply_bins(Xd * masks[t].float(), meta["edges"])
+            lone = kernel(Xz, yd, sw[t:t + 1], {})
+            differ += [(t, k) for k in lone
+                       if not torch.equal(trees[k][t], lone[k][0])]
+        n_splits = int(trees["is_split"].sum())
+        del Xd
+    say(f"    the round's {T} lanes: {n_splits} splits, lanes splitting a "
+        f"masked feature {bad}; lanes 0, {T // 2}, {T - 1} against lone "
+        "fits of their column-zeroed X under the same edges: "
+        + ("bitwise equal" if not differ else f"differ in {differ}"))
+    if bad or differ:
+        raise AssertionError(f"phase 22c: masked lanes {bad}, {differ}")
+    times = tree_k4_times(torch, kh, Xb, sw, yd, T)
+    del rounds, Xb, trees
+    return launches, times
+
+
+def tree_k4_times(torch, kh, Xb, sw, y, T):
+    """K4 at 22c's round shape (T lanes, n x d bins, B=32, C=8: the 7
+    classes' weights and the count), at levels nl = 1, 16 and 128: held
+    to its plain version on the same inputs at each level (every channel
+    is a whole-number sum, so every channel bitwise), then timed beside
+    its bound and its plain version (at nl = 128, one call)."""
+    from skdist_tpu_torch.models.tree import classification_channels
+
+    n, d = Xb.shape
+    B = 32
+    Ych = classification_channels(y, sw, 7)
+    proof = kh.integer_channels(Ych)
+    if proof is None or proof.mask != 2 ** 8 - 1:
+        raise AssertionError("phase 22c: the round's channels are not all "
+                             f"whole numbers: {proof and proof.mask}")
+    Xs = kh.kernel_bins(Xb, B)
+    live = torch.any(Ych != 0, dim=-1)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    times = {}
+    for nl in (1, 16, 128):
+        key = torch.randint(0, nl, (T, n), generator=g, device="cuda",
+                            dtype=torch.int32)
+        key = torch.where(live, key, nl).to(torch.int32)
+        err, exact = check_k4(torch, kh, Xs, Xb, key, Ych, nl, B,
+                              f"eliminator T={T} nl={nl}")
+        if exact != list(range(8)) or err != 0.0:
+            raise AssertionError(f"phase 22c: K4 at nl={nl} holds channels "
+                                 f"{exact} bitwise, max err {err:.3e}")
+        ms = cuda_ms(torch, lambda: kh.level_histogram(
+            Xs, key, Ych, nl, B, integer=proof), 3)
+        times[nl] = {"ms": ms, "bound": k4_bound(key, Xs, 8, nl, B, d)}
+    times["plain_ms"] = cuda_ms(
+        torch, lambda: kh.level_histogram_ref(Xb, key, Ych, 128, B), 1)
+    say(f"    K4 at T={T}, n={n}, d={d}, B={B}, C=8 against its plain "
+        "version at nl = 1, 16, 128: every channel bitwise equal")
+    say(f"    K4 a level at T={T}, n={n}, d={d}, B={B}, C=8: " + "; ".join(
+        f"nl={nl} {v['ms']:.3f} ms (bound {v['bound'][0]:.3f} ms "
+        f"{v['bound'][1]}, {v['ms'] / v['bound'][0]:.1f}x)"
+        for nl, v in times.items() if nl != "plain_ms")
+        + f"; plain version at nl=128 {times['plain_ms']:.1f} ms")
+    return times
+
+
+def phase_voter(torch, X, y):
+    """22d: ``SimpleVoter`` over three card-fitted members, hard and
+    soft, each against a numpy recount of the members' outputs."""
+    from skdist_tpu_torch import (DistRandomForestClassifier, GaussianNB,
+                                  LogisticRegression, SimpleVoter)
+
+    Xv, yv = X[:VOTER_N], y[:VOTER_N]
+    members = [
+        ("lr", LogisticRegression(max_iter=40).fit(Xv, yv)),
+        ("rf", DistRandomForestClassifier(n_estimators=16, max_depth=8,
+                                          random_state=0).fit(Xv, yv)),
+        ("nb", GaussianNB().fit(Xv, yv)),
+    ]
+    classes = np.arange(7)
+    weights = [1.0, 2.0, 1.5]
+    say(f"phase 22d: SimpleVoter over LogisticRegression, "
+        f"DistRandomForestClassifier(16 trees) and GaussianNB fitted on the "
+        f"card on {Xv.shape} (a printed cut), weights {weights}")
+    say(f"CUT: phase 22d's members fit on {VOTER_N} of {len(y)} rows")
+    hard = SimpleVoter(members, classes, voting="hard", weights=weights)
+    soft = SimpleVoter(members, classes, voting="soft", weights=weights)
+    ph, pp, ps_ = hard.predict(Xv), soft.predict_proba(Xv), soft.predict(Xv)
+    preds = np.stack([m.predict(Xv) for _, m in members], axis=1)
+    tally = np.zeros((len(yv), 7))
+    for j, w in enumerate(weights):
+        tally[np.arange(len(yv)), preds[:, j]] += w
+    want_hard = tally.argmax(1)
+    probas = [m.predict_proba(Xv).astype(np.float64) for _, m in members]
+    want_pp = sum(w * p for w, p in zip(weights, probas)) / sum(weights)
+    accs = {name: float(np.mean(m.predict(Xv) == yv)) for name, m in members}
+    say(f"  accuracy on its rows: members {accs}, hard "
+        f"{np.mean(ph == yv):.4f}, soft {np.mean(ps_ == yv):.4f}")
+    if not (np.array_equal(ph, want_hard) and np.allclose(pp, want_pp,
+                                                          atol=1e-12)
+            and np.array_equal(ps_, want_pp.argmax(1))):
+        raise AssertionError("phase 22d: a vote differs from its recount")
+    for v in (hard, soft):
+        loaded = pickle.loads(pickle.dumps(v))
+        if not np.array_equal(loaded.predict(Xv), v.predict(Xv)):
+            raise AssertionError("phase 22d: the pickled voter differs")
+    say("  hard and soft votes equal their numpy recounts; pickled voters "
+        "predict as the live ones")
+
+
+def phase_eliminate(torch):
+    """Phase 22 (``--phase-22`` runs only it): returns 22c's K4 launches
+    and times."""
+    t0 = time.perf_counter()
+    X, y, junk = make_covtype_shaped(COVTYPE_N)
+    say(f"phase 22 data: covtype-shaped {X.shape}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_eliminate_linear(torch, X, y, junk)
+    torch.cuda.empty_cache()
+    launches, times = phase_eliminate_tree(torch, X, y, junk)
+    torch.cuda.empty_cache()
+    phase_voter(torch, X, y)
+    say(f"phase 22 seconds: {time.perf_counter() - t0:.1f}")
+    return launches, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -4467,6 +5086,10 @@ def main():
                     help="build the kernels and run only phase 21 (no "
                     "result line): a short check of boosting and naive "
                     "Bayes")
+    ap.add_argument("--phase-22", action="store_true",
+                    help="build the kernels and run only phase 22 (no "
+                    "result line): a short check of feature elimination "
+                    "and the voter")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -4520,12 +5143,17 @@ def main():
         f"{os.path.relpath(native.BUILD_DIR)} cc "
         f"{time.perf_counter() - t_cc:.1f}s")
     say(f"phase 1 build seconds: {time.perf_counter() - t0:.1f}")
+    lap()
     if args.phase_20:
         phase_trees(torch, float("nan"))
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
     if args.phase_21:
         phase_gbdt(torch)
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+    if args.phase_22:
+        phase_eliminate(torch)
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -4543,7 +5171,11 @@ def main():
     if args.candidates < len(Cs):
         say(f"CUT: C grid cut to its first {args.candidates} of 96 points")
         Cs = Cs[: args.candidates]
-    n_fits = len(Cs) * 5
+    # phase 3 runs every fourth C (24 of 96, the span kept), so that the
+    # whole run stays inside its time limit; phase 2's main path shape is
+    # this grid's round
+    Cs_main = Cs[::4]
+    n_fits = len(Cs_main) * 5
 
     # ---- phase 2: kernels against their plain versions -----------------
     say("phase 2: kernels against plain PyTorch on the card")
@@ -4600,15 +5232,17 @@ def main():
         torch, ps, idx, val, p)
 
     # ---- phase 3: the sparse main path at full size --------------------
-    say(f"phase 3: sparse DistGridSearchCV, {len(Cs)} C x 5 folds = "
+    say(f"phase 3: sparse DistGridSearchCV, {len(Cs_main)} C x 5 folds = "
         f"{n_fits} fits on the card")
+    say(f"CUT: phase 3 runs every fourth C of the grid ({len(Cs_main)} of "
+        f"{len(Cs)}, the span kept)")
     ps.packed_matvec.launches = 0
     ps.packed_rmatvec.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gs = DistGridSearchCV(
-        LogisticRegression(max_iter=100), {"C": Cs}, cv=5,
+        LogisticRegression(max_iter=100), {"C": Cs_main}, cv=5,
         scoring="f1_weighted", backend=backend,
     ).fit(X, y)
     torch.cuda.synchronize()
@@ -4667,17 +5301,19 @@ def main():
         raise AssertionError(
             "card and CPU refits differ by more than 10x what one ulp of "
             "input noise does")
-    profile_logreg_round(torch, X, y, Cs, stats["tasks_per_round"], backend)
-    phase_sparse_ab(torch, X, y, Cs, backend)
+    profile_logreg_round(torch, X, y, Cs_main, stats["tasks_per_round"],
+                         backend)
+    phase_sparse_ab(torch, X, y, Cs_main)
+    lap("phases 2-3b")
 
     # ---- phase 4: the dense headline -----------------------------------
     Xd, yd = make_20news_shaped()
-    # every fourth C (24 of 96, the span kept), so that the whole run
+    # every sixth C (16 of 96, the span kept), so that the whole run
     # stays inside its time limit
-    Cs_d = Cs[::4]
+    Cs_d = Cs[::6]
     nd_fits = 5 * len(Cs_d)
     say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {nd_fits} fits")
-    say(f"CUT: phases 4 and 4b run every fourth C of the grid "
+    say(f"CUT: phases 4 and 4b run every sixth C of the grid "
         f"({len(Cs_d)} of {len(Cs)}, the span kept)")
     gd, wall_d = fit_grid(torch, Xd, yd, Cs_d, backend)
     sd = gd.round_stats_[0]
@@ -4687,7 +5323,7 @@ def main():
         f"{gd.best_params_}, best_score_ {gd.best_score_:.6f}")
     say("  " + lane_readout(sd))
     # the classic path at the compacted run's chunk (by default it would
-    # run all 480 lanes as one round, another shape)
+    # run all its lanes as one round, another shape)
     parts = -(-nd_fits // sd["chunk"])
     gk, wall_k = fit_grid(torch, Xd, yd, Cs_d, backend, compaction=False,
                           partitions=parts)
@@ -4701,6 +5337,7 @@ def main():
         raise AssertionError("dense compacted and classic differ")
     del gk
     phase_asha(torch, Xd, yd, Cs_d, backend, gd)
+    lap("phases 4-4b")
 
     # ---- phases 5-8: K4 and the forest path ----------------------------
     del gs, gd
@@ -4711,6 +5348,7 @@ def main():
     forest_walls, k4_launches = phase_forest(torch, Xf, yf, backend)
     phase_card_vs_cpu(torch)
     phase_extra_trees_regressor(torch)
+    lap("phases 5-8")
 
     # ---- phases 9-11: K3 and the ridge path ----------------------------
     from skdist_tpu_torch import RidgeClassifier
@@ -4739,6 +5377,7 @@ def main():
     errs += ridge_errs
     r_launches = phase_ridge(torch, Xr, yr, alphas, backend)
     phase_ridge_regressor(torch, Xr, reg_alphas, backend)
+    lap("phases 9-11")
 
     # ---- phases 13-13c: BASELINE config 2, the SGD search --------------
     del Xr, yr
@@ -4752,6 +5391,7 @@ def main():
     torch.cuda.empty_cache()
     phase_sgd_ab(torch, backend, sgd_alphas)
     phase_sgd_card_vs_cpu(torch)
+    lap("phases 13-13c")
 
     # ---- phases 14-14d: BASELINE config 3, one-vs-rest and one-vs-one --
     torch.cuda.empty_cache()
@@ -4759,6 +5399,7 @@ def main():
     phase_config3_packed(torch, X, y, backend)
     phase_ovo(torch, X, y, backend)
     _sgd, row_launches = phase_ovr_sgd(torch, X, y, backend)
+    lap("phases 14-14d")
 
     # ---- phases 15-16: config 5, batch prediction, the generic search --
     torch.cuda.empty_cache()
@@ -4766,6 +5407,7 @@ def main():
     predict_launches, _blocks = phase_sparse_predict(torch, X, y, backend)
     phase_host_predict(torch)
     generic_launches = phase_generic_search(torch)
+    lap("phases 15-16")
 
     # ---- phases 17-19: the host engine, DistMultiModelSearch, options --
     torch.cuda.empty_cache()
@@ -4779,6 +5421,10 @@ def main():
     # ---- phase 21: boosting on K4's Newton channels, naive Bayes --------
     torch.cuda.empty_cache()
     gbdt_launches, gbdt_k4_err, _gbdt_k4_times = phase_gbdt(torch)
+
+    # ---- phase 22: feature elimination (K4 under masks), the voter ------
+    torch.cuda.empty_cache()
+    elim_launches, _elim_k4_times = phase_eliminate(torch)
 
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
@@ -4821,7 +5467,8 @@ def main():
          "paths": {"forest": k4_launches,
                    "generic_search": generic_launches,
                    "tree_search": tree_search_launches,
-                   "tree_ovr": tree_ovr_launches, **gbdt_launches}},
+                   "tree_ovr": tree_ovr_launches, **gbdt_launches,
+                   "eliminator_tree": elim_launches}},
         {"name": "packed_row_matvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
          "launches": row_launches["packed_row_matvec"],

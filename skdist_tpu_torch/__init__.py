@@ -33,7 +33,9 @@ where ``device="cpu"``) with the searches' warm C path;
 and ``matmul_dtype='bfloat16'``; histogram gradient boosting
 (``DistHistGradientBoostingClassifier``/``Regressor``, on the
 level-histogram kernel's Newton channels, batched in the searches and
-one-vs-rest) and naive Bayes (``GaussianNB``, ``MultinomialNB``). The
+one-vs-rest) and naive Bayes (``GaussianNB``, ``MultinomialNB``);
+feature elimination (``DistFeatureEliminator``: the (feature set x fold)
+grid as batched lanes with a column mask each) and ``SimpleVoter``. The
 searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
@@ -63,6 +65,8 @@ _EXPORTS = {
         "batch_predict", "get_prediction_udf", "device_predict_plan")},
     **{name: "skdist_tpu_torch.distribute.adaptive" for name in (
         "HalvingSpec", "RungKilledWarning")},
+    "DistFeatureEliminator": "skdist_tpu_torch.distribute.eliminate",
+    "SimpleVoter": "skdist_tpu_torch.postprocessing",
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",
         "DistExtraTreesClassifier", "DistExtraTreesRegressor",

@@ -7,7 +7,10 @@ the port's (below), and ``tree_from_reference`` a single tree; ``ridge_from_refe
 or ``DistOneVsOneClassifier`` (each binary estimator converted),
 ``gbdt_from_reference`` for a fitted ``DistHistGradientBoosting*`` (its
 tree bank) and ``naive_bayes_from_reference`` for a fitted
-``GaussianNB`` or ``MultinomialNB``.
+``GaussianNB`` or ``MultinomialNB``; ``eliminator_from_reference`` for
+a fitted ``DistFeatureEliminator`` and ``voter_from_reference`` for a
+``SimpleVoter``, whose inner models go through
+``model_from_reference``, the converter of any of these by its class.
 ``logistic_regression_from_reference``, ``linear_svc_from_reference``
 and ``sgd_from_reference`` take the fitted state of a JAX ``skdist_tpu``
 ``LogisticRegression``, ``LinearSVC`` or ``SGDClassifier`` as plain
@@ -27,11 +30,12 @@ from .distribute import multiclass
 from .models import linear
 from .models.linear import LinearSVC, LogisticRegression, SGDClassifier
 
-__all__ = ["forest_from_reference", "gbdt_from_reference",
-           "linear_svc_from_reference",
-           "logistic_regression_from_reference", "multiclass_from_reference",
-           "naive_bayes_from_reference", "ridge_from_reference",
-           "sgd_from_reference", "tree_from_reference"]
+__all__ = ["eliminator_from_reference", "forest_from_reference",
+           "gbdt_from_reference", "linear_svc_from_reference",
+           "logistic_regression_from_reference", "model_from_reference",
+           "multiclass_from_reference", "naive_bayes_from_reference",
+           "ridge_from_reference", "sgd_from_reference",
+           "tree_from_reference", "voter_from_reference"]
 
 _TREE_KEYS = ("feat", "thr", "is_split", "leaf", "gain")
 
@@ -325,3 +329,98 @@ def naive_bayes_from_reference(ref, device=None):
     meta["cw_arr"] = None
     est._set_fitted(params, meta)
     return est
+
+
+_RIDGE_FAMILY = ("Ridge", "LinearRegression", "RidgeClassifier")
+
+
+def model_from_reference(ref, device=None):
+    """The fitted port model of a fitted JAX one, by its class: a linear
+    classifier, the ridge family, a tree or forest, a boosting model,
+    naive Bayes, a multiclass meta-estimator, a feature eliminator or a
+    voter (each through its converter above)."""
+    name = type(ref).__name__
+    if name in _LINEAR_CLASSIFIERS:
+        cls = _LINEAR_CLASSIFIERS[name]
+        if not hasattr(ref, "_params"):
+            raise ValueError(f"{name} is not fitted")
+        return _linear_classifier_from_reference(
+            cls, ref._params, ref._meta, device, **_port_params(cls, ref))
+    if name in _RIDGE_FAMILY:
+        return ridge_from_reference(ref, device)
+    if name.startswith("DistHistGradientBoosting"):
+        return gbdt_from_reference(ref, device)
+    if name in ("GaussianNB", "MultinomialNB"):
+        return naive_bayes_from_reference(ref, device)
+    if name in ("DistOneVsRestClassifier", "DistOneVsOneClassifier"):
+        return multiclass_from_reference(ref, device)
+    if name == "DistFeatureEliminator":
+        return eliminator_from_reference(ref, device)
+    if name == "SimpleVoter":
+        return voter_from_reference(ref, device)
+    return forest_from_reference(ref, device)
+
+
+def _template_from_reference(ref, device):
+    """An unfitted port estimator of ``ref``'s class with its
+    parameters (the runtime ones aside)."""
+    from .models import gbdt, naive_bayes
+
+    name = type(ref).__name__
+    cls = (_LINEAR_CLASSIFIERS.get(name)
+           or (getattr(linear, name) if name in _RIDGE_FAMILY else None)
+           or getattr(gbdt, name, None) or getattr(naive_bayes, name, None))
+    if not (isinstance(cls, type) and issubclass(cls, BaseEstimator)):
+        cls = _port_class(name)
+    names = cls._get_param_names()
+    return cls(**{k: v for k, v in ref.get_params(deep=False).items()
+                  if k in names and k not in ("backend", "device")},
+               device=device)
+
+
+def eliminator_from_reference(ref, device=None):
+    """A fitted port ``DistFeatureEliminator`` from a fitted JAX one: its
+    parameters (the estimator as the port's class, ``adaptive`` as the
+    port's ``HalvingSpec``), ``best_features_``, ``n_features_``,
+    ``scores_``, ``best_score_`` and ``rung_``, and the refit
+    ``estimator_`` through :func:`model_from_reference`; its
+    ``predict`` and ``predict_proba`` then equal the JAX model's."""
+    from .distribute.adaptive import HalvingSpec
+    from .distribute.eliminate import DistFeatureEliminator
+
+    name = type(ref).__name__
+    if name != "DistFeatureEliminator":
+        raise ValueError(f"{name} is not a feature eliminator")
+    if not hasattr(ref, "estimator_"):
+        raise ValueError(f"{name} is not fitted")
+    names = DistFeatureEliminator._get_param_names()
+    params = {k: v for k, v in ref.get_params(deep=False).items()
+              if k in names and k not in ("backend", "estimator", "adaptive")}
+    adaptive = (None if ref.adaptive is None
+                else HalvingSpec(**ref.adaptive.get_params()))
+    est = DistFeatureEliminator(_template_from_reference(ref.estimator,
+                                                         device),
+                                adaptive=adaptive, **params)
+    est.estimator_ = model_from_reference(ref.estimator_, device)
+    est.best_features_ = np.array(ref.best_features_)
+    est.n_features_ = int(ref.n_features_)
+    est.scores_ = np.array(ref.scores_)
+    est.best_score_ = float(ref.best_score_)
+    if hasattr(ref, "rung_"):
+        est.rung_ = np.array(ref.rung_)
+    return est
+
+
+def voter_from_reference(ref, device=None):
+    """A port ``SimpleVoter`` from a JAX one: every member through
+    :func:`model_from_reference` (a dropped member stays dropped), the
+    same classes, voting and weights."""
+    from .postprocessing import SimpleVoter, _dropped
+
+    if type(ref).__name__ != "SimpleVoter":
+        raise ValueError(f"{type(ref).__name__} is not a SimpleVoter")
+    members = [(name, est if _dropped(est)
+                else model_from_reference(est, device))
+               for name, est in ref.estimators]
+    return SimpleVoter(members, classes=np.asarray(ref.classes),
+                       voting=ref.voting, weights=ref.weights)

@@ -12,6 +12,7 @@ from .ensemble import (
     get_single_oof,
 )
 from .adaptive import HalvingSpec, RungKilledWarning
+from .eliminate import DistFeatureEliminator
 from .multiclass import DistOneVsOneClassifier, DistOneVsRestClassifier
 from .predict import batch_predict, device_predict_plan, get_prediction_udf
 from .search import (
@@ -23,6 +24,7 @@ from .search import (
 __all__ = [
     "DistExtraTreesClassifier",
     "DistExtraTreesRegressor",
+    "DistFeatureEliminator",
     "DistForestClassifier",
     "DistForestRegressor",
     "DistGridSearchCV",

@@ -306,11 +306,14 @@ def _resolve_device_scoring(estimator, scoring, classes):
 
 
 def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
-                rung_spec=None):
+                rung_spec=None, mask_x=False):
     """``(scores, rung_score)``: ``scores(params, shared, task)`` scores
     fitted params on the tasks' fold masks (the classic kernel and the
     compacted finalize share it), ``rung_score(params, shared, task)``
-    the rung metric on the held-out folds (None without ``rung_spec``)."""
+    the rung metric on the held-out folds (None without ``rung_spec``).
+    ``mask_x``: each task sees only the columns of its ``task["fmask"]``
+    row (the feature eliminator), through the family's
+    ``_mask_decision_params``."""
     decision_kernel = est_cls._build_decision_kernel(meta, static)
     needs_proba = any(kind == "proba" for *_, kind in scorer_specs) or (
         rung_spec is not None and rung_spec[3] == "proba")
@@ -318,8 +321,11 @@ def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
         est_cls._build_proba_kernel(meta, static) if needs_proba else None
     )
 
-    def model_outputs(params, X):
+    def model_outputs(params, shared, task):
         W = est_cls._decision_params(params)
+        if mask_x:
+            W = est_cls._mask_decision_params(W, task["fmask"])
+        X = shared["X"]
         outputs = {"decision": decision_kernel(W, X)}
         outputs["predict"] = outputs["decision"]
         if proba_kernel is not None:
@@ -330,7 +336,7 @@ def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
         # user sample_weight weights the FIT only; train/test scoring is
         # over the raw fold masks, like sklearn scorers without weights
         y = shared["y"]
-        outputs = model_outputs(params, shared["X"])
+        outputs = model_outputs(params, shared, task)
         train_w = shared["train_masks"][task["split"]]
         test_w = shared["test_masks"][task["split"]]
         out = {}
@@ -349,7 +355,7 @@ def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
         _out, _metric, rung_kernel, rung_kind = rung_spec
 
         def rung_score(params, shared, task):
-            outputs = model_outputs(params, shared["X"])
+            outputs = model_outputs(params, shared, task)
             test_w = shared["test_masks"][task["split"]]
             return rung_kernel(shared["y"], outputs[rung_kind], test_w, meta)
 
@@ -363,33 +369,54 @@ def _cv_derive(shared, task):
     return shared["op"], shared["y"], fit_w, task["hyper"]
 
 
-def _build_cv_kernel(est_cls, meta, static, scorer_specs, return_train_score):
+def _cv_derive_for(est_cls, mask_x):
+    """:func:`_cv_derive`, or with ``mask_x`` its column-masked form:
+    the shared operator seen through the family's ``_mask_operand``
+    under the tasks' ``fmask (T, d)`` rows (the feature eliminator's
+    ``X * fmask``, with no copy of X a task)."""
+    if not mask_x:
+        return _cv_derive
+
+    def derive(shared, task):
+        op, y, fit_w, hyper = _cv_derive(shared, task)
+        return est_cls._mask_operand(op, task["fmask"]), y, fit_w, hyper
+
+    return derive
+
+
+def _build_cv_kernel(est_cls, meta, static, scorer_specs, return_train_score,
+                     mask_x=False):
     """One round of (fold-masked batched fit + scores) over the tasks of
-    ``task``: ``hyper`` ``{name: (T,)}`` and ``split (T,)``."""
+    ``task``: ``hyper`` ``{name: (T,)}`` and ``split (T,)``, and with
+    ``mask_x`` the column masks ``fmask (T, d)``."""
     fit_kernel = est_cls._build_fit_kernel(meta, static)
     scores, _ = _cv_scoring(est_cls, meta, static, scorer_specs,
-                            return_train_score)
+                            return_train_score, mask_x=mask_x)
+    derive = _cv_derive_for(est_cls, mask_x)
 
     def kernel(shared, task):
-        return scores(fit_kernel(*_cv_derive(shared, task)), shared, task)
+        return scores(fit_kernel(*derive(shared, task)), shared, task)
 
     return kernel
 
 
 def _cv_iterative_spec(est_cls, meta, static, scorer_specs,
-                       return_train_score, n_slice, fallback, rung_spec=None):
+                       return_train_score, n_slice, fallback, rung_spec=None,
+                       mask_x=False):
     """The iteration-sliced CV kernels: the family's sliced fit on the
     fold-masked weights; finalize scores as the classic kernel does;
     with ``rung_spec`` (a device scorer tuple from
     :func:`~skdist_tpu_torch.metrics.resolve_rung_scorer`), the rung
-    evaluator scores live carries on the held-out folds."""
+    evaluator scores live carries on the held-out folds. ``mask_x``
+    puts each task's ``fmask`` column mask on everything (init,
+    restart, step, finalize, the scores and the rung)."""
     from .multiclass import _iterative_fit_spec
 
     scores, rung_score = _cv_scoring(est_cls, meta, static, scorer_specs,
-                                     return_train_score, rung_spec)
-    return _iterative_fit_spec(est_cls, meta, static, n_slice, _cv_derive,
-                               fallback, outputs=scores,
-                               rung_score=rung_score)
+                                     return_train_score, rung_spec, mask_x)
+    return _iterative_fit_spec(est_cls, meta, static, n_slice,
+                               _cv_derive_for(est_cls, mask_x), fallback,
+                               outputs=scores, rung_score=rung_score)
 
 
 class DistBaseSearchCV(BaseEstimator):

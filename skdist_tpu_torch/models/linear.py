@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
 from ..sparse import (
     LinearOperator,
+    MaskedLinearOperator,
     PackedX,
+    lane_row_mask,
     matvec_any,
     pack_for_fit,
     sparse_to_dense_f32,
@@ -425,6 +427,31 @@ class _LinearModelBase(BaseEstimator):
         """What the decision and proba kernels read of a batched fit's
         outputs: the weights ``W``."""
         return params["W"]
+
+    @classmethod
+    def _mask_operand(cls, op, fmask):
+        """The fit operand of lanes that each see only the columns of
+        their row of ``fmask (T, d)`` (the feature eliminator's task
+        axis): a :class:`~skdist_tpu_torch.sparse.MaskedLinearOperator`
+        view of ``op``, which copies no X."""
+        return MaskedLinearOperator(op, fmask)
+
+    @classmethod
+    def _mask_decision_params(cls, W, fmask):
+        """The lanes' decision weights ``W (T, p[, k])`` with each lane's
+        masked feature rows zeroed (the intercept row is kept), so a
+        masked column adds 0 to the decision, as ``X * fmask`` does."""
+        m = lane_row_mask(fmask, W.shape[1], W.dtype)
+        return W * (m[..., None] if W.ndim == 3 else m)
+
+    @classmethod
+    def _mask_task_bytes(cls, meta, static):
+        """Device bytes a masked lane holds beside an unmasked one: its
+        ``(p,)`` row mask and the masked copies of its weights that a
+        product keeps (the forward's, the gradient's, the decision's)."""
+        p = meta["n_features"] + 1
+        k = meta.get("n_classes", meta.get("n_targets", 1))
+        return 4 * p * (1 + 3 * max(k, 1))
 
     def _static_config(self, meta):
         return {k: getattr(self, k) for k in self._static_names}

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sparse import PackedX, packed_to_dense
+from ..sparse import MaskedColumns, PackedX, packed_to_dense
 from .linear import _LinearClassifierBase, _linear_decision
 
 __all__ = ["GaussianNB", "MultinomialNB"]
@@ -90,6 +90,10 @@ class GaussianNB(_NaiveBayesBase):
     """
 
     _hyper_names = ("var_smoothing",)
+
+    #: no masked fit: without ``coef_`` the feature eliminator cannot
+    #: rank its features (it raises, as the JAX package's does)
+    _mask_operand = None
 
     def __init__(self, var_smoothing=1e-9, device=None):
         self.var_smoothing = var_smoothing
@@ -168,6 +172,12 @@ class MultinomialNB(_NaiveBayesBase):
     ``W (d + 1, k)`` holds the per-class feature log-probabilities and,
     in its last row, the log-priors, so ``coef_``/``intercept_`` are
     those. Negative input raises, as there.
+
+    Under the feature eliminator's column masks (the fit operand a
+    :class:`~skdist_tpu_torch.sparse.MaskedColumns`) a lane's counts of
+    its masked columns are 0, as over ``X * fmask``: their smoothed
+    probability is ``alpha`` over a denominator that still counts all
+    ``d`` columns' smoothing, and its decision weights them by 0.
     """
 
     _hyper_names = ("alpha",)
@@ -191,9 +201,14 @@ class MultinomialNB(_NaiveBayesBase):
         k = meta["n_classes"]
 
         def kernel(X, y_idx, sw, hyper, w0=None):
+            fmask = None
+            if isinstance(X, MaskedColumns):
+                X, fmask = X.base, X.mask
             alpha = torch.clamp(hyper["alpha"], min=1e-10)  # (T,)
             oh = _weighted_onehot(y_idx, sw, k)  # (T, n, k)
             counts = oh.transpose(1, 2) @ X  # (T, k, d)
+            if fmask is not None:
+                counts = counts * fmask[:, None, :].to(counts.dtype)
             smoothed = counts + alpha[:, None, None]
             log_p = torch.log(smoothed) - torch.log(
                 torch.sum(smoothed, dim=-1, keepdim=True))
@@ -205,6 +220,12 @@ class MultinomialNB(_NaiveBayesBase):
                                     log_prior[:, None, :]], dim=1)}
 
         return kernel
+
+    @classmethod
+    def _mask_operand(cls, X, fmask):
+        """The fit operand under the lanes' column masks ``fmask (T,
+        d)``: X itself beside the masks, which mask the counts."""
+        return MaskedColumns(X, fmask)
 
     @classmethod
     def _build_decision_kernel(cls, meta, static):

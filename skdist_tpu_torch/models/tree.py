@@ -48,6 +48,7 @@ from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
 from ..ops.binning import apply_bins, apply_bins_np, quantile_bin_edges
 from ..ops.hist import (integer_channels, kernel_bins, level_histogram,
                         level_histogram_ref)
+from ..sparse import MaskedColumns
 from ..utils import draws
 from ..utils.device import exact_matmuls, lane_sum, resolve_device
 from .linear import as_dense_f32, encode_labels, prepare_sample_weight
@@ -259,8 +260,8 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
                       min_samples_split, min_samples_leaf,
                       min_impurity_decrease, extra, classification,
                       hist_mode="auto", newton=False):
-    """Returns ``kernel(Xb, Ych, seeds, l2=None) -> trees`` growing a
-    round of T trees at once.
+    """Returns ``kernel(Xb, Ych, seeds, l2=None, feature_mask=None) ->
+    trees`` growing a round of T trees at once.
 
     - ``Xb (n, d) int32`` binned features, shared by the trees;
     - ``Ych (T, n, C) float32`` per-tree channels:
@@ -273,6 +274,16 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
       every tree of the round, or a ``(T,)`` tensor, one lambda a tree
       (a GBDT search's lanes, each class of a lane with its lane's).
       A scalar gives the bits it gave before per-tree lambdas existed.
+    - ``feature_mask``: None, or ``(T, d)`` bool, the features each tree
+      may split (the feature eliminator's column masks). A masked
+      feature's gains are invalid before the split is chosen, so a tree
+      grows as over its X with the masked columns zeroed and binned
+      under the whole X's edges (a constant column never yields a valid
+      split, and an all-invalid node picks the same cell either way).
+      The histogram still covers all ``d`` features (K4 runs one launch
+      a level over the shared ``Xb``), and the ``max_features`` draws
+      and ExtraTrees thresholds are drawn as without a mask. None gives
+      the bits it gave before masks existed.
 
     ``trees`` = ``{feat, thr, is_split, gain: (T, N), leaf: (T, N,
     K_out)}`` with N = 2**(D+1) - 1 heap-indexed nodes (children of i:
@@ -294,11 +305,18 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
             classification=classification, K=K,
         )
 
-    def kernel(Xb, Ych, seeds, l2=None):
+    def kernel(Xb, Ych, seeds, l2=None, feature_mask=None):
         mode = resolve_hist_config(hist_mode, Xb.device)
         T, n = Ych.shape[0], Ych.shape[1]
         dev = Xb.device
         seeds = torch.as_tensor(seeds, device=dev)
+        if feature_mask is not None:
+            if tuple(feature_mask.shape) != (T, d):
+                raise ValueError(
+                    f"feature_mask must be ({T}, {d}) bool, one row a "
+                    f"tree; got {tuple(feature_mask.shape)}")
+            # against the (T, d, nl, B) gain
+            feature_mask = feature_mask.to(dev, torch.bool)[:, :, None, None]
         N = n_tree_nodes(D)
         lam = None
         if newton:
@@ -386,6 +404,8 @@ def build_tree_kernel(n_features, n_bins, channels, max_depth, max_features,
             # ---- validity
             node_cnt = tot[:, 0, :, -1]  # (T, nl) unweighted occupancy
             ok = (cnt_l >= min_samples_leaf) & (cnt_r >= min_samples_leaf)
+            if feature_mask is not None:
+                ok = ok & feature_mask
             gain = torch.where(ok, gain, _NEG)
 
             if max_features < d:
@@ -701,15 +721,40 @@ class _BaseTree(BaseEstimator):
         seed = st["random_state"] or 0
 
         def kernel(Xb, y, sw, hyper):
+            fmask = None
+            if isinstance(Xb, MaskedColumns):
+                Xb, fmask = Xb.base, Xb.mask
             if classification:
                 Ych = classification_channels(y, sw, K)
             else:
                 Ych = regression_channels(y, sw)
             seeds = torch.full((sw.shape[0],), seed, dtype=torch.int64,
                                device=Xb.device)
-            return grow(Xb, Ych, seeds)
+            return grow(Xb, Ych, seeds, feature_mask=fmask)
 
         return kernel
+
+    @classmethod
+    def _mask_operand(cls, Xb, fmask):
+        """The fit operand of lanes that each see only the features of
+        their row of ``fmask (T, d)`` (the feature eliminator's task
+        axis): the shared bins beside the masks, which the kernel hands
+        to :func:`build_tree_kernel` as ``feature_mask``."""
+        return MaskedColumns(Xb, fmask)
+
+    @classmethod
+    def _mask_decision_params(cls, params, fmask):
+        """A masked lane's tree never splits a masked feature, so its
+        walk never reads one: the trees pass unchanged."""
+        return params
+
+    @classmethod
+    def _mask_task_bytes(cls, meta, static):
+        """The masked-gain temporary of a lane's deepest level, and its
+        mask."""
+        st = dict(static)
+        nl = 2 ** max(st["max_depth"] - 1, 0)
+        return st["_n_features"] * (nl * st["n_bins"] * 4 + 4)
 
     @classmethod
     def _decision_params(cls, params):

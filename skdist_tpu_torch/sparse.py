@@ -10,7 +10,10 @@ fit problems reach it through :class:`LinearOperator`, whose packed form
 runs the CUDA kernels of :mod:`skdist_tpu_torch.ops.packed_sparse` (K1
 forward, K2 as its backward, K3 for the ridge family's gram) and whose
 dense form is ``Xa @ W``. Its mini-batch row forms (the SGD steps) run
-K1 and K2 in per-lane row form on packed X.
+K1 and K2 in per-lane row form on packed X. :class:`MaskedLinearOperator`
+is a view of one with a column mask a lane (the feature eliminator's
+task axis), and :class:`MaskedColumns` pairs a shared operand that a
+family reads whole (a tree's bins, naive Bayes' X) with those masks.
 
 The host-side routing (:func:`pack_decision`, :func:`would_pack`,
 :func:`pack_for_fit`) is the JAX package's, copied: pack exactly when
@@ -52,6 +55,9 @@ __all__ = [
     "matvec_any",
     "packed_matvec_bf16",
     "LinearOperator",
+    "MaskedLinearOperator",
+    "MaskedColumns",
+    "lane_row_mask",
 ]
 
 #: kill switch / force switch for the packed fit plane: "0" keeps every
@@ -426,3 +432,80 @@ class LinearOperator:
         G = packed_weighted_gram(self.pidx, self.pval, sw, self.p,
                                  pairs=self.gram_pairs())
         return G, self.rmatvec(sw[..., None] * T)
+
+
+def lane_row_mask(fmask, p, dtype):
+    """The ``(T, p)`` 0/1 mask of a linear model's weight rows from the
+    lanes' column masks ``fmask (T, d)``: the rows past ``d`` (the
+    intercept) are kept."""
+    m = fmask.to(dtype)
+    if p > m.shape[1]:
+        m = torch.cat([m, m.new_ones((m.shape[0], p - m.shape[1]))], dim=1)
+    return m
+
+
+class MaskedLinearOperator:
+    """A view of a :class:`LinearOperator` in which lane ``t`` sees only
+    the columns ``fmask[t]`` keeps: the feature eliminator's ``X * fmask``
+    with no copy of X a lane.
+
+    ``fmask`` is ``(T, d)`` (0/1 or bool); the intercept column is never
+    masked. The view masks the weights and the column-indexed results,
+    never X: :meth:`matvec` is ``X~ @ (m * W)``, :meth:`rmatvec`
+    ``m * (X~.T @ r)``, the row forms the same on a mini-batch, and the
+    ridge normal equations are ``(m m.T) * G`` and ``m * b``. A masked
+    weight so gets a zero data gradient (autograd through ``m * W``
+    gives ``m * (X~.T @ g)``) and, from a zero start, stays zero, as
+    under a zeroed column. Each product runs the wrapped operator's own
+    (dense, packed kernels, bf16), on weights with the masked entries
+    zeroed. ``W`` carries the lane axis: ``(T, p)`` or ``(T, p, k)``."""
+
+    __slots__ = ("op", "m", "d", "p", "n", "dtype")
+
+    def __init__(self, op, fmask):
+        self.op = op
+        self.m = lane_row_mask(fmask, op.p, op.dtype)  # (T, p)
+        self.d, self.p, self.n, self.dtype = op.d, op.p, op.n, op.dtype
+
+    def mask_weights(self, W):
+        """``W`` (``(T, p)`` or ``(T, p, k)``) with each lane's masked
+        rows zeroed."""
+        return W * (self.m[..., None] if W.ndim == 3 else self.m)
+
+    def matvec(self, W):
+        return self.op.matvec(self.mask_weights(W))
+
+    def rmatvec(self, r):
+        return self.mask_weights(self.op.rmatvec(r))
+
+    def row_batch(self, idx):
+        return self.op.row_batch(idx)
+
+    def row_matvec(self, rows, W):
+        return self.op.row_matvec(rows, self.mask_weights(W))
+
+    def row_rmatvec(self, rows, g):
+        return self.mask_weights(self.op.row_rmatvec(rows, g))
+
+    def gram_pairs(self):
+        return self.op.gram_pairs()
+
+    def weighted_gram_rhs(self, sw, T):
+        """The wrapped operator's normal equations for the lanes of ``sw
+        (T, n)``, each lane's masked rows and columns zeroed."""
+        G, b = self.op.weighted_gram_rhs(sw, T)
+        return (G * (self.m[:, :, None] * self.m[:, None, :]),
+                self.mask_weights(b))
+
+
+class MaskedColumns:
+    """A shared operand read whole by its family's kernel (a tree's bins
+    ``Xb (n, d)``, naive Bayes' ``X``) beside a column mask a lane,
+    ``mask (T, d)`` bool: the family applies the mask where it reduces
+    over columns (a tree's split search, naive Bayes' counts)."""
+
+    __slots__ = ("base", "mask")
+
+    def __init__(self, base, mask):
+        self.base = base
+        self.mask = mask.to(torch.bool)
