@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase-20
     python3 chip_smoke.py --phase-21
     python3 chip_smoke.py --phase-22
+    python3 chip_smoke.py --phase-23
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -82,7 +83,8 @@ result line:
    would be trivial).
 4. The dense headline on the card: every sixth C of the same grid (16
    of 96, the span kept; a printed cut that keeps the run inside its
-   time limit) on the dense 11314 x 4096 problem (``torch.matmul``, no
+   time limit) as one round (``partitions=1``: every lane runs to
+   ``max_iter``) on the dense 11314 x 4096 problem (``torch.matmul``, no
    hand kernel), compacted
    (every round resident), then on the classic path
    (``SKDIST_COMPACTION=0``) at the compacted run's chunk: the two
@@ -140,9 +142,9 @@ result line:
    two yardsticks the port never calls: ``torch.sparse.mm`` of the CSR
    X~.T against the dense S X~, and the dense GEMM X~.T @ (S X~).
 10. The ridge path at full size: ``DistGridSearchCV(RidgeClassifier(),
-    {"alpha": logspace(-2, 3, 96)}, cv=5, scoring="f1_weighted")`` on
-    the 20news-shaped CSR at d=2**14 (n=11314, 20 classes), 480 fits on
-    the card. K3's launches must equal the rounds plus the refit, K2's
+    {"alpha": logspace(-2, 3, 96)[::2]}, cv=5, scoring="f1_weighted")``
+    on the 20news-shaped CSR at d=2**14 (n=11314, 20 classes), 240 fits
+    on the card (every second alpha: a printed cut, 480 before). K3's launches must equal the rounds plus the refit, K2's
     and K1's be > 0; every score finite (the count of lanes whose
     Cholesky failed is printed); the pickled ``best_estimator_`` must
     predict as the live one; the refit on the card is held to the same
@@ -168,7 +170,8 @@ result line:
     -2, 60)}, n_iter=60, cv=5, scoring="accuracy", random_state=0)`` (5
     epochs, config 2's 20 cut to keep the whole run inside its time
     target; printed) on
-    covtype's shape (``make_tabular(581012, 54, 7, seed=1)``), 300 fits
+    covtype's width (``make_tabular(290506, 54, 7, seed=1)``: half its
+    581012 rows since a printed cut), 300 fits
     and the refit on the compacted path (mini-batch SGD through
     ``torch.matmul``; no hand kernel is on this path). Printed: the
     search's wall and fits/s, the refit's wall, the scheduler's counts
@@ -206,7 +209,9 @@ result line:
     text, d = 2**18): K1's and K2's launch counters are zeroed before
     the cold fit and must be > 0 after it; the same gates.
 14c. ``DistOneVsOneClassifier(LinearSVC(C=1.0, max_iter=100))`` on that
-    packed X, 190 pairs: compacted (the default; its regime, slices and
+    packed X, 190 pairs: compacted as one round (``partitions=1``: every
+    pair runs to ``max_iter``, so the default's 8 rounds would only
+    multiply the host-paced iterations; its regime, slices and
     refills are printed), then classic (``SKDIST_COMPACTION=0``) at the
     compacted run's chunk; every pair's weights must be bitwise equal,
     and the pickled model must predict as the live one.
@@ -396,11 +401,36 @@ result line:
     the eliminator grew them, every one free of masked splits and three
     bitwise their lone fits of the column-zeroed X; K4 at this round's
     shape (T=60, C=8 whole-number channels) bitwise its plain version at
-    levels 1, 16 and 128, and its time a level there beside its bound
-    and its plain version. (d) ``SimpleVoter`` hard and
+    levels 1, 16 and 128, and its time a level there beside its bound,
+    its plain version and its ``index_add_`` yardstick (a sum of calls
+    over groups of 12 lanes, each group's result bitwise K4's: the
+    round's whole source would take ~60 GB). (d) ``SimpleVoter`` hard and
     soft over a card-fitted LogisticRegression,
     DistRandomForestClassifier and GaussianNB on 20000 rows, each vote
     equal to a numpy recount; pickled = live.
+23. Featurisation (BASELINE row 9, ``examples/encoder/basic_usage.py``)
+    on 20news-shaped text: 20 classes, each with its own skewed word
+    distribution over ~30000 seeded made-up words, lognormal document
+    lengths (median and p99 printed); the frames are dicts of columns
+    (no pandas on the card's machine). (a) 1000 documents:
+    ``Encoderizer`` at sizes small, medium and large, fitted
+    unsupervised, then ``DistGridSearchCV(LogisticRegression(
+    max_iter=100), {"C": [0.1, 1, 10]}, cv=5, scoring="f1_weighted")``
+    on the card over its CSR output, routed packed (K1/K2) or densified
+    (``densify.c`` from 2**22 elements) by the port's own rule: steps,
+    width, nnz a row, encode wall, route, K1/K2 launches, search wall,
+    best score; every score finite, the best above the majority class's
+    share, a pickled encoder's ``transform`` equal to the live one's,
+    width = the sum of ``transformer_lengths``. (b) 11314 rows with
+    every encoder type (text, numeric with None, a 20-value categorical,
+    lists, dicts) through ``Encoderizer(size="small")`` (fit and
+    transform walls); ``csr_to_dense_f32`` (C) bitwise scipy's
+    ``toarray``, both timed; ``TruncatedSVDTransformer(n_components=128)``
+    on the card over the densified output against the same fit on the
+    CPU and the sparse route (host scipy): singular values within 1e-3
+    relative, ``|transform|`` within 1e-2 of its largest;
+    ``FastHashingVectorizer`` (C) and the MurmurHash3 C kernel bitwise
+    their Python forms on the first 200 documents.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -418,8 +448,8 @@ runs must agree on epochs and ``best_score_``.
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
 the kernels and runs phases 17-19 alone, with no result line;
-``--phase-20``, ``--phase-21`` and ``--phase-22`` do the same for
-phases 20, 21 and 22.
+``--phase-20``, ``--phase-21``, ``--phase-22`` and ``--phase-23`` do
+the same for phases 20, 21, 22 and 23.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -1510,11 +1540,11 @@ def phase_asha(torch, Xd, yd, Cs, backend, exhaustive):
     say("phase 4b: adaptive (ASHA) search on the dense headline")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        ginf, wall_inf = fit_grid(torch, Xd, yd, Cs, backend,
+        ginf, wall_inf = fit_grid(torch, Xd, yd, Cs, backend, partitions=1,
                                   adaptive=HalvingSpec(eta=float("inf")))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RungKilledWarning)
-            g3, wall3 = fit_grid(torch, Xd, yd, Cs, backend,
+            g3, wall3 = fit_grid(torch, Xd, yd, Cs, backend, partitions=1,
                                  adaptive=HalvingSpec(eta=3))
     for w in caught:
         if "could not engage" in str(w.message) or \
@@ -2091,7 +2121,8 @@ def phase_k3(torch, X, y, round_lanes):
 
 
 def phase_ridge(torch, X, y, alphas, backend):
-    """Phase 10: the 480-fit RidgeClassifier grid at full size. Returns
+    """Phase 10: the RidgeClassifier grid at full size (240 fits since a
+    printed cut, 480 before). Returns
     the kernels' launches over the search."""
     from skdist_tpu_torch import DistGridSearchCV, RidgeClassifier
     from skdist_tpu_torch.models.linear import prepare_fit_X, to_device_X
@@ -2309,6 +2340,9 @@ def phase_ridge_regressor(torch, X, alphas, backend):
 #: JAX package's own benchmark size (100000 rows), a cut that keeps the
 #: whole run inside its time target
 SGD_N, SGD_D, SGD_K = 581012, 54, 7
+#: phase 13's rows: half of covtype's, so that the whole run stays inside
+#: its time limit
+SGD_ROWS = SGD_N // 2
 SGD_AB_N = 12_500
 #: phase 13's epochs: config 2's 20 cut to 5, so that the whole run
 #: keeps its time target beside phase 21 (at 10 its lanes stopped on tol
@@ -2405,7 +2439,7 @@ def phase_sgd(torch, backend, alphas):
     from skdist_tpu_torch import SGDClassifier  # noqa: F401
 
     t0 = time.perf_counter()
-    X, y = make_tabular(SGD_N, SGD_D, SGD_K, seed=1)
+    X, y = make_tabular(SGD_ROWS, SGD_D, SGD_K, seed=1)
     n_fits = 5 * len(alphas)
     say(f"phase 13: DistRandomizedSearchCV(SGDClassifier(max_iter="
         f"{SGD_EPOCHS}), {len(alphas)} alpha, n_iter={len(alphas)}, cv=5, "
@@ -2413,11 +2447,13 @@ def phase_sgd(torch, backend, alphas):
         f"fits + refit (data {time.perf_counter() - t0:.1f}s)")
     say(f"CUT: phase 13 runs {SGD_EPOCHS} epochs, not config 2's 20 (its "
         "steps are launch-bound: the wall goes with the epochs)")
+    say(f"CUT: phase 13 runs {SGD_ROWS} of covtype's {SGD_N} rows (the "
+        "run's time limit: the steps, and so the wall, go with the rows)")
     torch.cuda.reset_peak_memory_stats()
     gs, wall = sgd_search(torch, X, y, alphas, backend, max_iter=SGD_EPOCHS)
     st = gs.round_stats_[0]
     search = wall - gs.refit_time_
-    n_batches = -(-SGD_N // 64)
+    n_batches = -(-SGD_ROWS // 64)
     epochs = int(np.max(st["lane_n_iter"]))
     refit_epochs = int(gs.best_estimator_.n_iter_)
     say(f"  wall {wall:.1f}s: search {search:.1f}s ({n_fits / search:.2f} "
@@ -2844,9 +2880,10 @@ def phase_config3_packed(torch, X, y, backend):
 
 def phase_ovo(torch, X, y, backend):
     """Phase 14c: ``DistOneVsOneClassifier(LinearSVC(C=1.0,
-    max_iter=100))`` on the packed X, 190 pairs: compacted (the default),
-    then classic at the compacted run's chunk; every pair's W bitwise
-    equal."""
+    max_iter=100))`` on the packed X, 190 pairs: compacted as one round
+    (``partitions=1``: every pair runs to ``max_iter``, so the default's
+    8 rounds would only multiply the host-paced iterations), then classic
+    at the compacted run's chunk; every pair's W bitwise equal."""
     from skdist_tpu_torch import DistOneVsOneClassifier, LinearSVC
 
     say("phase 14c: DistOneVsOneClassifier(LinearSVC(C=1.0, max_iter=100)) "
@@ -2864,7 +2901,7 @@ def phase_ovo(torch, X, y, backend):
         finally:
             del os.environ["SKDIST_COMPACTION"]
 
-    comp, wall_c = fit(True)
+    comp, wall_c = fit(True, partitions=1)
     st = comp.round_stats_[0]
     n_pairs = len(comp.pairs_)
     say(f"  compacted wall {wall_c:.1f}s ({n_pairs / wall_c:.2f} pair fits/s): "
@@ -4988,17 +5025,55 @@ def tree_k4_times(torch, kh, Xb, sw, y, T):
                                  f"{exact} bitwise, max err {err:.3e}")
         ms = cuda_ms(torch, lambda: kh.level_histogram(
             Xs, key, Ych, nl, B, integer=proof), 3)
-        times[nl] = {"ms": ms, "bound": k4_bound(key, Xs, 8, nl, B, d)}
+        lib_ms, groups = k4_yardstick_by_lanes(torch, kh, Xs, Xb, key, Ych,
+                                               nl, B, proof)
+        times[nl] = {"ms": ms, "bound": k4_bound(key, Xs, 8, nl, B, d),
+                     "library_ms": lib_ms, "library_calls": groups}
     times["plain_ms"] = cuda_ms(
         torch, lambda: kh.level_histogram_ref(Xb, key, Ych, 128, B), 1)
     say(f"    K4 at T={T}, n={n}, d={d}, B={B}, C=8 against its plain "
-        "version at nl = 1, 16, 128: every channel bitwise equal")
+        "version at nl = 1, 16, 128: every channel bitwise equal; the "
+        "index_add_ yardstick of each lane group bitwise K4's lanes")
     say(f"    K4 a level at T={T}, n={n}, d={d}, B={B}, C=8: " + "; ".join(
         f"nl={nl} {v['ms']:.3f} ms (bound {v['bound'][0]:.3f} ms "
-        f"{v['bound'][1]}, {v['ms'] / v['bound'][0]:.1f}x)"
+        f"{v['bound'][1]}, {v['ms'] / v['bound'][0]:.1f}x; index_add_ "
+        f"{v['library_ms']:.3f} ms, a sum of {v['library_calls']} calls "
+        f"of {K4_YARDSTICK_LANES} lanes)"
         for nl, v in times.items() if nl != "plain_ms")
         + f"; plain version at nl=128 {times['plain_ms']:.1f} ms")
     return times
+
+
+#: lanes of one index_add_ call of the eliminator's K4 yardstick: its
+#: (lanes, d, n, C) source takes ~1.0 GB a lane at covtype's shape, so
+#: the round's 60 lanes (~60 GB) are timed in groups, a call each
+K4_YARDSTICK_LANES = 12
+
+
+def k4_yardstick_by_lanes(torch, kh, Xs, Xb, key, Y, nl, B, proof):
+    """K4's ``index_add_`` yardstick at a round too wide for one source
+    tensor: one call a group of :data:`K4_YARDSTICK_LANES` lanes, each
+    group's result bitwise K4's output for those lanes (whole-number
+    channels); returns (the sum of the groups' device ms, the number of
+    calls)."""
+    T, n = key.shape
+    d, C = Xb.shape[1], Y.shape[-1]
+    out = kh.level_histogram(Xs, key, Y, nl, B, integer=proof)
+    total, calls = 0.0, 0
+    for t0 in range(0, T, K4_YARDSTICK_LANES):
+        t1 = min(T, t0 + K4_YARDSTICK_LANES)
+        src = Y[t0:t1, None].expand(t1 - t0, d, n, C).reshape(-1, C)
+        call, result = k4_yardstick(torch, Xb, key[t0:t1], Y[t0:t1], nl, B,
+                                    src)
+        total += cuda_ms(torch, call, 1)
+        calls += 1
+        if not torch.equal(result(), out[t0:t1]):
+            raise AssertionError(
+                f"phase 22c: the index_add_ yardstick of lanes {t0}-{t1} "
+                f"disagrees with K4 at nl={nl}")
+        del src, call, result
+        torch.cuda.empty_cache()
+    return total, calls
 
 
 def phase_voter(torch, X, y):
@@ -5061,6 +5136,293 @@ def phase_eliminate(torch):
     return launches, times
 
 
+#: 20newsgroups' sizes: BASELINE row 9's 1000 documents, the train split
+NEWS_DOCS, NEWS_TRAIN = 1000, 11314
+
+
+def made_up_vocabulary(rng, size):
+    """``size`` distinct made-up lowercase words of 2-12 letters."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < size:
+        lens = np.clip(rng.geometric(0.22, size=size), 2, 12)
+        for L in lens:
+            words.add("".join(rng.choice(letters, L)))
+            if len(words) == size:
+                break
+    return np.array(sorted(words), dtype=object)[rng.permutation(size)]
+
+
+def make_20news_text(n_docs, seed=0, vocab_size=30000, k=20):
+    """20newsgroups-shaped raw text: ``k`` classes, each drawing words
+    from its own skewed distribution over a seeded vocabulary of made-up
+    words (a shared Zipf backbone times an 8x boost on 400 words of the
+    class's own), long-tailed document lengths (lognormal, as 20news'
+    are), an occasional capital and full stop. Returns ``(docs, y)``."""
+    rng = np.random.RandomState(seed)
+    vocab = made_up_vocabulary(rng, vocab_size)
+    base = 1.0 / (np.arange(vocab_size) + 10.0) ** 1.07
+    lengths = np.clip(rng.lognormal(5.2, 0.9, n_docs), 12, 6000).astype(int)
+    y = rng.randint(0, k, n_docs)
+    words = np.empty(n_docs, dtype=object)
+    for c in range(k):
+        p = base.copy()
+        p[rng.choice(vocab_size, 400, replace=False)] *= 8.0
+        rows = np.flatnonzero(y == c)
+        ids = rng.choice(vocab_size, int(lengths[rows].sum()), p=p / p.sum())
+        for r, chunk in zip(rows, np.split(ids, np.cumsum(lengths[rows])[:-1])):
+            words[r] = vocab[chunk]
+    docs = []
+    for w in words:
+        w = w.copy()
+        w[::17] = [t.capitalize() for t in w[::17]]
+        w[11::13] = [t + "." for t in w[11::13]]
+        docs.append(" ".join(w))
+    return docs, y
+
+
+def news_frame(n_docs, seed=0):
+    """The 23b frame as a dict of columns (the card's machine has no
+    pandas): 20news-shaped text, a numeric column with None, a 20-value
+    categorical, a list column and a dict column."""
+    rng = np.random.RandomState(seed + 1)
+    docs, y = make_20news_text(n_docs, seed)
+    groups = [f"grp{c:02d}" for c in range(20)]
+    tags = np.array(["news", "sci", "rec", "talk", "comp", "misc", "alt"])
+    frame = {
+        "body": docs,
+        "lines": [None if rng.rand() < 0.1 else float(rng.lognormal(3, 1))
+                  for _ in range(n_docs)],
+        "group": [groups[int(g)] for g in rng.randint(0, 20, n_docs)],
+        "tags": [list(rng.choice(tags, rng.randint(1, 4), replace=False))
+                 for _ in range(n_docs)],
+        "meta": [{"org": f"org{int(rng.randint(0, 50))}",
+                  "replies": float(rng.poisson(2))} for _ in range(n_docs)],
+    }
+    return frame, y
+
+
+def pickled_equal(enc, frame, out):
+    """Whether a pickled encoder's ``transform`` equals the live one's
+    (no differing entry)."""
+    loaded = pickle.loads(pickle.dumps(enc))
+    again = loaded.transform(frame)
+    return again.shape == out.shape and (again != out).nnz == 0
+
+
+def counting(module, name, counts):
+    """Wrap ``module.name`` so that its calls are counted in
+    ``counts[name]``; returns the restorer."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return real(*args, **kw)
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, real)
+
+
+def phase_encoder_search(torch):
+    """23a: BASELINE row 9's protocol (``examples/encoder/basic_usage.py``)
+    on 1000 20news-shaped documents: ``Encoderizer`` at sizes small,
+    medium and large fitted unsupervised, then the flagship
+    ``DistGridSearchCV(LogisticRegression(max_iter=100), {"C": [0.1, 1,
+    10]}, cv=5, scoring="f1_weighted")`` on the card over its CSR output,
+    routed packed (K1/K2) or densified (``densify.c`` from 2**22
+    elements) by the port's own rule. Returns K1/K2 launches a size."""
+    from skdist_tpu_torch import DistGridSearchCV, Encoderizer
+    from skdist_tpu_torch import LogisticRegression, native
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.sparse import would_pack
+
+    t0 = time.perf_counter()
+    docs, y = make_20news_text(NEWS_DOCS, seed=9)
+    lens = np.array([len(d.split()) for d in docs])
+    say(f"phase 23a: 20news-shaped text, {NEWS_DOCS} documents, 20 classes, "
+        f"words a document median {np.median(lens):.0f}, p99 "
+        f"{np.percentile(lens, 99):.0f}, max {lens.max()} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    frame = {"text": docs}
+    majority = np.bincount(y).max() / len(y)
+    out = {}
+    for size in ("small", "medium", "large"):
+        t0 = time.perf_counter()
+        enc = Encoderizer(size=size).fit(frame)
+        X = enc.transform(frame)
+        encode = time.perf_counter() - t0
+        width = X.shape[1]
+        if width != sum(enc.transformer_lengths):
+            raise AssertionError(f"phase 23a {size}: width {width} is not "
+                                 f"{sum(enc.transformer_lengths)}")
+        if not pickled_equal(enc, frame, X):
+            raise AssertionError(f"phase 23a {size}: the pickled encoder "
+                                 "transforms differently")
+        route = "packed (K1/K2)" if would_pack(X) else "dense"
+        counts = {}
+        restore = counting(native, "csr_to_dense_f32", counts)
+        ps.packed_matvec.launches = 0
+        ps.packed_rmatvec.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gs = DistGridSearchCV(
+                LogisticRegression(max_iter=100), {"C": [0.1, 1.0, 10.0]},
+                cv=5, scoring="f1_weighted").fit(X, y)
+            torch.cuda.synchronize()
+            search = time.perf_counter() - t1
+        finally:
+            restore()
+        launches = {"packed_matvec": ps.packed_matvec.launches,
+                    "packed_rmatvec": ps.packed_rmatvec.launches}
+        scores = gs.cv_results_["mean_test_score"]
+        say(f"  {size}: steps {enc.step_names}, width {width}, nnz a row "
+            f"{X.nnz / X.shape[0]:.1f}, encode {encode:.2f} s; route "
+            f"{route}, densify.c calls {counts.get('csr_to_dense_f32', 0)}, "
+            f"K1/K2 launches {launches['packed_matvec']}/"
+            f"{launches['packed_rmatvec']}; search {search:.2f} s "
+            f"({gs.round_stats_[0]['mode']}), scores "
+            f"{np.round(scores, 6).tolist()}, best {gs.best_params_} "
+            f"{gs.best_score_:.6f} (majority share {majority:.4f}); "
+            "pickled encoder = live")
+        if not np.all(np.isfinite(scores)):
+            raise AssertionError(f"phase 23a {size}: a score is not finite")
+        if not gs.best_score_ > majority:
+            raise AssertionError(f"phase 23a {size}: best score "
+                                 f"{gs.best_score_} not above the majority "
+                                 f"share {majority}")
+        if route.startswith("packed") and min(launches.values()) <= 0:
+            raise AssertionError(f"phase 23a {size}: packed, but a kernel "
+                                 f"never launched: {launches}")
+        out[size] = launches
+        del gs, X
+        torch.cuda.empty_cache()
+    return out
+
+
+def same_abs(a, b):
+    """max | |a| - |b| | over max |b|."""
+    return float(np.abs(np.abs(a) - np.abs(b)).max() / np.abs(b).max())
+
+
+def phase_encoder_wide(torch):
+    """23b: the 20news train size, every encoder type; the SVD on the card
+    against the CPU's, dense and sparse; the C kernels against their
+    Python forms and scipy, bitwise."""
+    from skdist_tpu_torch import Encoderizer, TruncatedSVDTransformer, native
+    from skdist_tpu_torch.featurize.text import HashingVectorizer
+    from skdist_tpu_torch.preprocessing import FastHashingVectorizer
+    from skdist_tpu_torch.sparse import sparse_to_dense_f32
+
+    t0 = time.perf_counter()
+    frame, _ = news_frame(NEWS_TRAIN, seed=10)
+    say(f"phase 23b: {NEWS_TRAIN} rows x {len(frame)} columns (text, "
+        f"numeric with None, 20-value categorical, lists, dicts), "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    enc = Encoderizer(size="small").fit(frame)
+    fit_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = enc.transform(frame)
+    tr_wall = time.perf_counter() - t0
+    say(f"  Encoderizer(size='small'): steps {enc.step_names}, widths "
+        f"{enc.transformer_lengths}; fit {fit_wall:.2f} s, transform "
+        f"{tr_wall:.2f} s; {X.shape}, nnz {X.nnz}")
+    kinds = {"body_word_vec", "lines_scaler", "group_onehot",
+             "tags_multihot", "meta_dict_encoder"}
+    if set(enc.step_names) != kinds or X.shape[1] != sum(
+            enc.transformer_lengths):
+        raise AssertionError(f"phase 23b: steps {enc.step_names}")
+
+    # the densifier: C against scipy, bitwise
+    t0 = time.perf_counter()
+    dense_c = native.csr_to_dense_f32(X)
+    c_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    dense_py = np.ascontiguousarray(X.toarray(), dtype=np.float32)
+    py_ms = 1e3 * (time.perf_counter() - t0)
+    if not np.array_equal(dense_c.view(np.uint32), dense_py.view(np.uint32)):
+        raise AssertionError("phase 23b: csr_to_dense_f32 is not bitwise "
+                             "scipy's toarray")
+    if not np.array_equal(sparse_to_dense_f32(X), dense_c):
+        raise AssertionError("phase 23b: sparse_to_dense_f32 differs")
+    say(f"  csr_to_dense_f32 (C, {native.default_threads()} threads) "
+        f"{c_ms:.1f} ms, scipy toarray {py_ms:.1f} ms: bitwise equal")
+
+    # TruncatedSVDTransformer: the card against the CPU, dense and sparse
+    k = 128
+    walls, fits = {}, {}
+    for name, device, Xin in (("card", None, dense_c),
+                              ("cpu", "cpu", dense_c),
+                              ("sparse", None, X.astype(np.float32))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svd = TruncatedSVDTransformer(n_components=k, random_state=0,
+                                      device=device).fit(Xin)
+        Xt = svd.transform(Xin)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        fits[name] = (svd, Xt)
+    card, cpu = fits["card"], fits["cpu"]
+    for other in ("cpu", "sparse"):
+        sv_gap = float(np.max(np.abs(fits[other][0].singular_values_
+                                     - card[0].singular_values_)
+                              / fits[other][0].singular_values_))
+        t_gap = same_abs(card[1], fits[other][1])
+        say(f"  TruncatedSVDTransformer({k}) card {walls['card']:.2f} s vs "
+            f"{other} {walls[other]:.2f} s: singular values within "
+            f"{sv_gap:.2e} relative (gate 1e-3), |transform| within "
+            f"{t_gap:.2e} of its largest (gate 1e-2)")
+        if not (sv_gap <= 1e-3 and t_gap <= 1e-2):
+            raise AssertionError(f"phase 23b: the card's SVD and the "
+                                 f"{other}'s disagree")
+    if not np.all(np.isfinite(card[1])) or card[1].shape != (X.shape[0], k):
+        raise AssertionError("phase 23b: the SVD output is not finite")
+    loaded = pickle.loads(pickle.dumps(card[0]))
+    if not np.array_equal(loaded.components_, card[0].components_):
+        raise AssertionError("phase 23b: the pickled SVD differs")
+
+    # the hashing kernels against their Python forms
+    docs = frame["body"][:200]
+    for kw in (dict(n_features=2 ** 12), dict(n_features=2 ** 12,
+                                              ngram_range=(1, 2)),
+               dict(n_features=2 ** 13, analyzer="char_wb",
+                    ngram_range=(3, 4))):
+        a = FastHashingVectorizer(**kw).transform(docs)
+        b = FastHashingVectorizer(force_python=True, **kw).transform(docs)
+        if (a != b).nnz or not np.array_equal(a.indices, b.indices):
+            raise AssertionError(f"phase 23b: FastHashingVectorizer {kw}: "
+                                 "C and Python differ")
+    spans = HashingVectorizer(ngram_range=(1, 2))._feature_spans(docs)
+    buf, starts, lengths = spans[0], spans[1], spans[2]
+    t0 = time.perf_counter()
+    h_c = native.murmurhash3_32_spans(buf, starts, lengths)
+    c_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    h_py = [native.murmurhash3_32_py(buf[a:a + n])
+            for a, n in zip(starts.tolist(), lengths.tolist())]
+    py_ms = 1e3 * (time.perf_counter() - t0)
+    if h_c.tolist() != h_py:
+        raise AssertionError("phase 23b: the MurmurHash3 C kernel and its "
+                             "Python form differ")
+    say(f"  on the first 200 documents: FastHashingVectorizer C = Python "
+        f"(word 1, word 1-2, char_wb 3-4), bitwise; MurmurHash3 of "
+        f"{len(h_py)} n-grams C {c_ms:.1f} ms = Python {py_ms:.0f} ms, "
+        "bitwise")
+
+
+def phase_featurize(torch):
+    """Phase 23 (``--phase-23`` runs only it): returns 23a's K1/K2
+    launches a size."""
+    t0 = time.perf_counter()
+    launches = phase_encoder_search(torch)
+    torch.cuda.empty_cache()
+    phase_encoder_wide(torch)
+    torch.cuda.empty_cache()
+    say(f"phase 23 seconds: {time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -5090,6 +5452,9 @@ def main():
                     help="build the kernels and run only phase 22 (no "
                     "result line): a short check of feature elimination "
                     "and the voter")
+    ap.add_argument("--phase-23", action="store_true",
+                    help="build the kernels and run only phase 23 (no "
+                    "result line): a short check of featurisation")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -5154,6 +5519,10 @@ def main():
         return 0
     if args.phase_22:
         phase_eliminate(torch)
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+    if args.phase_23:
+        phase_featurize(torch)
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -5309,13 +5678,16 @@ def main():
     # ---- phase 4: the dense headline -----------------------------------
     Xd, yd = make_20news_shaped()
     # every sixth C (16 of 96, the span kept), so that the whole run
-    # stays inside its time limit
+    # stays inside its time limit; as one round: every lane runs to
+    # max_iter, so the default's 8 rounds only multiply the host-paced
+    # iterations
     Cs_d = Cs[::6]
     nd_fits = 5 * len(Cs_d)
-    say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {nd_fits} fits")
+    say(f"phase 4: dense DistGridSearchCV on {Xd.shape}, {nd_fits} fits as "
+        "one round (partitions=1)")
     say(f"CUT: phases 4 and 4b run every sixth C of the grid "
         f"({len(Cs_d)} of {len(Cs)}, the span kept)")
-    gd, wall_d = fit_grid(torch, Xd, yd, Cs_d, backend)
+    gd, wall_d = fit_grid(torch, Xd, yd, Cs_d, backend, partitions=1)
     sd = gd.round_stats_[0]
     if not np.all(np.isfinite(gd.cv_results_["mean_test_score"])):
         raise AssertionError("non-finite dense mean_test_score")
@@ -5375,7 +5747,9 @@ def main():
     k3_err, k3_times, (k3_bound_ms, k3_by), ridge_errs = phase_k3(
         torch, Xr, yr, round_lanes)
     errs += ridge_errs
-    r_launches = phase_ridge(torch, Xr, yr, alphas, backend)
+    say(f"CUT: phase 10 runs every second alpha ({len(alphas[::2])} of "
+        f"{len(alphas)}, the span kept)")
+    r_launches = phase_ridge(torch, Xr, yr, alphas[::2], backend)
     phase_ridge_regressor(torch, Xr, reg_alphas, backend)
     lap("phases 9-11")
 
@@ -5426,6 +5800,10 @@ def main():
     torch.cuda.empty_cache()
     elim_launches, _elim_k4_times = phase_eliminate(torch)
 
+    # ---- phase 23: featurisation feeding the flagship search -----------
+    torch.cuda.empty_cache()
+    enc_launches = phase_featurize(torch)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -5439,7 +5817,9 @@ def main():
          "paths": {"logreg_grid": launches["packed_matvec"],
                    "sparse_predict": predict_launches,
                    "multimodel": mm_launches["packed_matvec"],
-                   "warm_refit": warm_launches["packed_matvec"]}},
+                   "warm_refit": warm_launches["packed_matvec"],
+                   **{f"encoder_{size}": v["packed_matvec"]
+                      for size, v in enc_launches.items()}}},
         {"name": "packed_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": launches["packed_rmatvec"],
@@ -5449,7 +5829,9 @@ def main():
          "library_ms": times["K2_library"],
          "paths": {"logreg_grid": launches["packed_rmatvec"],
                    "multimodel": mm_launches["packed_rmatvec"],
-                   "warm_refit": warm_launches["packed_rmatvec"]}},
+                   "warm_refit": warm_launches["packed_rmatvec"],
+                   **{f"encoder_{size}": v["packed_rmatvec"]
+                      for size, v in enc_launches.items()}}},
         {"name": "packed_weighted_gram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/packed_gram.cu",
          "replaces": "skdist_tpu/ops/pallas_sparse.py:263",

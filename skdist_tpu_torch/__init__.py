@@ -10,7 +10,8 @@ on a ported path is a CUDA kernel written by hand for ``sm_90a`` under
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs every kernel's plain PyTorch version.
 
-This package never imports ``jax``, ``skdist_tpu`` or scikit-learn.
+This package never imports ``jax``, ``skdist_tpu``, scikit-learn or
+pandas.
 
 Ported so far: ``DistGridSearchCV(LogisticRegression)`` over dense or
 packed-CSR sparse X, with the packed matvec/rmatvec kernels; the
@@ -35,7 +36,11 @@ and ``matmul_dtype='bfloat16'``; histogram gradient boosting
 level-histogram kernel's Newton channels, batched in the searches and
 one-vs-rest) and naive Bayes (``GaussianNB``, ``MultinomialNB``);
 feature elimination (``DistFeatureEliminator``: the (feature set x fold)
-grid as batched lanes with a column mask each) and ``SimpleVoter``. The
+grid as batched lanes with a column mask each) and ``SimpleVoter``;
+featurisation (``Encoderizer`` with its default encoders,
+``preprocessing``, and the port's own copies of the scikit-learn
+transformers they use, under ``featurize/``; ``TruncatedSVDTransformer``
+runs its dense products on the card). The
 searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
@@ -66,6 +71,9 @@ _EXPORTS = {
     **{name: "skdist_tpu_torch.distribute.adaptive" for name in (
         "HalvingSpec", "RungKilledWarning")},
     "DistFeatureEliminator": "skdist_tpu_torch.distribute.eliminate",
+    **{name: "skdist_tpu_torch.distribute.encoder" for name in (
+        "Encoderizer", "EncoderizerExtractor")},
+    "TruncatedSVDTransformer": "skdist_tpu_torch.preprocessing",
     "SimpleVoter": "skdist_tpu_torch.postprocessing",
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",

@@ -10,7 +10,9 @@ tree bank) and ``naive_bayes_from_reference`` for a fitted
 ``GaussianNB`` or ``MultinomialNB``; ``eliminator_from_reference`` for
 a fitted ``DistFeatureEliminator`` and ``voter_from_reference`` for a
 ``SimpleVoter``, whose inner models go through
-``model_from_reference``, the converter of any of these by its class.
+``model_from_reference``, the converter of any of these by its class;
+``encoderizer_from_reference`` for a fitted ``Encoderizer``, step for
+step (its scikit-learn transformers become the port's copies).
 ``logistic_regression_from_reference``, ``linear_svc_from_reference``
 and ``sgd_from_reference`` take the fitted state of a JAX ``skdist_tpu``
 ``LogisticRegression``, ``LinearSVC`` or ``SGDClassifier`` as plain
@@ -30,7 +32,8 @@ from .distribute import multiclass
 from .models import linear
 from .models.linear import LinearSVC, LogisticRegression, SGDClassifier
 
-__all__ = ["eliminator_from_reference", "forest_from_reference",
+__all__ = ["eliminator_from_reference", "encoderizer_from_reference",
+           "forest_from_reference",
            "gbdt_from_reference", "linear_svc_from_reference",
            "logistic_regression_from_reference", "model_from_reference",
            "multiclass_from_reference", "naive_bayes_from_reference",
@@ -337,8 +340,8 @@ _RIDGE_FAMILY = ("Ridge", "LinearRegression", "RidgeClassifier")
 def model_from_reference(ref, device=None):
     """The fitted port model of a fitted JAX one, by its class: a linear
     classifier, the ridge family, a tree or forest, a boosting model,
-    naive Bayes, a multiclass meta-estimator, a feature eliminator or a
-    voter (each through its converter above)."""
+    naive Bayes, a multiclass meta-estimator, a feature eliminator, a
+    voter or an encoder (each through its converter)."""
     name = type(ref).__name__
     if name in _LINEAR_CLASSIFIERS:
         cls = _LINEAR_CLASSIFIERS[name]
@@ -358,6 +361,8 @@ def model_from_reference(ref, device=None):
         return eliminator_from_reference(ref, device)
     if name == "SimpleVoter":
         return voter_from_reference(ref, device)
+    if name == "Encoderizer":
+        return encoderizer_from_reference(ref)
     return forest_from_reference(ref, device)
 
 
@@ -424,3 +429,94 @@ def voter_from_reference(ref, device=None):
                for name, est in ref.estimators]
     return SimpleVoter(members, classes=np.asarray(ref.classes),
                        voting=ref.voting, weights=ref.weights)
+
+
+def _featurize_class(name):
+    """The port's class of a featurisation step named ``name``: the
+    JAX package's ``preprocessing`` classes, scikit-learn's transformers
+    (the port's copies in ``featurize/``) and ``Encoderizer``."""
+    from . import featurize, preprocessing
+    from .distribute import encoder
+
+    for module in (preprocessing, featurize, encoder):
+        cls = getattr(module, name, None)
+        if isinstance(cls, type) and issubclass(cls, BaseEstimator):
+            return cls
+    raise ValueError(f"{name} has no counterpart in the port")
+
+
+def _carried_callable(fn):
+    """A function parameter of a step: the JAX package's and
+    scikit-learn's (the one-hot identity tokenizer, ``f_classif``) by
+    the port's function of the same name, a user's own as it is."""
+    from .distribute import _defaults
+    from .featurize import selection
+
+    module = getattr(fn, "__module__", "") or ""
+    if module.split(".")[0] in ("skdist_tpu", "sklearn"):
+        for home in (_defaults, selection):
+            own = getattr(home, getattr(fn, "__name__", ""), None)
+            if callable(own):
+                return own
+        raise ValueError(f"{module}.{fn.__name__} has no counterpart in "
+                         "the port")
+    return fn
+
+
+def _carried_value(v):
+    """A parameter or fitted attribute of a step as the port holds it:
+    estimators converted, functions mapped, containers copied, arrays as
+    plain numpy."""
+    import copy
+
+    if hasattr(v, "get_params") and not isinstance(v, type):
+        return _featurize_from_reference(v)
+    if isinstance(v, np.ndarray):
+        return np.array(v)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_carried_value(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _carried_value(x) for k, x in v.items()}
+    if callable(v) and not isinstance(v, type):
+        return _carried_callable(v)
+    return copy.deepcopy(v)
+
+
+#: private fitted attributes a step's ``transform`` reads
+_PRIVATE_STATE = ("_fill_dtype",)
+
+
+def _featurize_from_reference(ref):
+    """A port featurisation step from a JAX package or scikit-learn one
+    (fitted or not), by duck typing: its class by name, its parameters,
+    and its fitted state (trailing-underscore attributes, ``mask`` of a
+    ``SelectorMem``, ``transformer_lengths`` and ``fields_`` of an
+    encoder) carried as numpy, lists and dicts."""
+    cls = _featurize_class(type(ref).__name__)
+    names = cls._get_param_names()
+    params = ref.get_params(deep=False)
+    est = cls(**{k: _carried_value(v) for k, v in params.items()
+                 if k in names and k != "backend"})
+    for key, value in vars(ref).items():
+        if key in params:
+            continue
+        if key.endswith("_") and not key.startswith("_") or key in (
+                "mask", "transformer_lengths") or key in _PRIVATE_STATE:
+            setattr(est, key, _carried_value(value))
+    return est
+
+
+def encoderizer_from_reference(ref):
+    """A fitted port ``Encoderizer`` from a fitted JAX one, step for step:
+    each pipeline and its transformers as the port's classes of the same
+    names, with their fitted state (vocabularies, feature names,
+    imputation statistics, scaler moments, variances, classes, label
+    encoders, selector masks) as plain numpy, lists and dicts, and the
+    encoder's ``transformer_lengths`` and ``fields_``. Its ``transform``
+    then equals the JAX encoder's. scikit-learn is never imported: the
+    steps are read by duck typing."""
+    if type(ref).__name__ != "Encoderizer":
+        raise ValueError(f"{type(ref).__name__} is not an Encoderizer")
+    if not hasattr(ref, "transformer_lengths"):
+        raise ValueError("the Encoderizer is not fitted")
+    return _featurize_from_reference(ref)

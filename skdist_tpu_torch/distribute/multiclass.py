@@ -36,7 +36,6 @@ meta-estimators, and the backends' host fan-out (``run_tasks``; the
 generic path here runs its fits in turn).
 """
 
-import itertools
 import os
 import warnings
 
@@ -44,6 +43,8 @@ import numpy as np
 import torch
 
 from ..base import BaseEstimator, ClassifierMixin, clone, strip_runtime
+from ..featurize.labels import MultiLabelBinarizer
+from ..featurize.scale import normalize
 from ..parallel import (
     CUDABackend,
     IterativeKernelSpec,
@@ -216,18 +217,10 @@ def _fit_binary(estimator, X, y, fit_params=None, classes=None,
 def _binarize_multilabel(y):
     """Sequences of labels -> ``(Y (n, k) int32, classes)``: classes are
     the sorted union of every row's labels (int dtype when they are all
-    ints, else object), ``Y[i, j] = 1`` when row i holds class j. The
-    binarizer of scikit-learn's ``MultiLabelBinarizer``, written out."""
-    labels = sorted(set(itertools.chain.from_iterable(y)))
-    dtype = int if all(isinstance(c, int) for c in labels) else object
-    classes = np.empty(len(labels), dtype=dtype)
-    classes[:] = labels
-    pos = {c: j for j, c in enumerate(labels)}
-    Y = np.zeros((len(y), len(labels)), dtype=np.int32)
-    for i, row in enumerate(y):
-        for c in row:
-            Y[i, pos[c]] = 1
-    return Y, classes
+    ints, else object), ``Y[i, j] = 1`` when row i holds class j
+    (``featurize.MultiLabelBinarizer``)."""
+    mlb = MultiLabelBinarizer().fit(y)
+    return mlb.transform(y).astype(np.int32), mlb.classes_
 
 
 def _label_matrix(y, classes=None):
@@ -264,21 +257,9 @@ def _is_sequence_of_seqs(y):
 
 
 def _normalize_rows(X, norm):
-    """Rows of ``X`` scaled to unit ``"l1"``, ``"l2"`` or ``"max"`` norm
-    (a zero row stays zero): scikit-learn's ``normalize`` on a dense
-    array, written out."""
-    X = np.array(X, dtype=np.result_type(X, np.float32))
-    if norm == "l1":
-        norms = np.abs(X).sum(axis=1)
-    elif norm == "l2":
-        norms = np.sqrt(np.einsum("ij,ij->i", X, X))
-    elif norm == "max":
-        norms = np.max(np.abs(X), axis=1)
-    else:
-        raise ValueError(f"'{norm}' is not a supported norm")
-    norms[norms == 0.0] = 1.0
-    X /= norms[:, None]
-    return X
+    """Rows of ``X`` scaled to unit ``"l1"``, ``"l2"`` or ``"max"`` norm,
+    a copy (``featurize.normalize``)."""
+    return normalize(X, norm=norm)
 
 
 def _batched_family(est):

@@ -1,22 +1,30 @@
 """
-The host C tree kernels of the port (``hist_tree.c``), built on demand.
+The host C kernels of the port, built on demand: the tree kernels
+(``hist_tree.c``), text hashing (``fasthash.c`` and ``murmurhash.c``)
+and the CSR densifier (``densify.c``).
 
-Counterpart of the hist-tree part of ``skdist_tpu/native/__init__.py``:
-the loader (:func:`_load_ext`) and the entry points of the host forest
-engine (``models/native_forest.py``, ``hist_mode="native"``). The C
-source is a copy of the JAX package's and ships as package data; it is
-compiled with the system C compiler (``$CC``, else ``cc``) against
-CPython's headers at first use, into ``skdist_tpu_torch/_build/``, and
-imported as an extension module. Nothing is built when this module is
-imported.
+Counterpart of ``skdist_tpu/native/__init__.py``: the loader
+(:func:`_load_ext`), the entry points of the host forest engine
+(``models/native_forest.py``, ``hist_mode="native"``),
+:func:`hash_documents` (``preprocessing.FastHashingVectorizer``) and
+:func:`csr_to_dense_f32` (``sparse.sparse_to_dense_f32``), plus the
+port's own :func:`murmurhash3_32_spans`, which ``featurize/text.py
+HashingVectorizer`` hashes its n-grams with. The C sources ship as
+package data (``hist_tree.c``, ``fasthash.c`` and ``densify.c`` are
+copies of the JAX package's); each is compiled with the system C
+compiler (``$CC``, else ``cc``) against CPython's headers at first use,
+into ``skdist_tpu_torch/_build/``, and imported as an extension module.
+Nothing is built when this module is imported.
 
-A build that fails (no compiler, a read-only tree) leaves the engine
-unavailable: :func:`hist_tree_available` is False and
-:func:`build_error` says why. ``hist_mode="auto"`` then grows trees with
-the torch engine; an explicit ``"native"`` raises
-(``models/native_forest.py native_supported_or_raise``).
-:func:`hist_level` keeps the JAX package's numpy form (``force_python``)
-for the tests that hold the C kernel to it.
+A build that fails (no compiler, a read-only tree) leaves that kernel
+unavailable and :func:`build_error` says why. The tree engine then
+grows trees with torch (an explicit ``hist_mode="native"`` raises,
+``models/native_forest.py native_supported_or_raise``);
+:func:`hash_documents` and :func:`csr_to_dense_f32` take their Python
+and scipy forms, as the JAX package's do; :func:`murmurhash3_32_spans`
+raises, so that the vectorizers never fall back to a Python hash loop
+quietly. The Python forms (``force_python``, :func:`murmurhash3_32_py`)
+stay for the tests that hold the C kernels to them.
 """
 
 import os
@@ -30,10 +38,15 @@ import numpy as np
 __all__ = [
     "best_splits_native",
     "build_error",
+    "csr_to_dense_f32",
     "default_threads",
     "forest_walk_native",
+    "hash_documents",
     "hist_level",
     "hist_tree_available",
+    "murmurhash3_32_py",
+    "murmurhash3_32_spans",
+    "native_available",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,8 +109,12 @@ def _load_ext_inner(name, extra_flags):
     return mod
 
 
+#: extra compiler flags of each C source
+_FLAGS = {"hist_tree": ("-pthread",), "densify": ("-pthread",)}
+
+
 def _hist_tree():
-    return _load_ext("hist_tree", ("-pthread",))
+    return _load_ext("hist_tree", _FLAGS["hist_tree"])
 
 
 def hist_tree_available():
@@ -106,10 +123,11 @@ def hist_tree_available():
     return _hist_tree() is not None
 
 
-def build_error():
-    """Why the C tree kernels are unavailable, or None."""
-    _hist_tree()
-    return _ERRORS.get("hist_tree")
+def build_error(name="hist_tree"):
+    """Why the C kernels of ``name.c`` (``"hist_tree"``, ``"fasthash"``,
+    ``"murmurhash"`` or ``"densify"``) are unavailable, or None."""
+    _load_ext(name, _FLAGS.get(name, ()))
+    return _ERRORS.get(name)
 
 
 def default_threads(n_jobs=None):
@@ -229,3 +247,211 @@ def best_splits_native(hist, fmask, urand, K, classification,
         int(default_threads() if n_threads is None else n_threads),
     )
     return gain, bf, bt, cl, cr
+
+
+# ---------------------------------------------------------------------------
+# text hashing (fasthash.c): FastHashingVectorizer's kernel
+# ---------------------------------------------------------------------------
+
+def _fnv1a(data: bytes) -> int:
+    h = 2166136261
+    for b in data:
+        h ^= b
+        h = (h * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def _is_token_char(b):
+    return (
+        (0x61 <= b <= 0x7A) or (0x41 <= b <= 0x5A) or (0x30 <= b <= 0x39)
+        or b == 0x5F or b >= 0x80
+    )
+
+
+def _token_spans(text: bytes, min_len):
+    toks, i, n = [], 0, len(text)
+    while i < n:
+        while i < n and not _is_token_char(text[i]):
+            i += 1
+        s = i
+        while i < n and _is_token_char(text[i]):
+            i += 1
+        if i - s >= min_len:
+            toks.append(text[s:i])
+    return toks
+
+
+def _py_hash_doc(text, n_features, nlo, nhi, analyzer, lowercase):
+    if lowercase:
+        # ASCII-only lowering, as the C kernel does
+        text = bytes(
+            b + 32 if 0x41 <= b <= 0x5A else b for b in text.encode("utf-8")
+        )
+    else:
+        text = text.encode("utf-8")
+    hashes = []
+    if analyzer == 0:  # word: tokens of two bytes or more
+        toks = _token_spans(text, 2)
+        for n in range(nlo, nhi + 1):
+            if n > len(toks):
+                break
+            for t in range(len(toks) - n + 1):
+                gram = b" ".join(toks[t:t + n])
+                hashes.append(_fnv1a(gram) % n_features)
+    else:  # char_wb: every word, padded with a space each side
+        for w in _token_spans(text, 1):
+            padded = b" " + w + b" "
+            for n in range(nlo, nhi + 1):
+                if n > len(padded):
+                    break
+                for p in range(len(padded) - n + 1):
+                    hashes.append(_fnv1a(padded[p:p + n]) % n_features)
+    return hashes
+
+
+def _py_hash_docs(docs, n_features, nlo, nhi, analyzer, lowercase, binary):
+    indptr = [0]
+    indices, data = [], []
+    for doc in docs:
+        hashes = sorted(
+            _py_hash_doc(doc, n_features, nlo, nhi, analyzer, lowercase)
+        )
+        i = 0
+        while i < len(hashes):
+            j = i
+            while j < len(hashes) and hashes[j] == hashes[i]:
+                j += 1
+            indices.append(hashes[i])
+            data.append(1.0 if binary else float(j - i))
+            i = j
+        indptr.append(len(indices))
+    return (
+        np.asarray(indptr, dtype=np.int64),
+        np.asarray(indices, dtype=np.uint32),
+        np.asarray(data, dtype=np.float32),
+    )
+
+
+def hash_documents(docs, n_features=2**12, ngram_range=(1, 1),
+                   analyzer="word", lowercase=True, binary=False,
+                   force_python=False):
+    """Hash text documents into a scipy CSR ``(n_docs, n_features)``
+    float32 matrix of n-gram counts: word n-grams (tokens of two or more
+    ``[A-Za-z0-9_]`` or non-ASCII bytes, joined by one space) or
+    ``char_wb`` n-grams (each word padded with a space), FNV-1a hashed
+    modulo ``n_features``. The C kernel when it builds, else (or with
+    ``force_python``) the Python form, which gives the same matrix."""
+    from scipy import sparse
+
+    docs = [d if isinstance(d, str) else str(d) for d in docs]
+    nlo, nhi = ngram_range
+    a = {"word": 0, "char_wb": 1}[analyzer]
+    native = None if force_python else _load_ext("fasthash")
+    if native is not None:
+        bi, bidx, bdat = native.hash_docs(
+            docs, n_features, nlo, nhi, a, int(lowercase), int(binary)
+        )
+        indptr = np.frombuffer(bi, dtype=np.int64)
+        indices = np.frombuffer(bidx, dtype=np.uint32)
+        data = np.frombuffer(bdat, dtype=np.float32)
+    else:
+        indptr, indices, data = _py_hash_docs(
+            docs, n_features, nlo, nhi, a, lowercase, binary
+        )
+    return sparse.csr_matrix(
+        (data, indices.astype(np.int32), indptr),
+        shape=(len(docs), n_features),
+    )
+
+
+def native_available():
+    """Whether the text-hashing C kernel (``fasthash.c``) built."""
+    return _load_ext("fasthash") is not None
+
+
+# ---------------------------------------------------------------------------
+# signed MurmurHash3 (murmurhash.c): HashingVectorizer's hash
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl32(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def murmurhash3_32_py(data, seed=0):
+    """Signed 32-bit MurmurHash3 (x86) of ``data`` (bytes, or a str as
+    its UTF-8 bytes): scikit-learn's ``murmurhash3_32(data, seed,
+    positive=False)``, in Python. The form the C kernel is held to."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h1 = seed & _M32
+    n = len(data)
+    nblocks = n // 4
+    for i in range(nblocks):
+        k1 = int.from_bytes(data[4 * i:4 * i + 4], "little")
+        k1 = _rotl32((k1 * c1) & _M32, 15) * c2 & _M32
+        h1 = _rotl32(h1 ^ k1, 13)
+        h1 = (h1 * 5 + 0xE6546B64) & _M32
+    tail = data[4 * nblocks:]
+    if tail:
+        k1 = int.from_bytes(tail, "little")
+        k1 = _rotl32((k1 * c1) & _M32, 15) * c2 & _M32
+        h1 ^= k1
+    h1 ^= n
+    h1 ^= h1 >> 16
+    h1 = (h1 * 0x85EBCA6B) & _M32
+    h1 ^= h1 >> 13
+    h1 = (h1 * 0xC2B2AE35) & _M32
+    h1 ^= h1 >> 16
+    return h1 - (1 << 32) if h1 >= 1 << 31 else h1
+
+
+def murmurhash3_32_spans(buf, starts, lengths, seed=0):
+    """Signed MurmurHash3 of every span ``buf[starts[i]:starts[i] +
+    lengths[i]]`` of the bytes ``buf``, as an int32 array, through the C
+    kernel. Raises when the kernel did not build: the vectorizers do not
+    fall back to a Python loop over millions of n-grams quietly."""
+    mod = _load_ext("murmurhash")
+    if mod is None:
+        raise RuntimeError(
+            "the MurmurHash3 C kernel (skdist_tpu_torch/native/"
+            f"murmurhash.c) did not build: {_ERRORS.get('murmurhash')}")
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    out = np.empty(len(starts), dtype=np.int32)
+    mod.hash_spans(buf, starts, lengths, out, len(starts), int(seed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multithreaded CSR -> dense float32 (densify.c)
+# ---------------------------------------------------------------------------
+
+def csr_to_dense_f32(X, force_python=False, n_threads=None):
+    """Densify a scipy sparse matrix to a C-contiguous float32 array.
+
+    The host's boundary before a dense product on the card. The C kernel
+    partitions rows across threads (zero fill and scatter a block, GIL
+    released); the fallback (or ``force_python``) is scipy's
+    single-threaded ``toarray``. Duplicate entries accumulate in both,
+    as scipy's CSR does."""
+    csr = X.tocsr()
+    n_rows, n_cols = csr.shape
+    mod = None if force_python else _load_ext("densify", _FLAGS["densify"])
+    if mod is None or n_rows == 0 or n_cols == 0:
+        return np.ascontiguousarray(csr.toarray(), dtype=np.float32)
+    data = np.ascontiguousarray(csr.data, dtype=np.float32)
+    indices = np.ascontiguousarray(csr.indices)
+    if indices.dtype not in (np.int32, np.int64):
+        indices = indices.astype(np.int64)
+    indptr = np.ascontiguousarray(csr.indptr, dtype=np.int64)
+    out = np.empty((n_rows, n_cols), dtype=np.float32)
+    mod.csr_to_dense(
+        out, data, indices, indptr, n_rows, n_cols,
+        indices.dtype.itemsize,
+        int(default_threads() if n_threads is None else n_threads),
+    )
+    return out

@@ -8,14 +8,14 @@ Hard voting is one flattened ``bincount`` over ``row * n_classes +
 class`` indices, weighted by the members' weights, and ties go to the
 lowest class index. Soft voting averages the members' ``predict_proba``.
 Members given as ``None`` or ``"drop"`` leave both the vote and the
-weights. Labels go through a label encoding seeded with ``classes``,
-which raises on a label outside them, as scikit-learn's
-``LabelEncoder`` does.
+weights. Labels go through a ``LabelEncoder`` (``featurize/labels.py``)
+seeded with ``classes``, which raises on a label outside them.
 """
 
 import numpy as np
 
 from .base import BaseEstimator, ClassifierMixin
+from .featurize.labels import LabelEncoder
 from .utils.validation import check_is_fitted
 
 __all__ = ["SimpleVoter", "Bunch"]
@@ -35,38 +35,6 @@ class Bunch(dict):
 
     def __dir__(self):
         return list(self.keys())
-
-
-class _ClassEncoder:
-    """Labels to indices into ``classes_`` and back: scikit-learn's
-    ``LabelEncoder`` with its ``classes_`` set, written out (a lookup
-    table over object and string labels, a binary search over the
-    others)."""
-
-    def __init__(self, classes):
-        self.classes_ = np.asarray(classes)
-
-    def transform(self, y):
-        y = np.asarray(y)
-        if y.size == 0:
-            return np.array([], dtype=np.int64)
-        if y.dtype.kind in "OUS":
-            table = {c: i for i, c in enumerate(self.classes_.tolist())}
-            try:
-                return np.array([table[v] for v in y.tolist()],
-                                dtype=np.int64)
-            except KeyError as exc:
-                raise ValueError(
-                    f"y contains previously unseen labels: {[exc.args[0]]}"
-                ) from None
-        unseen = np.setdiff1d(y, self.classes_)
-        if unseen.size:
-            raise ValueError(
-                f"y contains previously unseen labels: {unseen.tolist()}")
-        return np.searchsorted(self.classes_, y)
-
-    def inverse_transform(self, idx):
-        return self.classes_[np.asarray(idx)]
 
 
 def _weighted_vote_matrix(encoded_preds, n_classes, weights):
@@ -146,7 +114,8 @@ class SimpleVoter(BaseEstimator, ClassifierMixin):
             est for _, est in self.estimators if not _dropped(est)
         )
         self.classes_ = np.asarray(self.classes)
-        self.le_ = _ClassEncoder(self.classes_)
+        self.le_ = LabelEncoder()
+        self.le_.classes_ = self.classes_
 
 
 def _dropped(est):

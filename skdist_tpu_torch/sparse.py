@@ -225,7 +225,11 @@ def pack_for_fit(X):
 
 def sparse_to_dense_f32(X):
     """Densify a scipy-sparse input to float32, refusing a size that
-    cannot fit host memory. A 1-D sparse input is a column vector."""
+    cannot fit host memory. A 1-D sparse input is a column vector. From
+    2**22 elements on, the multithreaded C densifier
+    (``native.csr_to_dense_f32``) fills it, as the JAX package's does;
+    its result equals scipy's ``toarray`` cast to float32 where no entry
+    is duplicated."""
     if len(X.shape) == 1:
         out = np.asarray(X.toarray(), dtype=np.float32)
         return np.ascontiguousarray(out.reshape(-1, 1))
@@ -238,6 +242,10 @@ def sparse_to_dense_f32(X):
             f"GB is available ({source}); fit it packed (force with "
             f"{SPARSE_FIT_ENV}=1) or raise the limit via {BUDGET_ENV}"
         )
+    if hasattr(X, "tocsr") and X.shape[0] * X.shape[1] >= (1 << 22):
+        from . import native
+
+        return native.csr_to_dense_f32(X)
     out = np.asarray(X.toarray())
     if out.ndim == 1:
         out = out.reshape(-1, 1)
