@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase-21
     python3 chip_smoke.py --phase-22
     python3 chip_smoke.py --phase-23
+    python3 chip_smoke.py --phase-24
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -431,6 +432,26 @@ result line:
     relative, ``|transform|`` within 1e-2 of its largest;
     ``FastHashingVectorizer`` (C) and the MurmurHash3 C kernel bitwise
     their Python forms on the first 200 documents.
+24. Out of core at the main path's width: the 20news-shaped hashed text
+    at a million rows (1048576 x 2**18, 40 nonzeros a row, 20 classes)
+    as a packed ``ChunkedDataset`` of 16 blocks of 65536 rows. (a) Saved
+    to a temporary directory and loaded memory-mapped: every loaded
+    block bitwise the in-memory one; one value-and-gradient pass of the
+    streamed LogisticRegression objective at a seeded W fed serially and
+    pipelined (pinned buffers and a copy stream), bitwise equal, with
+    each feed's ``feed_wait_s`` and the share of the feed hidden; K1 and
+    K2 once a block a pass. (b) ``LogisticRegression(C=1.0,
+    max_iter=50).fit(dataset)`` (a printed cut of 100) on the card
+    against the same fit resident on the same rows and a resident fit
+    with the weights one ulp off: streamed ``coef_`` within 10x what
+    that ulp moves the resident fit, predictions equal on at least
+    99.5% of rows (the ulp refit's share printed beside it), K1 and K2
+    launches exactly blocks x passes, ``streamed_bytes`` = passes x the
+    dataset's bytes, peak device memory under the solver's state plus
+    four blocks plus 64 MiB (the resident fit's beside it); walls and
+    passes printed. (c) Chunked ``batch_predict(model, dataset,
+    "predict_proba")`` bitwise the resident sparse path at
+    ``batch_size=65536``, K1 once a block; rows/s of both.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -448,8 +469,8 @@ runs must agree on epochs and ``best_score_``.
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
 the kernels and runs phases 17-19 alone, with no result line;
-``--phase-20``, ``--phase-21``, ``--phase-22`` and ``--phase-23`` do
-the same for phases 20, 21, 22 and 23.
+``--phase-20``, ``--phase-21``, ``--phase-22``, ``--phase-23`` and
+``--phase-24`` do the same for phases 20, 21, 22, 23 and 24.
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -5423,6 +5444,352 @@ def phase_featurize(torch):
     return launches
 
 
+#: phase 24's data (the main path's 20news-shaped hashed text, a million
+#: rows) and its blocks: 16 blocks of 65536 rows
+STREAM_N = 1_048_576
+STREAM_BLOCK = 65_536
+#: phase 24b's max_iter: 50 of the 100 the slice asks for, a printed
+#: cut that keeps the whole run near its target
+STREAM_ITERS = 50
+#: the streamed fit's peak device memory beyond the solver's state may be
+#: this many blocks plus STREAM_SLACK bytes
+STREAM_BLOCKS_HELD = 4
+STREAM_SLACK = 64 << 20
+
+
+def stream_pass_bitwise(torch, est, ds, y):
+    """Phase 24a's second gate: one value-and-gradient pass of the
+    streamed LogisticRegression objective at a fixed seeded W, fed
+    serially (``sync=True``) and pipelined, must be bitwise equal. Returns
+    the two feeds' stats and the passes' K1/K2 launches."""
+    from skdist_tpu_torch.models.linear import _freeze
+    from skdist_tpu_torch.models.streaming import (StreamedObjective,
+                                                   _make_block_read)
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    y_enc, sw, meta = est._prep_stream_fit(ds, y)
+    static = _freeze(est._static_config(meta))
+    hyper = {"C": np.ones(1, np.float32), "tol": np.full(1, 1e-4, np.float32)}
+    p, k = ds.n_features + 1, meta["n_classes"]
+    W = torch.as_tensor(0.01 * np.random.RandomState(5).standard_normal(
+        (1, p * k)).astype(np.float32), device="cuda")
+    rows = {"y": y_enc, "sw": sw}
+
+    def objective(sync):
+        return StreamedObjective(type(est), meta, static, ds, rows, hyper,
+                                 "cuda", sync=sync)
+
+    out, stats = {}, {}
+    ps.packed_matvec.launches = 0
+    ps.packed_rmatvec.launches = 0
+    for sync in (True, False):
+        with objective(sync) as obj:
+            (f, g), wall = timed_call(torch, lambda: obj.value_and_grad(W))
+        out[sync] = (f.cpu().numpy(), g.cpu().numpy())
+        stats[sync] = dict(obj.stats, wall=wall)
+    launches = {"packed_matvec": ps.packed_matvec.launches,
+                "packed_rmatvec": ps.packed_rmatvec.launches}
+    same = all(np.array_equal(a, b) for a, b in zip(out[True], out[False]))
+    ser, pip = stats[True], stats[False]
+    hidden = 1.0 - pip["feed_wait_s"] / ser["feed_wait_s"]
+    say(f"  one value-and-gradient pass at a seeded W: serial "
+        f"{ser['wall']:.3f}s (feed_wait_s {ser['feed_wait_s']:.3f}), "
+        f"pipelined {pip['wall']:.3f}s (feed_wait_s "
+        f"{pip['feed_wait_s']:.3f}, read_place_s {pip['read_place_s']:.3f});"
+        f" share of the feed hidden {hidden:.3f}; f and g "
+        + ("bitwise equal" if same else "DIFFER") + f"; launches {launches}")
+    if not same:
+        raise AssertionError("phase 24a: the serial and pipelined passes "
+                             "differ")
+    nb = ds.n_blocks
+    if launches != {"packed_matvec": 2 * nb, "packed_rmatvec": 2 * nb}:
+        raise AssertionError(f"phase 24a: two passes over {nb} blocks "
+                             f"launched {launches}")
+    stream_pass_plain(torch, objective, _make_block_read(ds, rows), nb, W,
+                      f, g, k)
+    return launches
+
+
+def stream_pass_plain(torch, objective, read, n_blocks, W, f, g, k):
+    """Phase 24a's third gate: the pass at ``W`` (``f``, ``g``: the
+    kernels' pipelined pass) held to the same pass with K1 and K2
+    replaced by their plain versions (``packed_matvec_ref``, whose
+    autograd is the scatter-add that K2 replaces), fed serially. It must
+    launch no kernel. Tolerance, summed block by block over the plain
+    pass's own blocks (``X~`` the block with its intercept column, ``u``
+    float32's unit roundoff): K1's bound of check_pair on each logit,
+    ``dz = 2 m u |X~| |W|``, moves a row's loss and each of its
+    softmax residuals ``r = sw (softmax(z) - onehot)`` by at most
+    ``2 sw max(dz)``; each gradient entry is a column sum of ``c``
+    products (c its entry count), two orders of which differ by at most
+    ``2 c u |X~|^T |r|``; the loss's sums over the block's ``n`` rows and
+    the block-order sums of both add at most ``2 n u`` and ``2 n_blocks
+    u`` times the sum of their (non-negative, or absolute) terms."""
+    import skdist_tpu_torch.sparse as tsp
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.parallel.backend import BlockFeeder
+
+    class PlainMatvec:
+        @staticmethod
+        def apply(Wk, idx, val, columns):
+            return ps.packed_matvec_ref(idx, val, Wk)
+
+    before = (ps.packed_matvec.launches, ps.packed_rmatvec.launches)
+    kernels = tsp.PackedMatvec
+    tsp.PackedMatvec = PlainMatvec
+    try:
+        with objective(True) as obj:
+            fp, gp = obj.value_and_grad(W)
+    finally:
+        tsp.PackedMatvec = kernels
+    if (ps.packed_matvec.launches, ps.packed_rmatvec.launches) != before:
+        raise AssertionError("phase 24a: the plain pass launched a kernel")
+    tol_f = torch.zeros((), dtype=torch.float64, device="cuda")
+    tol_g = torch.zeros_like(gp)
+    absg = torch.zeros_like(gp)
+    feeder = BlockFeeder(read, n_blocks, "cuda", sync=True)
+    p = W.shape[1] // k
+    W3 = W.reshape(1, p, k)
+    with torch.no_grad():
+        for _i, block in feeder:
+            op = tsp.LinearOperator(block["X"], True, sort_columns=False)
+            idx, val = op.pidx, op.pval
+            m, n = idx.shape[1], idx.shape[0]
+            sw = block["sw"]
+            z = ps.packed_matvec_ref(idx, val, W3)[0]
+            dz = (2 * m * U32 * ps.packed_matvec_ref(
+                idx, val.abs(), W3.abs())[0]).amax(1)
+            onehot = torch.nn.functional.one_hot(block["y"].long(), k)
+            loss = sw * (torch.logsumexp(z, 1) - (onehot * z).sum(1))
+            r = sw[:, None] * (torch.softmax(z, 1) - onehot)
+            cols = ps.build_columns(idx, val, p)
+            counts = (cols.col_ptr[1:] - cols.col_ptr[:-1]).to(torch.float32)
+            a = ps.packed_rmatvec_ref(idx, val.abs(), r.abs()[None], p)
+            tol_f += float((2 * sw * dz).sum() + 2 * n * U32 * loss.sum())
+            moved = (2 * sw * dz)[None, :, None].expand(1, n, k)
+            tol_g += (2 * counts[None, :, None] * U32 * a
+                      + ps.packed_rmatvec_ref(idx, val.abs(),
+                                              moved.contiguous(), p)
+                      ).reshape(gp.shape)
+            absg += a.reshape(gp.shape)
+    tol_f += 2 * n_blocks * U32 * float(fp.abs().sum())
+    tol_g += 2 * n_blocks * U32 * absg
+    err_f = float((f - fp).abs().max())
+    err_g = (g - gp).abs()
+    ratio = float((err_g / tol_g.clamp_min(1e-30)).max())
+    say(f"  the pass against its plain version (no kernel launched): |df| "
+        f"{err_f:.3e} (tolerance {float(tol_f):.3e}, |f| "
+        f"{float(fp.abs().max()):.6e}), max|dg| {float(err_g.max()):.3e} "
+        f"(max|g| {float(gp.abs().max()):.3e}; at most {ratio:.3f} of its "
+        "tolerance)")
+    if not (err_f <= float(tol_f) and bool((err_g <= tol_g).all())):
+        raise AssertionError("phase 24a: the kernels' pass disagrees with "
+                             "its plain version")
+
+
+def stream_block_kernels(torch, ds):
+    """Phase 24a's first kernel gate: block 0 as the pinned feeder puts it
+    on the card, with the intercept column the streamed operator appends
+    (m = 40 + 1, p = 2**18 + 1), through check_pair: K1, K2 and the
+    PackedMatvec gradient against their plain versions at T=1, k=20, the
+    streamed fit's shape, with check_pair's tolerance."""
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.parallel.backend import BlockFeeder
+    from skdist_tpu_torch.sparse import LinearOperator
+
+    with BlockFeeder(lambda i: {"X": ds.read_block(i).X}, 1, "cuda") as fd:
+        _i, block = fd.next()
+        op = LinearOperator(block["X"], True, sort_columns=False)
+        check_pair(torch, ps, op.pidx, op.pval, op.p, T=1, k=20, seed=24,
+                   label="a streamed block (24a)")
+
+
+def phase_stream_data(torch, X, y, tmp):
+    """Phase 24a: the dataset in memory, saved, loaded memory-mapped; the
+    loaded blocks bitwise the in-memory ones; one pass serial and
+    pipelined. Returns the loaded dataset and the pass's launches."""
+    from skdist_tpu_torch import ChunkedDataset, LogisticRegression
+
+    ds = ChunkedDataset.from_arrays(X, y, block_rows=STREAM_BLOCK, pack=True)
+    _, t_save = timed_call(torch, lambda: ds.save(tmp))
+    ld = ChunkedDataset.load(tmp)
+    say(f"phase 24a: ChunkedDataset {ds.n_blocks} blocks x "
+        f"{ds.block_rows} rows, m={ds.packed_m}, {ds.block_nbytes / 2**20:.1f}"
+        f" MiB a block, {ds.nbytes_estimate / 2**20:.0f} MiB of idx+val; "
+        f"save {t_save:.2f}s")
+    t0 = time.perf_counter()
+    for i in range(ds.n_blocks):
+        a, b = ds.read_block(i), ld.read_block(i)
+        if not (np.array_equal(a.X.idx, b.X.idx)
+                and np.array_equal(a.X.val, b.X.val)
+                and np.array_equal(a.y, b.y) and np.array_equal(a.sw, b.sw)
+                and (a.start, a.n_real) == (b.start, b.n_real)):
+            raise AssertionError(f"phase 24a: loaded block {i} differs")
+    say(f"  loaded blocks bitwise the in-memory ones "
+        f"({time.perf_counter() - t0:.1f}s to read both)")
+    stream_block_kernels(torch, ld)
+    launches = stream_pass_bitwise(torch, LogisticRegression(C=1.0), ld, y)
+    return ld, launches
+
+
+def stream_fit(torch, fit, label):
+    """``(model, wall, peak bytes above the start, K1/K2 launches)`` of
+    ``fit()`` on the card."""
+    from skdist_tpu_torch.ops import packed_sparse as ps
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ps.packed_matvec.launches = 0
+    ps.packed_rmatvec.launches = 0
+    model, wall = timed_call(torch, fit)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"packed_matvec": ps.packed_matvec.launches,
+                "packed_rmatvec": ps.packed_rmatvec.launches}
+    say(f"  {label}: wall {wall:.2f}s, n_iter {int(np.max(model.n_iter_))}, peak "
+        f"device memory {peak / 2**20:.0f} MiB above the start, launches "
+        f"{launches}")
+    return model, wall, peak, launches
+
+
+def phase_stream_fit(torch, X, y, ld):
+    """Phase 24b: LogisticRegression fitted streamed over the loaded
+    dataset, resident on the same rows, and resident with the weights one
+    ulp off (the card's own noise). Returns the streamed fit and its
+    launches."""
+    from skdist_tpu_torch import LogisticRegression
+    from skdist_tpu_torch.models.linear import _freeze
+
+    n = X.shape[0]
+    kw = dict(C=1.0, max_iter=STREAM_ITERS)
+    say(f"phase 24b: LogisticRegression({kw}) streamed over the loaded "
+        "dataset, resident on the same rows, resident with weights one ulp "
+        "off")
+    say(f"CUT: phase 24b fits max_iter={STREAM_ITERS} (of 100), so that the "
+        "whole run stays near its time target")
+    ms, wall_s, peak_s, launches = stream_fit(
+        torch, lambda: LogisticRegression(**kw).fit(ld), "streamed")
+    st = ms.stream_stats_
+    say(f"    passes {st['passes']} ({st['grad_passes']} value-and-gradient,"
+        f" {st['value_passes']} value), streamed_bytes {st['streamed_bytes']}"
+        f", feed_wait_s {st['feed_wait_s']:.2f}, read_place_s "
+        f"{st['read_place_s']:.2f}, dispatch_s {st['dispatch_s']:.2f}")
+    mr, wall_r, peak_r, _ = stream_fit(
+        torch, lambda: LogisticRegression(**kw).fit(X, y), "resident")
+    mu, _, _, _ = stream_fit(
+        torch, lambda: LogisticRegression(**kw).fit(
+            X, y, sample_weight=ulp_weights(n, 7)), "resident, weights ulp off")
+    nb = ld.n_blocks
+    want = {"packed_matvec": nb * st["passes"],
+            "packed_rmatvec": nb * st["grad_passes"]}
+    if launches != want:
+        raise AssertionError(f"phase 24b: launches {launches}, blocks x "
+                             f"passes {want}")
+    m = ld.packed_m
+    pass_bytes = nb * ld.block_rows * (8 * m + 4 + 4)  # idx, val, y, sw
+    if st["streamed_bytes"] != st["passes"] * pass_bytes:
+        raise AssertionError(
+            f"phase 24b: streamed_bytes {st['streamed_bytes']} is not "
+            f"{st['passes']} passes x {pass_bytes} bytes")
+    y_enc, _sw, meta = ms._prep_stream_fit(ld, y)
+    state = LogisticRegression._batched_task_bytes(
+        meta, _freeze(ms._static_config(meta)), 0)
+    room = state + STREAM_BLOCKS_HELD * ld.block_nbytes + STREAM_SLACK
+    say(f"    peak {peak_s / 2**20:.0f} MiB streamed against "
+        f"{peak_r / 2**20:.0f} MiB resident; the gate: the solver's state "
+        f"{state / 2**20:.0f} MiB + {STREAM_BLOCKS_HELD} blocks + "
+        f"{STREAM_SLACK >> 20} MiB = {room / 2**20:.0f} MiB")
+    if peak_s > room:
+        raise AssertionError("phase 24b: the streamed fit's peak device "
+                             "memory is over the solver's state + 4 blocks "
+                             "+ 64 MiB")
+    cs, cr, cu = ms.coef_, mr.coef_, mu.coef_
+    gap = float(np.abs(cs - cr).max())
+    ulp = float(np.abs(cr - cu).max())
+    scale = float(np.abs(cr).max())
+    pred_s, pred_r = ms.predict(X), mr.predict(X)
+    agree = float(np.mean(pred_s == pred_r))
+    agree_ulp = float(np.mean(mu.predict(X) == pred_r))
+    say(f"    n_iter streamed {int(np.max(ms.n_iter_))}, resident "
+        f"{int(np.max(mr.n_iter_))}; max|coef| {scale:.3e}, streamed vs resident "
+        f"max|dcoef| {gap:.3e}, resident vs its ulp-weighted refit {ulp:.3e};"
+        f" predictions equal on {agree:.5f} of rows (the ulp refit's on "
+        f"{agree_ulp:.5f}); walls streamed {wall_s:.2f}s, resident "
+        f"{wall_r:.2f}s")
+    if not np.all(np.isfinite(cs)):
+        raise AssertionError("phase 24b: non-finite streamed coef_")
+    if not gap <= 10 * ulp + 1e-6 * scale:
+        raise AssertionError("phase 24b: the streamed coef_ is over 10x what "
+                             "one ulp of weight noise moves the resident fit")
+    # holds at 50 iterations; at 100 the float32 loss sum's rounding
+    # decides line-search steps, and one ulp of weight noise alone then
+    # changes 8.2% of the resident fit's classes (the ulp refit's share
+    # is printed above)
+    if agree < 0.995:
+        raise AssertionError("phase 24b: streamed and resident predictions "
+                             "agree on under 99.5% of rows")
+    # the coef_ rule for classes: the streamed fit may change at most 10x
+    # the rows that one ulp of weight noise changes (at least one row)
+    if not 1.0 - agree <= 10 * max(1.0 - agree_ulp, 1.0 / n):
+        raise AssertionError("phase 24b: streamed and resident predictions "
+                             "differ on over 10x the rows that one ulp of "
+                             "weight noise changes")
+    return ms, launches
+
+
+def phase_stream_predict(torch, model, X, ld):
+    """Phase 24c: chunked ``batch_predict`` over the loaded dataset
+    bitwise the resident sparse path at ``batch_size`` = the block rows,
+    K1 launched once a block. Returns its K1 launches."""
+    from skdist_tpu_torch import batch_predict
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.parallel import LocalBackend
+
+    backend = LocalBackend()
+    ps.packed_matvec.launches = 0
+    out, wall = timed_call(torch, lambda: batch_predict(
+        model, ld, "predict_proba", backend=backend))
+    launches = ps.packed_matvec.launches
+    st = backend.last_round_stats
+    ref, wall_r = timed_call(torch, lambda: batch_predict(
+        model, X, "predict_proba", backend=backend, batch_size=STREAM_BLOCK))
+    n = X.shape[0]
+    same = np.array_equal(out, ref)
+    say(f"phase 24c: chunked batch_predict(predict_proba) {n / wall:.0f} "
+        f"rows/s ({wall:.2f}s, feed_wait_s {st['feed_wait_s']:.2f}), "
+        f"resident at batch_size={STREAM_BLOCK} {n / wall_r:.0f} rows/s; "
+        f"K1 launches {launches}; " + ("bitwise equal" if same else "DIFFER"))
+    if not same or out.shape != (n, 20):
+        raise AssertionError("phase 24c: chunked predict is not bitwise the "
+                             "resident sparse path")
+    if launches != ld.n_blocks:
+        raise AssertionError(f"phase 24c: K1 launched {launches} times for "
+                             f"{ld.n_blocks} blocks")
+    return launches
+
+
+def phase_streaming(torch):
+    """Phase 24 (``--phase-24`` runs only it): returns the K1/K2 launches
+    of 24a's passes, 24b's fit and 24c's predict."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    X, y = make_20news_sparse(seed=3, n=STREAM_N, d=2 ** 18, nnz_row=40,
+                              k=20)
+    say(f"phase 24: data 20news-shaped CSR {X.shape}, nnz {X.nnz}, "
+        f"{time.perf_counter() - t0:.1f}s to make")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        ld, pass_launches = phase_stream_data(torch, X, y, tmp)
+        model, fit_launches = phase_stream_fit(torch, X, y, ld)
+        torch.cuda.empty_cache()
+        predict_launches = phase_stream_predict(torch, model, X, ld)
+        del ld
+    say(f"phase 24 seconds: {time.perf_counter() - t0:.1f}")
+    return {"pass": pass_launches, "fit": fit_launches,
+            "predict": predict_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--candidates", type=int, default=96,
@@ -5455,6 +5822,10 @@ def main():
     ap.add_argument("--phase-23", action="store_true",
                     help="build the kernels and run only phase 23 (no "
                     "result line): a short check of featurisation")
+    ap.add_argument("--phase-24", action="store_true",
+                    help="build the kernels and run only phase 24 (no "
+                    "result line): a short check of the out-of-core data "
+                    "plane, the streamed fit and chunked predict")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -5523,6 +5894,10 @@ def main():
         return 0
     if args.phase_23:
         phase_featurize(torch)
+        say(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+    if args.phase_24:
+        phase_streaming(torch)
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -5804,6 +6179,10 @@ def main():
     torch.cuda.empty_cache()
     enc_launches = phase_featurize(torch)
 
+    # ---- phase 24: out of core: the data plane, streamed fit, predict ---
+    torch.cuda.empty_cache()
+    stream_launches = phase_streaming(torch)
+
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
     kernels = [
@@ -5819,7 +6198,10 @@ def main():
                    "multimodel": mm_launches["packed_matvec"],
                    "warm_refit": warm_launches["packed_matvec"],
                    **{f"encoder_{size}": v["packed_matvec"]
-                      for size, v in enc_launches.items()}}},
+                      for size, v in enc_launches.items()},
+                   "streamed_pass": stream_launches["pass"]["packed_matvec"],
+                   "streamed_fit": stream_launches["fit"]["packed_matvec"],
+                   "chunked_predict": stream_launches["predict"]}},
         {"name": "packed_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": launches["packed_rmatvec"],
@@ -5831,7 +6213,9 @@ def main():
                    "multimodel": mm_launches["packed_rmatvec"],
                    "warm_refit": warm_launches["packed_rmatvec"],
                    **{f"encoder_{size}": v["packed_rmatvec"]
-                      for size, v in enc_launches.items()}}},
+                      for size, v in enc_launches.items()},
+                   "streamed_pass": stream_launches["pass"]["packed_rmatvec"],
+                   "streamed_fit": stream_launches["fit"]["packed_rmatvec"]}},
         {"name": "packed_weighted_gram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/packed_gram.cu",
          "replaces": "skdist_tpu/ops/pallas_sparse.py:263",

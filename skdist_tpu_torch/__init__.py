@@ -40,7 +40,12 @@ grid as batched lanes with a column mask each) and ``SimpleVoter``;
 featurisation (``Encoderizer`` with its default encoders,
 ``preprocessing``, and the port's own copies of the scikit-learn
 transformers they use, under ``featurize/``; ``TruncatedSVDTransformer``
-runs its dense products on the card). The
+runs its dense products on the card); out-of-core data
+(``ChunkedDataset``: row blocks behind lazy readers, saved and loaded in
+the JAX package's on-disk format), streamed to the card through pinned
+buffers and a copy stream, for ``LogisticRegression``/``LinearSVC``
+``.fit(dataset)`` (streamed L-BFGS passes through the packed kernels),
+chunked ``batch_predict`` and ``Encoderizer.transform(dataset)``. The
 searches' convergence-compacted path
 (iteration-sliced L-BFGS and epoch-sliced SGD; on by default,
 ``SKDIST_COMPACTION=0`` switches it off) and adaptive successive
@@ -74,6 +79,8 @@ _EXPORTS = {
     **{name: "skdist_tpu_torch.distribute.encoder" for name in (
         "Encoderizer", "EncoderizerExtractor")},
     "TruncatedSVDTransformer": "skdist_tpu_torch.preprocessing",
+    **{name: "skdist_tpu_torch.data" for name in (
+        "ChunkedDataset", "NonSeekableReaderError")},
     "SimpleVoter": "skdist_tpu_torch.postprocessing",
     **{name: "skdist_tpu_torch.distribute.ensemble" for name in (
         "DistRandomForestClassifier", "DistRandomForestRegressor",

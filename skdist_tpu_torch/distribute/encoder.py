@@ -11,7 +11,8 @@ one host task (``backend.run_tasks`` over a host ``LocalBackend`` by
 default), records each one's output width, maps a feature index to the
 step that made it, and can ``extract`` a fitted slice of itself. The
 work is host numpy/scipy, as in the JAX package; the card's part starts
-at the matrix it returns (CSR when any step is sparse).
+at the matrix it returns (CSR when any step is sparse). ``transform`` of
+a ``ChunkedDataset`` is a lazy dataset of encoded blocks.
 """
 
 import ast
@@ -21,6 +22,7 @@ import numpy as np
 from scipy import sparse
 
 from ..base import BaseEstimator, TransformerMixin, clone, strip_runtime
+from ..data import is_chunked
 from ..parallel import LocalBackend, resolve_backend
 from ..utils.frame import as_frame
 from ..utils.validation import check_is_fitted
@@ -90,11 +92,8 @@ class Encoderizer(BaseEstimator, TransformerMixin):
 
     def transform(self, X):
         check_is_fitted(self, "transformer_lengths")
-        if type(X).__name__ == "ChunkedDataset":
-            raise NotImplementedError(
-                "Encoderizer.transform over a ChunkedDataset (the streamed "
-                "encode) is not ported to skdist_tpu_torch yet (see "
-                "ROADMAP.md, queue 1 item 9)")
+        if is_chunked(X):
+            return self._transform_chunked(X)
         X = self._process_input(X, fit=False)
         weights = self.transformer_weights or {}
         Xs = []
@@ -109,6 +108,26 @@ class Encoderizer(BaseEstimator, TransformerMixin):
         if any(sparse.issparse(f) for f in Xs):
             return sparse.hstack(Xs).tocsr()
         return np.hstack([np.asarray(f) for f in Xs])
+
+    def _transform_chunked(self, dataset):
+        """A ChunkedDataset's pass-through: a lazy dataset whose readers
+        run this fitted encoder over each raw block at read time, so the
+        encode never materialises the whole input. Encoded blocks are
+        dense float32 (a sparse step's output is densified a block at a
+        time); y and sample weights ride through untouched."""
+        fields = list(self.fields_)
+        out_width = int(np.sum(self.transformer_lengths))
+
+        def encode(block, start, stop):
+            raw = block["X"]
+            if hasattr(raw, "toarray"):
+                raw = raw.toarray()
+            enc = self.transform(as_frame(np.asarray(raw), fields))
+            if sparse.issparse(enc):
+                enc = enc.toarray()
+            return {"X": np.ascontiguousarray(enc, dtype=np.float32)}
+
+        return dataset.map_blocks(encode, n_features=out_width)
 
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y).transform(X)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..base import BaseEstimator, ClassifierMixin, clone, strip_runtime
+from ..data import is_chunked
 from ..featurize.labels import MultiLabelBinarizer
 from ..featurize.scale import normalize
 from ..parallel import (
@@ -112,6 +113,16 @@ def _warn_nonfinite_lanes(stacked, describe, what):
         "will be unreliable. Check hyperparameters / data scaling.",
         FitFailedWarning,
     )
+
+
+def _refuse_chunked(X, what):
+    """The streamed one-vs-rest and one-vs-one fits over a ChunkedDataset
+    are not ported yet."""
+    if is_chunked(X):
+        raise NotImplementedError(
+            f"{what}.fit over a ChunkedDataset (the streamed class-lane "
+            "fit) is not ported to skdist_tpu_torch yet (see ROADMAP.md, "
+            "queue 1 item 9b)")
 
 
 class _ConstantPredictor(BaseEstimator):
@@ -471,6 +482,7 @@ class DistOneVsRestClassifier(BaseEstimator, ClassifierMixin):
 
     def fit(self, X, y=None, **fit_params):
         check_estimator_backend(self, self.verbose)
+        _refuse_chunked(X, type(self).__name__)
         if self.method not in ("ratio", "multiplier"):
             raise ValueError(
                 "Unknown method. Options are 'ratio' or 'multiplier'.")
@@ -687,6 +699,7 @@ class DistOneVsOneClassifier(BaseEstimator, ClassifierMixin):
 
     def fit(self, X, y=None, **fit_params):
         check_estimator_backend(self, self.verbose)
+        _refuse_chunked(X, type(self).__name__)
         if y is None:
             raise ValueError("y is required")
         y = np.asarray(y)

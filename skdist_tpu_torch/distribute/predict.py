@@ -2,8 +2,7 @@
 Batch prediction of the port: :func:`batch_predict`,
 :func:`get_prediction_udf` and :func:`device_predict_plan`.
 
-Counterpart of ``skdist_tpu/distribute/predict.py`` (all but its chunked
-path, which waits for ``ChunkedDataset``):
+Counterpart of ``skdist_tpu/distribute/predict.py``:
 
 - :func:`device_predict_plan` is the one construction of a fitted port
   estimator's block-inference program: its decision or proba kernel, the
@@ -21,6 +20,11 @@ path, which waits for ``ChunkedDataset``):
   that takes dense blocks gets each packed block rebuilt on the device.
   Models without a plan are cut into ``batch_size`` chunks of their own
   method, fanned out by ``backend.run_tasks``.
+- a :class:`~skdist_tpu_torch.data.ChunkedDataset` streams: its blocks
+  come through the block feeder (pinned host buffers and a copy stream on
+  the card) into the same plan's kernel, K1 for a linear model over
+  packed blocks, and only the outputs gather on the host; a model without
+  a plan takes a serial host loop over the blocks.
 - :func:`get_prediction_udf` wraps either path as a columnar function in
   the JAX package's three layouts ('numpy', 'pandas', 'text'). The port
   returns numpy, not ``pandas.Series`` (the card's machine has no
@@ -35,8 +39,10 @@ for ``serve/quantize.py`` (ROADMAP Queue 1 item 12).
 import numpy as np
 import torch
 
+from ..data import is_chunked, packed_block_dense
 from ..models.linear import _freeze, as_dense_f32
 from ..parallel import LocalBackend, resolve_backend
+from ..parallel.backend import BlockFeeder
 from ..sparse import (
     PackedX,
     is_sparse_2d,
@@ -134,11 +140,14 @@ def batch_predict(model, X, method="predict", backend=None, batch_size=None,
     :func:`device_predict_plan` on the backend's device, or, for a model
     without one, in host chunks fanned out by ``backend.run_tasks``.
     ``_plan`` lets a long-lived caller (the prediction UDF) pass a plan
-    built once."""
+    built once. A ChunkedDataset ``X`` streams block by block
+    (:func:`_batch_predict_chunked`; ``batch_size`` is its block size)."""
     fn = getattr(model, method)  # a model without the method raises here
     backend = _resolve_predict_backend(backend, model)
     if _plan is None:
         _plan = device_predict_plan(model, method)
+    if is_chunked(X):
+        return _batch_predict_chunked(model, X, method, backend, _plan)
     n = num_samples(X)
     if batch_size is None:
         batch_size = _default_batch_size(n, backend, _plan)
@@ -258,6 +267,56 @@ def _predict_sparse(X, backend, batch_size, plan):
         return packed_to_dense(packed.idx, packed.val, d)
 
     return _run_blocks(plan, backend, n, batch_size, to_device)
+
+
+def _batch_predict_chunked(model, dataset, method, backend, plan):
+    """Stream a ChunkedDataset through the plan's kernel: the blocks
+    (padded to one shape) come through the :class:`BlockFeeder` one ahead
+    of their launch, each block runs the kernel the resident path runs on
+    a block of that shape (K1 for a linear model over packed blocks, which
+    computes each row alone), so the rows equal the resident path's at a
+    ``batch_size`` of the dataset's ``block_rows``; a block's output is
+    read back while the next block runs, and only the outputs gather on
+    the host. A model without a plan takes a serial loop over the blocks
+    through its own ``method``: bounded host memory, no device kernel.
+    The feed's stats are ``backend.last_round_stats``."""
+    if plan is None:
+        fn = getattr(model, method)
+        outs = []
+        for i in range(dataset.n_blocks):
+            b = dataset.read_block(i, pad=False)
+            Xb = b.X
+            if isinstance(Xb, PackedX):  # scipy CSR for a host model
+                from scipy import sparse as sp
+
+                Xb = sp.csr_matrix(packed_block_dense(Xb, b.n_real))
+            outs.append(np.asarray(fn(Xb)))
+        return np.concatenate(outs, axis=0)
+    d = dataset.n_features
+    if d != plan.n_features:
+        raise ValueError(f"the dataset has {d} features; the model was "
+                         f"fitted on {plan.n_features}")
+    stats = backend.last_round_stats = {"mode": "streamed_predict",
+                                        "tasks": dataset.n_blocks}
+    feeder = BlockFeeder(lambda i: {"X": dataset.read_block(i, pad=True).X},
+                         dataset.n_blocks, backend.device, stats=stats)
+    params = backend.place(plan.params)
+    outs, pending = [], None
+    with exact_matmuls(), torch.no_grad():
+        try:
+            for i, block in feeder:
+                X = block["X"]
+                if isinstance(X, PackedX) and not plan.packed:
+                    X = packed_to_dense(X.idx, X.val, d)
+                start, stop = dataset.block_range(i)
+                out = plan.kernel(params, X)[: stop - start]
+                if pending is not None:
+                    outs.append(pending.cpu().numpy())
+                pending = out
+        finally:
+            feeder.close()
+    outs.append(pending.cpu().numpy())
+    return plan.postprocess(np.concatenate(outs, axis=0))
 
 
 def _postprocess_predict(model, out, method):

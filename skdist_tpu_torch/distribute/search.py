@@ -72,6 +72,7 @@ from numpy.ma import MaskedArray
 from scipy.stats import rankdata
 
 from ..base import BaseEstimator, clone, strip_runtime
+from ..data import is_chunked
 from ..metrics import (
     BINARY_ONLY_SCORERS,
     DEVICE_SCORERS,
@@ -122,6 +123,13 @@ def _not_ported(what, where=_ROADMAP):
     return NotImplementedError(
         f"{what} is not ported to skdist_tpu_torch yet ({where})"
     )
+
+
+def _refuse_chunked(X):
+    """The streamed search over a ChunkedDataset is not ported yet."""
+    if is_chunked(X):
+        raise _not_ported("a search over a ChunkedDataset (the streamed "
+                          "search)", "see ROADMAP.md, queue 1 item 9b")
 
 
 def _fit_and_score(estimator, X, y, scorers, train, test, parameters,
@@ -451,6 +459,7 @@ class DistBaseSearchCV(BaseEstimator):
         :func:`~skdist_tpu_torch.parallel.resolve_backend`."""
         check_error_score(self.error_score)
         check_adaptive(self.adaptive)
+        _refuse_chunked(X)
         if checkpoint_dir is not None:
             raise _not_ported(
                 "checkpoint_dir (search checkpointing)",
@@ -1065,6 +1074,7 @@ class DistMultiModelSearch(BaseEstimator):
 
     def fit(self, X, y=None, groups=None, **fit_params):
         check_adaptive(self.adaptive)
+        _refuse_chunked(X)
         models = _validate_models(self.models)
         if self.backend is None:
             backend = CUDABackend(device=getattr(models[0][1], "device", None),

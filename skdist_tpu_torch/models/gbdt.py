@@ -34,7 +34,7 @@ feature is a candidate, thresholds are not random), so their seeds,
 the estimator's ``random_state``, change no tree.
 
 Not ported yet (ROADMAP): the streamed fit over a ``ChunkedDataset``
-(Queue 1 item 9) and the quantized serving tiers (item 12).
+(Queue 1 item 9c) and the quantized serving tiers (item 12).
 """
 
 import numpy as np
@@ -102,7 +102,7 @@ def _refuse_chunked(X, what):
         raise NotImplementedError(
             f"{what} over a ChunkedDataset (the streamed boosting fit) is "
             "not ported to skdist_tpu_torch yet (see ROADMAP.md, queue 1 "
-            "item 9)"
+            "item 9c)"
         )
 
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import BaseEstimator, ClassifierMixin, RegressorMixin
+from ..data import is_chunked
 from ..sparse import (
     LinearOperator,
     MaskedLinearOperator,
@@ -222,7 +223,13 @@ class _LinearModelBase(BaseEstimator):
     _static_names = ()
     _supports_packed_X = True
 
-    def fit(self, X, y, sample_weight=None, coef_init=None,
+    #: the family's streamed fit over a ``ChunkedDataset``
+    #: (:mod:`~skdist_tpu_torch.models.streaming`): ``"lbfgs"``
+    #: (block-accumulated loss and gradient passes), ``"sgd"`` and
+    #: ``"gram"`` (ROADMAP Queue 1 item 9b, not ported yet), or None
+    _stream_fit_kind = None
+
+    def fit(self, X, y=None, sample_weight=None, coef_init=None,
             intercept_init=None):
         """Fit on ``device`` (the card unless ``device="cpu"``), or on the
         f64 host engine where :meth:`_resolve_host_engine` picks it.
@@ -236,8 +243,23 @@ class _LinearModelBase(BaseEstimator):
 
         Packed sparse X stays on the device path under ``engine='auto'``
         (the host engine has no packed form); an explicit
-        ``engine='host'`` densifies it."""
+        ``engine='host'`` densifies it.
+
+        A :class:`~skdist_tpu_torch.data.ChunkedDataset` ``X`` is fitted
+        out of core (:func:`~skdist_tpu_torch.models.streaming.
+        stream_fit_estimator`, the ``"lbfgs"`` kind only), its labels and
+        weights read from the dataset unless given."""
         self._check_supported()
+        if is_chunked(X):
+            from .streaming import stream_fit_estimator
+
+            return stream_fit_estimator(self, X, y, sample_weight,
+                                        coef_init=coef_init,
+                                        intercept_init=intercept_init)
+        if y is None:
+            raise TypeError(
+                f"{type(self).__name__}.fit requires y (only a "
+                "ChunkedDataset carries its own labels)")
         if getattr(self, "engine", None) == "host":
             X = as_dense_f32(X)
         else:
@@ -495,7 +517,20 @@ class _LinearModelBase(BaseEstimator):
         return np.array(self._params["W"], dtype=np.float32)
 
     def decision_function(self, X):
+        if is_chunked(X):
+            raise TypeError(
+                "decision_function does not take a ChunkedDataset; use "
+                "skdist_tpu_torch.batch_predict(model, dataset) (or "
+                "predict/predict_proba, which route there) to stream "
+                "inference block by block")
         return self._device_outputs(X, "decision")
+
+    def _predict_chunked(self, dataset, method):
+        """``method`` over a ChunkedDataset, block by block
+        (:func:`~skdist_tpu_torch.distribute.predict.batch_predict`)."""
+        from ..distribute.predict import batch_predict
+
+        return batch_predict(self, dataset, method=method)
 
     @classmethod
     def _batched_round_bytes(cls, meta, static, n):
@@ -534,6 +569,39 @@ class _LinearModelBase(BaseEstimator):
 
 
 class _LinearClassifierBase(_LinearModelBase, ClassifierMixin):
+    def _prep_stream_fit(self, dataset, y, sample_weight=None):
+        """The streamed fit's host prep: labels encoded once over the
+        whole dataset (a block that lacks a class still builds the whole
+        problem), weights and ``meta`` from O(n) vectors and the
+        dataset's shape, no X read. Returns ``(y_idx (n,), sw (n,),
+        meta)``."""
+        if y is None:
+            raise ValueError(
+                f"{type(self).__name__} needs labels: the ChunkedDataset "
+                "carries none and no y was passed")
+        y_idx, classes = encode_labels(y)
+        if y_idx.shape[0] != dataset.n_rows:
+            raise ValueError(
+                f"y has {y_idx.shape[0]} labels; the dataset has "
+                f"{dataset.n_rows} rows")
+        sw = prepare_sample_weight(sample_weight, dataset.n_rows)
+        if getattr(self, "class_weight", None) == "balanced":
+            raise ValueError(
+                "class_weight='balanced' needs a global pass over the "
+                "masked weights and is not supported on the streamed fit "
+                "path yet; pass an explicit class_weight dict")
+        meta = {
+            "n_features": dataset.n_features,
+            "classes": classes,
+            "n_classes": len(classes),
+            "cw_arr": class_weight_vector(
+                getattr(self, "class_weight", None), classes),
+            "x_format": dataset.x_format,
+        }
+        if dataset.x_format == "packed":
+            meta["packed_m"] = dataset.packed_m
+        return y_idx, sw, meta
+
     def _prep_fit_data(self, X, y, sample_weight=None):
         y_idx, classes = encode_labels(y)
         sw = prepare_sample_weight(sample_weight, X.shape[0])
@@ -557,6 +625,8 @@ class _LinearClassifierBase(_LinearModelBase, ClassifierMixin):
                                 meta["n_classes"] <= 2)
 
     def predict(self, X):
+        if is_chunked(X):
+            return self._predict_chunked(X, "predict")
         scores = self.decision_function(X)
         if scores.ndim == 1:
             idx = (scores > 0).astype(np.int64)
@@ -580,6 +650,10 @@ class _LbfgsFitMixin:
 
     #: the scheduler gates' marker (``parallel.iterative_fit_supported``)
     _supports_sliced_fit = True
+
+    #: out of core: block-accumulated loss and gradient passes through
+    #: the resident solver's L-BFGS step (``models/streaming.py``)
+    _stream_fit_kind = "lbfgs"
 
     @classmethod
     def _batched_task_cost(cls, hyper):
@@ -687,6 +761,8 @@ class _ProbaMixin:
         return proba
 
     def predict_proba(self, X):
+        if is_chunked(X):
+            return self._predict_chunked(X, "predict_proba")
         return self._device_outputs(X, "proba")
 
     def predict_log_proba(self, X):
@@ -799,7 +875,11 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
         unpenalized = st.get("penalty", "l2") in (None, "none")
         d = meta["n_features"]
 
-        def problem(op, y_idx, sw, hyper):
+        def problem(op, y_idx, sw, hyper, parts=False):
+            # ``parts=True`` adds the data term and the regulariser as
+            # closures of their own: the streamed fit sums the data term
+            # over blocks (it is row-additive) and adds the regulariser
+            # once; ``loss`` is their sum, as it always was
             C = hyper["C"]
             T = sw.shape[0]
             p = op.p
@@ -807,40 +887,50 @@ class LogisticRegression(_ProbaMixin, _LbfgsFitMixin, _LinearClassifierBase):
             if binary:
                 ypm = (y_idx == (k - 1)).to(op.dtype)  # {0,1}
 
-                def loss(w):
+                def data_loss(w):
                     z = op.matvec(w[:, :, None])[..., 0]  # (T, n)
-                    ce = lane_sum(
+                    return lane_sum(
                         sw * (torch.logaddexp(z, torch.zeros_like(z))
                               - ypm * z))
+
+                def reg_loss(w):
                     if unpenalized:
-                        return ce
+                        return torch.zeros_like(w[:, 0])
                     wd = w[:, :d]
-                    return ce + 0.5 / C * lane_sum(wd * wd)
+                    return 0.5 / C * lane_sum(wd * wd)
 
                 w0 = torch.zeros((T, p), dtype=op.dtype, device=sw.device)
 
                 def unpack(w, n_iter):
                     return {"W": w, "n_iter": n_iter}
+            else:
+                onehot = F.one_hot(y_idx.long(), k).to(op.dtype)
 
-                return loss, w0, unpack
+                def data_loss(wflat):
+                    logits = op.matvec(wflat.reshape(T, p, k))  # (T, n, k)
+                    lse = torch.logsumexp(logits, dim=2)
+                    return lane_sum(
+                        sw * (lse - torch.sum(onehot * logits, dim=2)))
 
-            onehot = F.one_hot(y_idx.long(), k).to(op.dtype)
+                def reg_loss(wflat):
+                    if unpenalized:
+                        return torch.zeros_like(wflat[:, 0])
+                    Wd = wflat.reshape(T, p, k)[:, :d]
+                    return 0.5 / C * lane_sum(Wd * Wd)
 
-            def loss(wflat):
-                W = wflat.reshape(T, p, k)
-                logits = op.matvec(W)  # (T, n, k)
-                lse = torch.logsumexp(logits, dim=2)
-                ce = lane_sum(sw * (lse - torch.sum(onehot * logits, dim=2)))
+                w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
+
+                def unpack(w, n_iter):
+                    return {"W": w.reshape(T, p, k), "n_iter": n_iter}
+
+            def loss(w):
+                ce = data_loss(w)
                 if unpenalized:
                     return ce
-                Wd = W[:, :d]
-                return ce + 0.5 / C * lane_sum(Wd * Wd)
+                return ce + reg_loss(w)
 
-            w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
-
-            def unpack(w, n_iter):
-                return {"W": w.reshape(T, p, k), "n_iter": n_iter}
-
+            if parts:
+                return loss, w0, unpack, data_loss, reg_loss
             return loss, w0, unpack
 
         return problem
@@ -936,7 +1026,9 @@ class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
         d = meta["n_features"]
         class_weight, cw_arr = st["class_weight"], meta.get("cw_arr")
 
-        def problem(op, y_idx, sw, hyper):
+        def problem(op, y_idx, sw, hyper, parts=False):
+            # ``parts=True``: the data term and the regulariser apart, as
+            # in LogisticRegression's problem
             C = hyper["C"]
             T = sw.shape[0]
             p = op.p
@@ -944,35 +1036,44 @@ class LinearSVC(_LbfgsFitMixin, _LinearClassifierBase):
             if k <= 2:
                 ypm = torch.where(y_idx == (k - 1), 1.0, -1.0).to(op.dtype)
 
-                def loss(w):
+                def data_loss(w):
                     z = op.matvec(w[:, :, None])[..., 0]  # (T, n)
                     margin = torch.clamp(1.0 - ypm * z, min=0.0)
+                    return C * lane_sum(sw * (margin * margin))
+
+                def reg_loss(w):
                     wd = w[:, :d]
-                    return 0.5 * lane_sum(wd * wd) \
-                        + C * lane_sum(sw * (margin * margin))
+                    return 0.5 * lane_sum(wd * wd)
 
                 w0 = torch.zeros((T, p), dtype=op.dtype, device=sw.device)
 
                 def unpack(w, n_iter):
                     return {"W": w, "n_iter": n_iter}
+            else:
+                Ypm = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0,
+                                  -1.0).to(op.dtype)
 
-                return loss, w0, unpack
+                def data_loss(wflat):
+                    margins = torch.clamp(
+                        1.0 - Ypm * op.matvec(wflat.reshape(T, p, k)),
+                        min=0.0)
+                    return C * lane_sum(sw[..., None] * (margins * margins))
 
-            Ypm = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0,
-                              -1.0).to(op.dtype)
+                def reg_loss(wflat):
+                    Wd = wflat.reshape(T, p, k)[:, :d]
+                    return 0.5 * lane_sum(Wd * Wd)
 
-            def loss(wflat):
-                W = wflat.reshape(T, p, k)
-                margins = torch.clamp(1.0 - Ypm * op.matvec(W), min=0.0)
-                Wd = W[:, :d]
-                return 0.5 * lane_sum(Wd * Wd) \
-                    + C * lane_sum(sw[..., None] * (margins * margins))
+                w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
 
-            w0 = torch.zeros((T, p * k), dtype=op.dtype, device=sw.device)
+                def unpack(w, n_iter):
+                    return {"W": w.reshape(T, p, k), "n_iter": n_iter}
 
-            def unpack(w, n_iter):
-                return {"W": w.reshape(T, p, k), "n_iter": n_iter}
+            def loss(w):
+                data = data_loss(w)
+                return reg_loss(w) + data
 
+            if parts:
+                return loss, w0, unpack, data_loss, reg_loss
             return loss, w0, unpack
 
         return problem
@@ -1051,6 +1152,10 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
     rows (``LinearOperator.row_batch``), and its gradient is a dense
     ``(p, k)`` plane a lane, as in the JAX package.
     """
+
+    #: out of core: epochs as block streams (ROADMAP Queue 1 item 9b,
+    #: not ported yet)
+    _stream_fit_kind = "sgd"
 
     _hyper_names = ("alpha", "eta0", "l1_ratio", "tol")
     _static_names = (
@@ -1373,6 +1478,10 @@ class _RidgeKernelMixin:
     """The closed-form solve shared by ``Ridge``, ``LinearRegression``
     and ``RidgeClassifier``, and what a round of them holds."""
 
+    #: out of core: block-accumulated normal equations (ROADMAP Queue 1
+    #: item 9b, not ported yet)
+    _stream_fit_kind = "gram"
+
     @staticmethod
     def _solve(op, T, sw, alpha, d):
         """Weighted ridge for a lane batch: solve ``(X~.T S X~ + alpha
@@ -1492,6 +1601,8 @@ class Ridge(_RidgeKernelMixin, _LinearModelBase, RegressorMixin):
                                 meta.get("y_ndim", 1) == 1)
 
     def predict(self, X):
+        if is_chunked(X):
+            return self._predict_chunked(X, "predict")
         return self.decision_function(X)
 
 

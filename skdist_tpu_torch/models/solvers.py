@@ -108,12 +108,14 @@ def _two_loop(g, S, Y, rho, k, m):
     return -r
 
 
-def lbfgs_carry_init(fun, w0, tol, max_iter=100, history=10):
+def lbfgs_carry_init(fun, w0, tol, max_iter=100, history=10, vg=None):
     """Initial batched carry (dict over :data:`LBFGS_CARRY_KEYS`) for
     ``fun((T, P)) -> (T,)`` from ``w0 (T, P)``; ``tol`` is a scalar or a
-    ``(T,)`` tensor."""
+    ``(T,)`` tensor. ``vg(w) -> (f, g)`` replaces autograd of ``fun``
+    where the caller computes both another way (the streamed fit's
+    block-accumulated passes)."""
     T, P = w0.shape
-    f0, g0 = _value_and_grad(fun)(w0)
+    f0, g0 = (vg or _value_and_grad(fun))(w0)
     tol = torch.as_tensor(tol, dtype=w0.dtype, device=w0.device)
     done0 = (g0.abs().amax(dim=1) <= tol) | (max_iter <= 0)
     zeros_hist = dict(dtype=w0.dtype, device=w0.device)
@@ -219,10 +221,12 @@ def _lbfgs_step(carry, fun, vg, tol, max_iter, m, max_ls, active):
 
 
 def lbfgs_resume(fun, carry, n_steps, tol, max_iter=100, history=10,
-                 max_ls=20):
+                 max_ls=20, vg=None):
     """Advance a batched carry by at most ``n_steps`` iterations; each
-    lane stops when it converges, stalls or reaches ``max_iter``."""
-    vg = _value_and_grad(fun)
+    lane stops when it converges, stalls or reaches ``max_iter``.
+    ``fun`` gives the Armijo probes' values, ``vg`` (autograd of ``fun``
+    by default) each accepted point's value and gradient."""
+    vg = vg or _value_and_grad(fun)
     w = carry["w"]
     tol = torch.as_tensor(tol, dtype=w.dtype, device=w.device)
     for _ in range(int(n_steps)):
@@ -234,14 +238,16 @@ def lbfgs_resume(fun, carry, n_steps, tol, max_iter=100, history=10,
     return carry
 
 
-def lbfgs_minimize(fun, w0, tol=1e-4, max_iter=100, history=10, max_ls=20):
+def lbfgs_minimize(fun, w0, tol=1e-4, max_iter=100, history=10, max_ls=20,
+                   vg=None):
     """Minimise ``T`` independent objectives ``fun((T, P)) -> (T,)`` from
     ``w0 (T, P)``. Returns ``(w (T, P), n_iter (T,))``. Convergence per
-    task: ``max|grad| <= tol`` (``tol`` scalar or ``(T,)``)."""
+    task: ``max|grad| <= tol`` (``tol`` scalar or ``(T,)``). ``vg`` as in
+    :func:`lbfgs_resume`."""
     carry = lbfgs_carry_init(fun, w0, tol, max_iter=max_iter,
-                             history=history)
+                             history=history, vg=vg)
     carry = lbfgs_resume(fun, carry, max_iter, tol, max_iter=max_iter,
-                         history=history, max_ls=max_ls)
+                         history=history, max_ls=max_ls, vg=vg)
     return carry["w"], carry["it"]
 
 

@@ -298,15 +298,22 @@ def build_columns(idx, val, n_cols):
     dev = idx.device
     flat_val = val.reshape(-1)
     keep = torch.nonzero(flat_val != 0).squeeze(1)
-    cols = idx.reshape(-1)[keep].long()
+    # int32 sort keys, and each temporary dropped as soon as it is used:
+    # the sort's transient memory is what a streamed block's gradient
+    # pass peaks on (the stable order does not depend on the key width)
+    cols = idx.reshape(-1)[keep]
     order = torch.argsort(cols, stable=True)
     counts = torch.bincount(cols, minlength=n_cols)
     if counts.shape[0] != n_cols or (cols.numel() and int(cols.min()) < 0):
         raise ValueError(f"packed idx holds a column outside [0, {n_cols})")
+    del cols
+    keep = keep[order]
+    del order
     col_ptr = torch.zeros(n_cols + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=col_ptr[1:])
-    rows = (keep // m)[order].to(torch.int32).contiguous()
-    vals = flat_val[keep][order].contiguous()
+    rows = (keep // m).to(torch.int32)
+    vals = flat_val[keep]
+    del keep
 
     L = SEGMENT_ENTRIES
     n_seg = torch.where(counts > L, (counts + L - 1) // L, 0)

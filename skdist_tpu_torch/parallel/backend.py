@@ -25,9 +25,13 @@ calls run on its ``device`` as :class:`CUDABackend`'s do.
 ``reuse_broadcast=True`` keeps the device copies of large shared host
 arrays across fits (:func:`_cached_put`).
 :func:`resolve_backend` normalises a user's ``backend=`` argument.
+:class:`BlockFeeder` is the host-to-device leg of the streaming data
+plane: blocks of a ``ChunkedDataset`` read and copied one ahead of their
+consumer through pinned host buffers and a copy stream.
 
-Not ported yet (ROADMAP): elastic mode, fault retries, streaming, AOT
-and the device mesh.
+Not ported yet (ROADMAP): elastic mode, fault retries (a fault in a
+streamed pass raises), the streamed plans of a device mesh, AOT and the
+device mesh.
 """
 
 import math
@@ -49,6 +53,7 @@ __all__ = [
     "parse_partitions", "IterativeKernelSpec", "RungController",
     "MIN_ITER_TASKS", "compaction_enabled", "resolve_slice_iters",
     "iterative_fit_supported", "iterative_chunk_size", "prefers_host_engine",
+    "BlockFeeder", "tree_nbytes",
 ]
 
 
@@ -976,6 +981,288 @@ class LocalBackend(CUDABackend):
 
     def run_tasks(self, fn, tasks, verbose=0):
         return run_threads(fn, tasks, self.n_jobs)
+
+
+# ---------------------------------------------------------------------------
+# the streaming data plane's host-to-device leg
+# ---------------------------------------------------------------------------
+
+#: bytes every leaf of a block starts on in its pinned buffer (and so in
+#: its device copy)
+_LEAF_ALIGN = 16
+
+#: the feeder's pinned buffers: the block in use and the one in flight
+_FEED_DEPTH = 2
+
+
+def _block_leaves(tree, prefix=""):
+    """``[(path, ndarray)]`` of a host block tree: a dict of arrays and
+    :class:`PackedX` pairs (their ``idx`` and ``val``), in key order."""
+    if isinstance(tree, dict):
+        out = []
+        for key in tree:
+            out += _block_leaves(tree[key], f"{prefix}{key}/")
+        return out
+    if isinstance(tree, PackedX):
+        return [(prefix + "idx", np.asarray(tree.idx)),
+                (prefix + "val", np.asarray(tree.val))]
+    return [(prefix[:-1], np.asarray(tree))]
+
+
+def _block_tree(template, leaves, prefix=""):
+    """The host tree ``template``'s shape over ``leaves`` (a dict path ->
+    tensor); a PackedX's copy is not checked again."""
+    if isinstance(template, dict):
+        return {k: _block_tree(v, leaves, f"{prefix}{k}/")
+                for k, v in template.items()}
+    if isinstance(template, PackedX):
+        return PackedX.checked_copy(leaves[prefix + "idx"],
+                                    leaves[prefix + "val"], template.n_cols)
+    return leaves[prefix[:-1]]
+
+
+def tree_nbytes(tree):
+    """Bytes of every array of a host block tree (a PackedX counts its
+    two leaves): what one block moves from the host to the device."""
+    return int(sum(a.nbytes for _, a in _block_leaves(tree)))
+
+
+def _pinned_buffer(nbytes):
+    """A page-locked host buffer of ``nbytes`` bytes (uint8)."""
+    return torch.empty(int(nbytes), dtype=torch.uint8, pin_memory=True)
+
+
+class _Slot:
+    """One pinned host buffer of the feeder's ring, and the event of the
+    last copy that read it (the buffer is refilled only after it)."""
+
+    __slots__ = ("buf", "event")
+
+    def __init__(self):
+        self.buf = None
+        self.event = None
+
+
+class BlockFeeder:
+    """The host-to-device leg of the streaming data plane (the JAX
+    package's ``BlockFeeder``, rebuilt for the card).
+
+    ``read(i) -> host tree`` gives block ``i`` as a dict of numpy arrays
+    and numpy :class:`PackedX` pairs; :meth:`next` hands out ``(i,
+    device tree)`` in order. A worker thread reads and places one block
+    ahead of the consumer (:data:`_FEED_DEPTH` = 2 buffers), so block
+    ``i + 1``'s read and copy hide behind block ``i``'s compute.
+    ``cycle=True`` hands the blocks out in an endless cycle ``0 .. n - 1,
+    0 ..`` for a consumer that makes repeated passes (the streamed fit
+    takes ``n_blocks`` blocks a pass): block 0 of the next pass is read
+    and placed while the last block of this one is in use, and one ring,
+    one copy stream and one worker serve every pass. Without it,
+    :meth:`next` returns None past the last block. ``sync=True`` is the
+    serial mode:
+    read and placement happen inline in :meth:`next`, on the consumer's
+    clock (the baseline the overlap is measured against). The order of
+    blocks, and so of any reduction over them, is the same in both modes.
+
+    On a CUDA ``device`` the worker copies the block's leaves into one of
+    a ring of :data:`_FEED_DEPTH` pinned host buffers (allocated at first use,
+    sized to the block, then reused; a buffer is refilled only after the
+    event of its previous copy has completed), issues one
+    ``non_blocking`` copy of it on a copy stream and records an event.
+    :meth:`next` makes the consumer's stream (the current stream when the
+    feeder was made) wait on that event and marks the device block as in
+    use by that stream (``record_stream``), so the caching allocator
+    never hands its memory to a later copy while a kernel still reads it.
+    The device block's leaves are views of one device buffer; a PackedX
+    leaf is not range-checked again (its host pair was, when the reader
+    built it). Nothing falls back: a buffer that cannot be pinned, a
+    failed copy or a read error raises (at :meth:`next`). On the CPU the
+    worker places plain tensor copies of the leaves.
+
+    :meth:`seek` moves the cursor (in-flight prefetches are discarded and
+    the reader is invoked again at that offset); :meth:`close` ends the
+    worker. ``stats`` (a dict) accumulates ``streamed_bytes`` (host bytes
+    of the blocks handed out; a prefetch that :meth:`seek` or
+    :meth:`close` discards is not counted), ``peak_block_bytes``, ``blocks_fed``, ``feed_wait_s`` (the
+    consumer's time blocked on the feed: the part of it not hidden),
+    ``read_place_s`` (the time spent reading and placing) and
+    ``stream_mode`` (``"serial"`` or ``"pipelined"``).
+    """
+
+    def __init__(self, read, n_blocks, device, sync=False, stats=None,
+                 cycle=False):
+        self.read = read
+        self.n_blocks = int(n_blocks)
+        self.device = torch.device(device)
+        self.sync = bool(sync)
+        self.cycle = bool(cycle)
+        self.stats = stats if stats is not None else {}
+        for key, v0 in (
+            ("streamed_bytes", 0), ("peak_block_bytes", 0),
+            ("blocks_fed", 0), ("feed_wait_s", 0.0),
+            ("read_place_s", 0.0),
+        ):
+            self.stats.setdefault(key, v0)
+        self.stats["stream_mode"] = "serial" if self.sync else "pipelined"
+        self._cursor = 0
+        self._pending = []  # [(block index, Future)]
+        self._pool = None
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._consumer = torch.cuda.current_stream(self.device)
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._ring = [_Slot() for _ in range(_FEED_DEPTH)]
+            self._next_slot = 0
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="skdist-blockfeed")
+        return self._pool
+
+    def _place_cpu(self, host):
+        leaves = {path: torch.from_numpy(np.array(a, order="C", copy=True))
+                  for path, a in _block_leaves(host)}
+        return _block_tree(host, leaves)
+
+    def _place_cuda(self, host):
+        """Copy ``host`` into the next pinned buffer of the ring and issue
+        its copy to the device on the copy stream. Returns ``(device
+        buffer, layout, event)``."""
+        layout, total = [], 0
+        for path, a in _block_leaves(host):
+            layout.append((path, a, total))
+            total += -(-a.nbytes // _LEAF_ALIGN) * _LEAF_ALIGN
+        slot = self._ring[self._next_slot]
+        self._next_slot = (self._next_slot + 1) % _FEED_DEPTH
+        if slot.event is not None:
+            slot.event.synchronize()  # its previous copy has read it
+        if slot.buf is None or slot.buf.numel() < total:
+            slot.buf = None
+            buf = _pinned_buffer(max(total, 1))
+            if not buf.is_pinned():
+                raise RuntimeError(
+                    f"BlockFeeder: a {total}-byte host buffer could not be "
+                    "pinned; the feeder does not fall back to pageable "
+                    "memory")
+            slot.buf = buf
+        view = slot.buf.numpy()
+        for path, a, off in layout:
+            np.copyto(view[off:off + a.nbytes].view(a.dtype).reshape(a.shape),
+                      a, casting="no")
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self._copy_stream):
+            dev = torch.empty(max(total, 1), dtype=torch.uint8,
+                              device=self.device)
+            dev.copy_(slot.buf[:max(total, 1)], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        slot.event = event
+        return dev, [(path, a.dtype, a.shape, off) for path, a, off in layout], \
+            event
+
+    def _produce(self, i):
+        t0 = time.perf_counter()
+        host = self.read(i)
+        nbytes = tree_nbytes(host)
+        if self._cuda:
+            placed = (host, self._place_cuda(host))
+        else:
+            placed = (host, self._place_cpu(host))
+        return placed, nbytes, time.perf_counter() - t0
+
+    def _hand_out(self, placed):
+        """The consumer's side of a placed block: on the card its stream
+        waits on the copy's event and owns the device buffer."""
+        host, dev = placed
+        if not self._cuda:
+            return dev
+        buf, layout, event = dev
+        self._consumer.wait_event(event)
+        buf.record_stream(self._consumer)
+        leaves = {}
+        for path, dtype, shape, off in layout:
+            nb = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+            leaves[path] = buf[off:off + nb].view(tdtype).view(shape)
+        return _block_tree(host, leaves)
+
+    def _account(self, nbytes, dt):
+        self.stats["streamed_bytes"] += int(nbytes)
+        self.stats["peak_block_bytes"] = max(
+            self.stats["peak_block_bytes"], int(nbytes))
+        self.stats["blocks_fed"] += 1
+        self.stats["read_place_s"] += dt
+
+    def _live(self, j):
+        """Whether position ``j`` of the cursor holds a block."""
+        return self.cycle or j < self.n_blocks
+
+    def seek(self, i):
+        """Move the cursor to block ``i``; in-flight prefetches are
+        discarded, so the next :meth:`next` reads block ``i`` afresh."""
+        for _idx, fut in self._pending:
+            try:
+                fut.cancel() or fut.exception()
+            except Exception:  # a failed prefetch is why one seeks
+                pass
+        self._pending = []
+        self._cursor = int(i)
+
+    def _submit(self):
+        pool = self._ensure_pool()
+        while (len(self._pending) < _FEED_DEPTH - 1
+               and self._live(self._cursor + len(self._pending))):
+            j = self._cursor + len(self._pending)
+            self._pending.append(
+                (j, pool.submit(self._produce, j % self.n_blocks)))
+
+    def next(self):
+        """``(block index, device tree)`` of the next block, or None past
+        the end. A read or placement error raises here."""
+        if self.sync:
+            if not self._live(self._cursor):
+                return None
+            j = self._cursor
+            t0 = time.perf_counter()
+            placed, nbytes, dt = self._produce(j % self.n_blocks)
+            dev = self._hand_out(placed)
+            self.stats["feed_wait_s"] += time.perf_counter() - t0
+            self._account(nbytes, dt)
+            self._cursor = j + 1
+            return j % self.n_blocks, dev
+        self._submit()
+        if not self._pending:
+            return None
+        j, fut = self._pending.pop(0)
+        t0 = time.perf_counter()
+        placed, nbytes, dt = fut.result()
+        dev = self._hand_out(placed)
+        self.stats["feed_wait_s"] += time.perf_counter() - t0
+        self._account(nbytes, dt)
+        self._cursor = j + 1
+        self._submit()  # the next block's read starts before this one's use
+        return j % self.n_blocks, dev
+
+    def __iter__(self):
+        while True:
+            item = self.next()
+            if item is None:
+                return
+            yield item
+
+    def close(self):
+        """Discard what is in flight and stop the worker thread."""
+        self.cycle = False
+        self.seek(self.n_blocks)
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def resolve_backend(backend, n_jobs=None):

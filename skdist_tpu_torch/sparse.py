@@ -51,6 +51,7 @@ __all__ = [
     "would_pack",
     "pack_for_fit",
     "sparse_to_dense_f32",
+    "check_densify_budget",
     "packed_to_dense",
     "matvec_any",
     "packed_matvec_bf16",
@@ -85,9 +86,7 @@ class PackedX:
     __slots__ = ("idx", "val", "n_cols")
 
     def __init__(self, idx, val, n_cols):
-        self.idx = idx
-        self.val = val
-        self.n_cols = int(n_cols)
+        self._set(idx, val, n_cols)
         if tuple(idx.shape) != tuple(val.shape) or len(idx.shape) != 2:
             raise ValueError(
                 f"idx and val must be (n, m) of one shape; got "
@@ -100,6 +99,20 @@ class PackedX:
                     f"packed idx spans [{lo}, {hi}]; it must lie in "
                     f"[0, {self.n_cols})"
                 )
+
+    def _set(self, idx, val, n_cols):
+        self.idx = idx
+        self.val = val
+        self.n_cols = int(n_cols)
+
+    @classmethod
+    def checked_copy(cls, idx, val, n_cols):
+        """A pair whose leaves are copies of a pair already checked (the
+        block feeder's device copy of a host block): no second range
+        check, which on device tensors would wait for the card."""
+        out = cls.__new__(cls)
+        out._set(idx, val, n_cols)
+        return out
 
     @property
     def shape(self):
@@ -233,15 +246,7 @@ def sparse_to_dense_f32(X):
     if len(X.shape) == 1:
         out = np.asarray(X.toarray(), dtype=np.float32)
         return np.ascontiguousarray(out.reshape(-1, 1))
-    est = int(X.shape[0]) * int(X.shape[1]) * 4
-    budget, source = densify_budget_bytes()
-    if budget is not None and est > budget:
-        raise ValueError(
-            f"densifying this {tuple(X.shape)} sparse input needs "
-            f"{est / 1e9:.2f} GB as float32, but only {budget / 1e9:.2f} "
-            f"GB is available ({source}); fit it packed (force with "
-            f"{SPARSE_FIT_ENV}=1) or raise the limit via {BUDGET_ENV}"
-        )
+    check_densify_budget(*X.shape)
     if hasattr(X, "tocsr") and X.shape[0] * X.shape[1] >= (1 << 22):
         from . import native
 
@@ -250,6 +255,20 @@ def sparse_to_dense_f32(X):
     if out.ndim == 1:
         out = out.reshape(-1, 1)
     return np.ascontiguousarray(out, dtype=np.float32)
+
+
+def check_densify_budget(n_rows, n_cols):
+    """Refuse a dense float32 ``(n_rows, n_cols)`` allocation that the
+    host's memory cannot hold, before anything is allocated."""
+    est = int(n_rows) * int(n_cols) * 4
+    budget, source = densify_budget_bytes()
+    if budget is not None and est > budget:
+        raise ValueError(
+            f"densifying this {(int(n_rows), int(n_cols))} input needs "
+            f"{est / 1e9:.2f} GB as float32, but only {budget / 1e9:.2f} "
+            f"GB is available ({source}); fit it packed (force with "
+            f"{SPARSE_FIT_ENV}=1) or raise the limit via {BUDGET_ENV}"
+        )
 
 
 def packed_to_dense(idx, val, n_cols):
@@ -327,7 +346,8 @@ class LinearOperator:
     __slots__ = ("d", "p", "n", "Xa", "pidx", "pval", "dtype", "columns",
                  "pairs", "bf16", "_Xmm")
 
-    def __init__(self, X, fit_intercept, matmul_dtype=None):
+    def __init__(self, X, fit_intercept, matmul_dtype=None,
+                 sort_columns=True):
         self.bf16 = matmul_dtype == "bfloat16"
         self._Xmm = None
         if isinstance(X, PackedX):
@@ -348,10 +368,12 @@ class LinearOperator:
             self.Xa = None
             self.pidx, self.pval = idx, val
             self.dtype = val.dtype
-            # the column-sorted copy K2 reads: built once per operator
+            # the column-sorted copy K2 reads, built once per operator;
+            # ``sort_columns=False`` (a streamed value pass's operator,
+            # which never runs K2) builds none
             self.columns = (
                 build_columns(idx, val, self.p)
-                if idx.is_cuda and not self.bf16 else None
+                if idx.is_cuda and not self.bf16 and sort_columns else None
             )
         else:
             if fit_intercept:

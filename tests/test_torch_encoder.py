@@ -4,7 +4,7 @@ medium and large, with the port's ``transform`` equal to the JAX
 package's (the same CSR structure, data within 1e-12), dict input equal
 to pandas input, a carried encoder (``encoderizer_from_reference``)
 equal to the JAX one, the encoder's output feeding the port's search,
-and a ``ChunkedDataset`` refused.
+and a ``ChunkedDataset`` passed through block by block.
 """
 
 import pickle
@@ -174,14 +174,25 @@ def test_pickle(mixed, size):
 
 
 def test_chunked_dataset_refused(mixed):
-    data, _ = mixed
+    """A ChunkedDataset was refused until the data plane was ported; now
+    ``transform`` of one is the lazy pass-through, block by block, equal to
+    ``transform`` of the same rows (its parity with the JAX package is in
+    ``tests/test_torch_streaming.py``)."""
+    from skdist_tpu_torch.data import ChunkedDataset
 
-    class ChunkedDataset:
-        pass
-
+    rng = np.random.RandomState(0)
+    data = {"num": rng.normal(size=40), "holes": np.where(
+        rng.rand(40) < 0.2, np.nan, rng.normal(size=40))}
     enc = Encoderizer().fit(data)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        enc.transform(ChunkedDataset())
+    ds = ChunkedDataset.from_arrays(np.column_stack([data["num"],
+                                                     data["holes"]]),
+                                    block_rows=16)
+    out = enc.transform(ds)
+    assert isinstance(out, ChunkedDataset) and out.n_blocks == 3
+    want = enc.transform({k: v.astype(np.float32) for k, v in data.items()})
+    want = want.toarray() if sparse.issparse(want) else want
+    np.testing.assert_array_equal(out.materialize(),
+                                  np.asarray(want, np.float32))
 
 
 def test_encoder_feeds_the_ports_search(mixed):

@@ -512,3 +512,63 @@ def test_validation_and_refusals(data):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T(max_iter=2).fit(X, ys["bin"])
+
+
+def _rounded(seed, n=400, d=6):
+    """Data with one rounded feature: its trees grow nodes of one class,
+    where every candidate gain is float32 rounding noise (the fault
+    traced in ROADMAP Queue 3)."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 2] = np.round(X[:, 2])
+    s = X @ rng.normal(size=d) + 0.3 * rng.normal(size=n)
+    return X, (s > 0).astype(np.int64), s.astype(np.float32)
+
+
+def test_rounded_feature_trees_equal_jax_run_op_by_op():
+    """On such data the port grows the JAX package's trees when the JAX
+    package runs its ops one at a time (``jax.disable_jit``): the same
+    float32 ops in the same order, the pure nodes' noise included. The
+    JAX package's compiled fit differs from its own op-by-op run there,
+    because the compiler rewrites the float32 arithmetic it fuses; that
+    order cannot be matched (ROADMAP Queue 3, divergences by design), and
+    the next test holds those fits to their contract."""
+    X, yb, _ = _rounded(7)
+    kw = dict(max_iter=5, max_bins=255, early_stopping=False)
+    with jax.disable_jit():
+        ref = jg.DistHistGradientBoostingClassifier(hist_mode="scatter",
+                                                    **kw).fit(X, yb)
+    ours = tg.DistHistGradientBoostingClassifier(device="cpu", **kw).fit(
+        X, yb)
+    for key in ("feat", "thr", "is_split"):
+        np.testing.assert_array_equal(np.asarray(ref._params[key]),
+                                      ours._params[key], err_msg=key)
+    np.testing.assert_allclose(ours.predict_proba(X), ref.predict_proba(X),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("seed,max_bins", [(1, 16), (1, 255), (4, 255),
+                                           (7, 255)])
+def test_rounded_feature_fits_hold_the_contract_of_the_compiled_jax(
+        seed, max_bins):
+    """Against the JAX package's compiled fits on the rounded-feature data
+    (trees may differ on pure nodes' noise): ``n_iter_`` and class
+    predictions equal, probabilities within 6.0e-5, regression outputs
+    within 9.6e-7."""
+    X, yb, yr = _rounded(seed)
+    kw = dict(max_iter=20, max_bins=max_bins, early_stopping=False)
+    ref = jg.DistHistGradientBoostingClassifier(hist_mode="scatter",
+                                                **kw).fit(X, yb)
+    ours = tg.DistHistGradientBoostingClassifier(device="cpu", **kw).fit(
+        X, yb)
+    assert ours.n_iter_ == ref.n_iter_
+    np.testing.assert_array_equal(ours.predict(X), ref.predict(X))
+    np.testing.assert_allclose(ours.predict_proba(X), ref.predict_proba(X),
+                               rtol=0, atol=6.0e-5)
+    ref = jg.DistHistGradientBoostingRegressor(hist_mode="scatter",
+                                               **kw).fit(X, yr)
+    ours = tg.DistHistGradientBoostingRegressor(device="cpu", **kw).fit(
+        X, yr)
+    assert ours.n_iter_ == ref.n_iter_
+    np.testing.assert_allclose(ours.predict(X), ref.predict(X), rtol=0,
+                               atol=9.6e-7)
