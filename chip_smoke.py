@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase-22
     python3 chip_smoke.py --phase-23
     python3 chip_smoke.py --phase-24
+    python3 chip_smoke.py --phase-25
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -69,13 +70,16 @@ result line:
    or stalled, and the lane-iterations carried against those used. The
    pickled ``best_estimator_`` must predict as the live one, and one
    refit on the card is held to the same refit on the CPU (to 10x the
-   gap one ulp of input noise opens on the card). Then one round of the
+   gap one ulp of input noise opens on the card; the CPU refit runs in a
+   process of its own beside the rest of phase 3 and 3b, and is read
+   after 3b). Then one round of the
    grid (as many C as fill it x 5 folds, ``max_iter`` cut to 20, one
    chunk) timed alone
    and then under ``torch.profiler``: device time in K1, K2 and the
    rest, and the device's idle share of the round's wall.
 3b. Classic against compacted at full width: the sparse grid cut to 12
-   C (the first 12 of phase 3's) x 5 folds, both ways at equal chunk in
+   C (the first 12 of phase 3's) x 5 folds at ``max_iter=50`` (a printed
+   cut of 100), both ways at equal chunk in
    one process, on a backend whose rounds hold at most 30 lanes (as if
    the card's memory held no more: the refill regime at a cut size);
    ``cv_results_`` and the refit ``coef_`` must be bitwise equal, and
@@ -278,7 +282,7 @@ result line:
 
 17. The f64 host engine and its warm C path at the flagship's width:
     ``DistGridSearchCV(LogisticRegression(engine="host", max_iter=100),
-    {"C": logspace(-2, 2, 4)[:2]}, cv=3, scoring="accuracy")`` on the
+    {"C": logspace(-2, 2, 4)[:2]}, cv=2, scoring="accuracy")`` on the
     first 1500 rows of the dense 11314 x 4096 problem (20 classes; the
     cut, from 4 C x 5 folds on every row, is printed) under
     ``CUDABackend`` (an explicit pin: ``auto``
@@ -290,7 +294,7 @@ result line:
     iterations a fit warm against cold.
 18. ``DistMultiModelSearch`` over ``LogisticRegression(max_iter=100)``
     (8 C), ``LinearSVC(max_iter=100)`` (8 C) and ``SGDClassifier(
-    max_iter=20)`` (8 alpha), ``n=4, cv=5, scoring="accuracy",
+    max_iter=20)`` (8 alpha), ``n=2, cv=5, scoring="accuracy",
     random_state=0``, on the main path's packed hashed text: K1, K2 and
     both row forms launched (the row forms exactly two matvecs and one
     rmatvec a step of whole epochs), every family's segment of
@@ -441,7 +445,7 @@ result line:
     pipelined (pinned buffers and a copy stream), bitwise equal, with
     each feed's ``feed_wait_s`` and the share of the feed hidden; K1 and
     K2 once a block a pass. (b) ``LogisticRegression(C=1.0,
-    max_iter=50).fit(dataset)`` (a printed cut of 100) on the card
+    max_iter=30).fit(dataset)`` (a printed cut of 100) on the card
     against the same fit resident on the same rows and a resident fit
     with the weights one ulp off: streamed ``coef_`` within 10x what
     that ulp moves the resident fit, predictions equal on at least
@@ -452,6 +456,35 @@ result line:
     passes printed. (c) Chunked ``batch_predict(model, dataset,
     "predict_proba")`` bitwise the resident sparse path at
     ``batch_size=65536``, K1 once a block; rows/s of both.
+25. The streamed ridge, SGD and L-BFGS searches and multiclass fits, on
+    phase 24's data. (a) The first four blocks with their columns folded
+    modulo 2**14 (duplicates summed: the ridge config's width, p = 2**14
+    + 1): K3 held to its plain version on a fed block (n=65536) and timed
+    there; a streamed ``RidgeClassifier`` fit and a streamed
+    ``DistGridSearchCV(RidgeClassifier(), 4 alpha, cv=KFold(5))``, K3
+    launched exactly blocks x task rounds (the fit's, the search's, the
+    refit's), the search's peak device memory under its rounds' billed
+    bytes; both held to the resident fit and search on the same rows by
+    the ulp rule (``coef_`` and every test score within 10x what one ulp
+    of weight noise moves the resident result, a score's noise at least
+    one test row), ``best_params_`` equal. (b) K1's and K2's row forms
+    held to their plain versions on a batch of a fed block;
+    ``SGDClassifier(batch_size=4096, max_iter=2, tol=None,
+    shuffle=False)`` streamed over the 16 blocks bitwise the resident fit
+    (``coef_``, ``intercept_``, ``n_iter_``), the row forms launched
+    exactly 2 and 1 times a step; a shuffled streamed fit finite and
+    above the majority share. (c) A streamed ``DistGridSearchCV(
+    LogisticRegression(max_iter=10), 2 C, cv=KFold(3))`` over the 16
+    blocks held to the resident search by the ulp rule, the refit
+    streamed, K1/K2 launched exactly blocks x passes (the scoring pass
+    included). (d) Streamed one-vs-rest (four blocks, 20 classes) and
+    one-vs-one (the rows of four classes in eight blocks, 6 pairs) of
+    ``LogisticRegression(max_iter=10)``: predictions of the dataset equal
+    its resident predictions and differ from the resident fit's on at
+    most 10x the rows that an ulp-weighted refit or a refit of the rows
+    in another order changes (the streamed fit's block partials reorder
+    its float32 sums as a row permutation does); K1/K2 launches blocks x
+    passes. Phase 25's seconds are printed, with each part's.
 
 ``--candidates N`` cuts the C and alpha grids (and config 2's ``n_iter``)
 to their first N points (never the data width); the cut is printed. The compacted path's
@@ -469,8 +502,9 @@ runs must agree on epochs and ``best_score_``.
 ``--profile-config5`` runs none of the phases either: it prints phase
 15's split of one warm call (above) and exits. ``--phases-17-19`` builds
 the kernels and runs phases 17-19 alone, with no result line;
-``--phase-20``, ``--phase-21``, ``--phase-22``, ``--phase-23`` and
-``--phase-24`` do the same for phases 20, 21, 22, 23 and 24.
+``--phase-20``, ``--phase-21``, ``--phase-22``, ``--phase-23``,
+``--phase-24`` and ``--phase-25`` do the same for phases 20, 21, 22, 23,
+24 and 25 (25 on phase 24's data, made for it).
 
 ``--ab-row-kernels DIR`` runs none of the phases either: phase 2's
 row-kernel readings at the SGD step's shape, a split of the host's
@@ -487,13 +521,14 @@ this script.
 import argparse
 import json
 import math
+import multiprocessing
 import os
 import pickle
 import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -1473,10 +1508,10 @@ def differing_columns(a, b):
                                    np.asarray(b.cv_results_[c]))]
 
 
-def fit_grid(torch, X, y, Cs, backend, compaction=True, **kw):
+def fit_grid(torch, X, y, Cs, backend, compaction=True, max_iter=100, **kw):
     """A timed ``DistGridSearchCV(LogisticRegression(max_iter=100))`` of
-    the main path's form, with the compacted path on or off; returns the
-    search and its wall."""
+    the main path's form (``max_iter`` cut where given), with the
+    compacted path on or off; returns the search and its wall."""
     from skdist_tpu_torch import DistGridSearchCV, LogisticRegression
 
     os.environ["SKDIST_COMPACTION"] = "1" if compaction else "0"
@@ -1484,13 +1519,34 @@ def fit_grid(torch, X, y, Cs, backend, compaction=True, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gs = DistGridSearchCV(
-            LogisticRegression(max_iter=100), {"C": Cs}, cv=5,
+            LogisticRegression(max_iter=max_iter), {"C": Cs}, cv=5,
             scoring="f1_weighted", backend=backend, **kw,
         ).fit(X, y)
         torch.cuda.synchronize()
         return gs, time.perf_counter() - t0
     finally:
         del os.environ["SKDIST_COMPACTION"]
+
+
+#: host threads of phase 3's CPU refit, which runs in a process of its own
+#: beside the card's work (the card's host thread keeps the other cores)
+CPU_REFIT_THREADS = 6
+
+
+def cpu_logreg_refit(X, y, C, threads):
+    """Phase 3's CPU refit, ``LogisticRegression(C, max_iter=100)`` on
+    ``device="cpu"`` on ``threads`` threads, in a worker process:
+    ``(coef_, n_iter_, seconds)``."""
+    import torch
+
+    from skdist_tpu_torch import LogisticRegression
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    fit = LogisticRegression(C=C, max_iter=100, device="cpu",
+                             engine="xla").fit(X, y)
+    return (fit.coef_, int(np.max(fit.n_iter_)),
+            time.perf_counter() - t0)
 
 
 def capped_backend(cap):
@@ -1507,14 +1563,21 @@ def capped_backend(cap):
     return CappedBackend()
 
 
+#: phase 3b's max_iter: 50 of the main path's 100 (a printed cut, made
+#: when phase 25 was added; the lanes of its smallest C converge at 45
+#: iterations, so lanes still retire before max_iter and free their slots)
+SPARSE_AB_ITERS = 50
+
+
 def phase_sparse_ab(torch, X, y, Cs):
     """Phase 3b: the sparse grid cut to 12 C (the first 12 of phase 3's)
-    x 5 folds, 60 fits in two rounds of 30 on a backend whose rounds hold
-    at most 30 tasks (so the two do not fit at once), classic against
-    compacted at equal chunk, in one process: ``cv_results_`` and the
-    refit ``coef_`` must be bitwise equal, the card's proof that a lane's
-    bits do not depend on its slot at the main path's shapes (the refill
-    regime restarts lanes in any freed slot)."""
+    x 5 folds at ``max_iter=SPARSE_AB_ITERS``, 60 fits in two rounds of
+    30 on a backend whose rounds hold at most 30 tasks (so the two do not
+    fit at once), classic against compacted at equal chunk, in one
+    process: ``cv_results_`` and the refit ``coef_`` must be bitwise
+    equal, the card's proof that a lane's bits do not depend on its slot
+    at the main path's shapes (the refill regime restarts lanes in any
+    freed slot)."""
     Cs_ab = Cs[:12]
     n_fits = 5 * len(Cs_ab)
     backend = capped_backend(n_fits // 2)
@@ -1522,7 +1585,9 @@ def phase_sparse_ab(torch, X, y, Cs):
         "compacted against classic at equal chunk")
     say(f"CUT: phase 3b runs {len(Cs_ab)} of its 24 C, on a backend whose "
         f"rounds hold at most {n_fits // 2} tasks")
-    comp, wall_c = fit_grid(torch, X, y, Cs_ab, backend, partitions=2)
+    say(f"CUT: phase 3b fits max_iter={SPARSE_AB_ITERS} (of 100)")
+    comp, wall_c = fit_grid(torch, X, y, Cs_ab, backend, partitions=2,
+                            max_iter=SPARSE_AB_ITERS)
     st = comp.round_stats_[0]
     say(f"  compacted wall {wall_c:.1f}s: " + lane_readout(st))
     if st["refills"] < 1 or st["lanes_stalled"] + st["lanes_converged"] < 1:
@@ -1531,7 +1596,8 @@ def phase_sparse_ab(torch, X, y, Cs):
             f"max_iter {st['lanes_stalled'] + st['lanes_converged']}: the "
             "refill regime's slot reuse went untested")
     classic, wall_k = fit_grid(torch, X, y, Cs_ab, backend,
-                               compaction=False, partitions=2)
+                               compaction=False, partitions=2,
+                               max_iter=SPARSE_AB_ITERS)
     sk = classic.round_stats_[0]
     say(f"  classic wall {wall_k:.1f}s: {sk['rounds']} rounds x "
         f"{sk['tasks_per_round']} tasks")
@@ -3443,14 +3509,15 @@ def phase_generic_search(torch):
 # ---------------------------------------------------------------------------
 
 #: phase 17's depth, cut: ``logspace(-2, 2, 4)``'s first 2 C values,
-#: 3 folds (of 5) and the flagship's first 1500 of 11314 rows
+#: 2 folds (of 5; 3 until phase 25 was added) and the flagship's first
+#: 1500 of 11314 rows
 #: (its full 4096 features and 20 classes). The uncut phase (4 C x 5
 #: folds, all rows) took 557 s on the 8-core host of an H100 machine,
 #: ~21 s a fit: scipy's L-BFGS-B update over 4097 x 20 weights costs
 #: ~0.15 s an iteration there whatever the rows, the products the rest
 HOST_CS = list(np.logspace(-2, 2, 4))[:2]
 HOST_ROWS = 1500
-HOST_FOLDS = 3
+HOST_FOLDS = 2
 
 
 def phase_host_engine(torch, backend):
@@ -3533,7 +3600,9 @@ def phase_host_engine(torch, backend):
     return {"wall": wall, "fits": fits}
 
 
-MM_N = 4
+#: phase 18's candidates a family (2 of the 4 it ran before phase 25 was
+#: added, a printed cut)
+MM_N = 2
 
 
 def multimodel_models():
@@ -3562,6 +3631,8 @@ def phase_multimodel(torch, X, y, backend):
              "packed_row_rmatvec")
     say(f"phase 18: DistMultiModelSearch(lr, svc, sgd; n={MM_N}, cv=5, "
         f"accuracy) on the packed {X.shape}")
+    say(f"CUT: phase 18 samples {MM_N} of each family's 8 values (4 before "
+        "phase 25 was added)")
     for name in names:
         getattr(ps, name).launches = 0
     mm, wall = timed_call(torch, lambda: DistMultiModelSearch(
@@ -5448,9 +5519,10 @@ def phase_featurize(torch):
 #: rows) and its blocks: 16 blocks of 65536 rows
 STREAM_N = 1_048_576
 STREAM_BLOCK = 65_536
-#: phase 24b's max_iter: 50 of the 100 the slice asks for, a printed
-#: cut that keeps the whole run near its target
-STREAM_ITERS = 50
+#: phase 24b's max_iter: 30 of the 100 the slice asks for (50 before
+#: phase 25 was added), a printed cut that keeps the whole run near its
+#: target
+STREAM_ITERS = 30
 #: the streamed fit's peak device memory beyond the solver's state may be
 #: this many blocks plus STREAM_SLACK bytes
 STREAM_BLOCKS_HELD = 4
@@ -5769,25 +5841,455 @@ def phase_stream_predict(torch, model, X, ld):
     return launches
 
 
-def phase_streaming(torch):
-    """Phase 24 (``--phase-24`` runs only it): returns the K1/K2 launches
-    of 24a's passes, 24b's fit and 24c's predict."""
+def phase_streaming(torch, phases=(24, 25)):
+    """Phases 24 and 25 (``--phase-24`` and ``--phase-25`` run one of
+    them) on phase 24's data, made once: returns phase 24's K1/K2
+    launches of 24a's passes, 24b's fit and 24c's predict, and phase 25's
+    (:func:`phase_stream_more`), None for a phase not run."""
     import tempfile
+
+    from skdist_tpu_torch import ChunkedDataset
 
     t0 = time.perf_counter()
     X, y = make_20news_sparse(seed=3, n=STREAM_N, d=2 ** 18, nnz_row=40,
                               k=20)
     say(f"phase 24: data 20news-shaped CSR {X.shape}, nnz {X.nnz}, "
         f"{time.perf_counter() - t0:.1f}s to make")
+    launches = more = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
-        ld, pass_launches = phase_stream_data(torch, X, y, tmp)
-        model, fit_launches = phase_stream_fit(torch, X, y, ld)
-        torch.cuda.empty_cache()
-        predict_launches = phase_stream_predict(torch, model, X, ld)
+        if 24 in phases:
+            ld, pass_launches = phase_stream_data(torch, X, y, tmp)
+            model, fit_launches = phase_stream_fit(torch, X, y, ld)
+            torch.cuda.empty_cache()
+            predict_launches = phase_stream_predict(torch, model, X, ld)
+            launches = {"pass": pass_launches, "fit": fit_launches,
+                        "predict": predict_launches}
+            say(f"phase 24 seconds: {time.perf_counter() - t0:.1f}")
+        else:
+            ChunkedDataset.from_arrays(X, y, block_rows=STREAM_BLOCK,
+                                       pack=True).save(tmp)
+            ld = ChunkedDataset.load(tmp)
+        if 25 in phases:
+            torch.cuda.empty_cache()
+            more = phase_stream_more(torch, X, y, ld, tmp)
         del ld
-    say(f"phase 24 seconds: {time.perf_counter() - t0:.1f}")
-    return {"pass": pass_launches, "fit": fit_launches,
-            "predict": predict_launches}
+    return launches, more
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the streamed ridge (K3 a block), SGD (the row forms a block) and
+# L-BFGS searches, stream_scores, one-vs-rest and one-vs-one out of core
+# ---------------------------------------------------------------------------
+
+#: 25a: the first four of phase 24's blocks, folded to the ridge config's
+#: width (a printed cut: the resident fit it is held to builds K3's pair
+#: table over all its rows at once), and the grid's alphas
+STREAM_RIDGE_BLOCKS = 4
+STREAM_RIDGE_ALPHAS = [0.1, 1.0, 10.0, 100.0]
+#: 25b: SGD batches of 4096 rows (16 a block) over two epochs
+STREAM_SGD_BATCH = 4096
+STREAM_SGD_EPOCHS = 2
+#: 25c/25d: L-BFGS iterations of the streamed searches and multiclass fits
+STREAM_CV_ITERS = 10
+STREAM_CV_CS = [0.1, 1.0]
+#: 25d: one-vs-rest on the first four blocks (20 classes), one-vs-one on
+#: the rows of the first four classes in the first eight blocks (6 pairs)
+STREAM_OVR_BLOCKS = 4
+STREAM_OVO_BLOCKS = 8
+STREAM_OVO_CLASSES = 4
+
+
+def fold_columns(X, d):
+    """CSR ``X`` with its columns folded modulo ``d`` and duplicates
+    summed: what a hasher of ``n_features=d`` gives the same tokens."""
+    import scipy.sparse as sp
+
+    Xf = sp.csr_matrix((X.data, X.indices % d, X.indptr),
+                       shape=(X.shape[0], d))
+    Xf.sum_duplicates()
+    return Xf
+
+
+class launch_counts:
+    """The launches of the named kernel wrappers of ``ops.packed_sparse``
+    within the block: every count set to 0 on entry, read on exit into
+    ``self.counts``."""
+
+    NAMES = ("packed_matvec", "packed_rmatvec", "packed_weighted_gram",
+             "packed_row_matvec", "packed_row_rmatvec")
+
+    def __enter__(self):
+        from skdist_tpu_torch.ops import packed_sparse as ps
+
+        self.ps = ps
+        for name in self.NAMES:
+            getattr(ps, name).launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {name: getattr(self.ps, name).launches
+                       for name in self.NAMES}
+
+
+def peak_run(torch, fn):
+    """``(result, wall, peak device bytes above the start)`` of ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = timed_call(torch, fn)
+    return out, wall, torch.cuda.max_memory_allocated() - base
+
+
+def hold_coef_ulp(label, streamed, resident, resident_ulp):
+    """The repo's ulp rule on ``coef_``: the streamed fit within 10x what
+    one ulp of weight noise moves the resident fit (plus 1e-6 of
+    max|coef_| for a fit the noise leaves unmoved)."""
+    gap = float(np.abs(streamed - resident).max())
+    ulp = float(np.abs(resident - resident_ulp).max())
+    scale = float(np.abs(resident).max())
+    say(f"    {label}: max|coef| {scale:.3e}, streamed vs resident max|dcoef| "
+        f"{gap:.3e}, resident vs its ulp-weighted refit {ulp:.3e}")
+    if not np.all(np.isfinite(streamed)):
+        raise AssertionError(f"{label}: non-finite streamed coef_")
+    if not gap <= 10 * ulp + 1e-6 * scale:
+        raise AssertionError(f"{label}: the streamed coef_ is over 10x what "
+                             "one ulp of weight noise moves the resident fit")
+
+
+def hold_cv_ulp(label, streamed, resident, resident_ulp, n_splits,
+                n_test):
+    """The ulp rule on ``cv_results_``: every split's and mean test score
+    of the streamed search within 10x what one ulp of weight noise moves
+    the resident search's, the noise taken as at least one test row of
+    the smallest fold (accuracy moves in whole rows); ``best_params_``
+    equal."""
+    keys = [f"split{i}_test_score" for i in range(n_splits)] + [
+        "mean_test_score"]
+    gap = max(float(np.abs(streamed.cv_results_[k]
+                           - resident.cv_results_[k]).max()) for k in keys)
+    ulp = max(float(np.abs(resident.cv_results_[k]
+                           - resident_ulp.cv_results_[k]).max()) for k in keys)
+    say(f"    {label}: cv_results_ streamed vs resident max gap {gap:.3e}, "
+        f"resident vs its ulp-weighted search {ulp:.3e} (one test row "
+        f"{1.0 / n_test:.3e}); best_params_ streamed "
+        f"{streamed.best_params_}, resident {resident.best_params_}")
+    if not np.all(np.isfinite(streamed.cv_results_["mean_test_score"])):
+        raise AssertionError(f"{label}: non-finite streamed scores")
+    if not gap <= 10 * max(ulp, 1.0 / n_test):
+        raise AssertionError(f"{label}: the streamed cv_results_ are over 10x "
+                             "what one ulp of weight noise moves the resident "
+                             "search's")
+    if streamed.best_params_ != resident.best_params_:
+        raise AssertionError(f"{label}: best_params_ differ")
+
+
+def hold_classes_noise(label, streamed, resident, noised):
+    """Predictions: the streamed model's disagreement with the resident
+    one at most 10x the most that a noised resident refit's shows (at
+    least one row). ``noised`` maps a name to a refit's predictions: an
+    ulp-weighted refit, and a refit of the same rows in another order,
+    whose float32 sums are reordered as a streamed fit's block partials
+    reorder them (a reordered sum moves an unconverged fit more than an
+    ulp of weight noise, which keeps the order)."""
+    n = len(resident)
+    off = float(np.mean(streamed != resident))
+    offs = {name: float(np.mean(u != resident)) for name, u in noised.items()}
+    say(f"    {label}: predictions differ from the resident fit's on "
+        f"{off:.6f} of {n} rows (" + ", ".join(
+            f"the {name} refit's on {v:.6f}" for name, v in offs.items())
+        + ")")
+    if not off <= 10 * max(max(offs.values()), 1.0 / n):
+        raise AssertionError(f"{label}: streamed and resident predictions "
+                             "differ on over 10x the rows a noised resident "
+                             "refit changes")
+
+
+def saved_dataset(X, y, path):
+    """``X``/``y`` as a packed dataset of phase 24's blocks, saved to
+    ``path`` and loaded memory-mapped (its blocks pre-packed on disk, as
+    24a's: a dataset made from CSR in memory packs each block again at
+    every read)."""
+    from skdist_tpu_torch import ChunkedDataset
+
+    ChunkedDataset.from_arrays(X, y, block_rows=STREAM_BLOCK,
+                               pack=True).save(path)
+    return ChunkedDataset.load(path)
+
+
+def phase_stream_ridge(torch, X, y, tmp):
+    """25a: the streamed ridge family at the ridge config's width: K3 held
+    to its plain version on a fed block, a streamed RidgeClassifier fit
+    and a streamed 4 alpha x KFold(5) search held to the resident ones by
+    the ulp rule, K3's launches as predicted, the task rounds and the
+    peak device memory against their billed bytes. Returns K3's launches
+    on the streamed path."""
+    from skdist_tpu_torch import DistGridSearchCV, RidgeClassifier
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.parallel.backend import BlockFeeder
+    from skdist_tpu_torch.sparse import LinearOperator
+    from skdist_tpu_torch.utils.cv import KFold
+
+    n = STREAM_RIDGE_BLOCKS * STREAM_BLOCK
+    t0 = time.perf_counter()
+    Xf, yf = fold_columns(X[:n], RIDGE_D), y[:n]
+    ds = saved_dataset(Xf, yf, os.path.join(tmp, "25a"))
+    say(f"phase 25a: streamed RidgeClassifier at d=2**14: phase 24's rows with "
+        f"their columns folded modulo 2**14 (duplicates summed), "
+        f"{ds.n_blocks} packed blocks of {ds.block_rows} rows, m={ds.packed_m}"
+        f" ({time.perf_counter() - t0:.1f}s to make)")
+    say(f"CUT: phase 25a runs the first {STREAM_RIDGE_BLOCKS} of phase 24's 16 "
+        "blocks: the resident fit it is held to builds K3's pair table over "
+        "all of its rows at once")
+    with BlockFeeder(lambda i: {"X": ds.read_block(i).X}, 1, "cuda") as fd:
+        _i, block = fd.next()
+        op = LinearOperator(block["X"], True)
+        g = torch.Generator(device="cuda").manual_seed(25)
+        sw = torch.rand((STREAM_BLOCK,), generator=g, device="cuda")
+        err = check_k3(torch, ps, op.pidx, op.pval, sw, op.p,
+                       "K3 on a fed block (25a)")
+        pairs = op.gram_pairs()
+        ms = cuda_ms(torch, lambda: ps.packed_weighted_gram(
+            op.pidx, op.pval, sw, op.p, pairs=pairs), 5)
+        say(f"  K3 at the block's shape, one lane: {ms:.3f} ms "
+            f"({pairs.n_pairs} pairs in {pairs.n_cells} cells)")
+        del op, pairs, block
+    torch.cuda.empty_cache()
+    kf = KFold(5)
+    alpha0 = STREAM_RIDGE_ALPHAS[1]
+    with launch_counts() as lc:
+        fit_s, wall_fs, _ = peak_run(
+            torch, lambda: RidgeClassifier(alpha=alpha0).fit(ds))
+        gs_s, wall_gs, peak = peak_run(torch, lambda: DistGridSearchCV(
+            RidgeClassifier(), {"alpha": STREAM_RIDGE_ALPHAS}, cv=kf,
+            scoring="accuracy").fit(ds))
+    st = gs_s.round_stats_[0]
+    refit_rounds = gs_s.best_estimator_.stream_stats_["gram_rounds"]
+    rounds = (fit_s.stream_stats_["gram_rounds"] + st["gram_rounds"]
+              + refit_rounds)
+    want = ds.n_blocks * rounds
+    k3 = lc.counts["packed_weighted_gram"]
+    say(f"  streamed fit alpha={alpha0}: wall {wall_fs:.2f}s; streamed search "
+        f"{len(STREAM_RIDGE_ALPHAS)} alpha x 5 folds: wall {wall_gs:.2f}s, "
+        f"{st['gram_rounds']} task round(s) of {st['gram_lanes_per_round']} "
+        f"lanes, peak device memory {peak / 2**30:.2f} GiB above the start "
+        f"against the rounds' billed {st['gram_round_bytes'] / 2**30:.2f} GiB;"
+        f" K3 launches {k3}, predicted {ds.n_blocks} blocks x {rounds} rounds "
+        f"(the fit, the search, the refit) = {want}")
+    if k3 != want:
+        raise AssertionError(f"phase 25a: K3 launched {k3} times, the design "
+                             f"predicts {want}")
+    if peak > st["gram_round_bytes"]:
+        raise AssertionError("phase 25a: the streamed search's peak device "
+                             "memory is over its rounds' billed bytes")
+    ulp_sw = ulp_weights(n, 7)
+    fit_r, wall_fr, _ = peak_run(
+        torch, lambda: RidgeClassifier(alpha=alpha0).fit(Xf, yf))
+    fit_u = RidgeClassifier(alpha=alpha0).fit(Xf, yf, sample_weight=ulp_sw)
+    hold_coef_ulp("25a fit", fit_s.coef_, fit_r.coef_, fit_u.coef_)
+    gs_r, wall_gr, _ = peak_run(torch, lambda: DistGridSearchCV(
+        RidgeClassifier(), {"alpha": STREAM_RIDGE_ALPHAS}, cv=kf,
+        scoring="accuracy").fit(Xf, yf))
+    gs_u = DistGridSearchCV(
+        RidgeClassifier(), {"alpha": STREAM_RIDGE_ALPHAS}, cv=kf,
+        scoring="accuracy").fit(Xf, yf, sample_weight=ulp_sw)
+    say(f"    resident walls: fit {wall_fr:.2f}s, search {wall_gr:.2f}s")
+    hold_cv_ulp("25a search", gs_s, gs_r, gs_u, 5, n // 5)
+    return k3, err
+
+
+def phase_stream_sgd(torch, X, y, ld):
+    """25b: a streamed SGDClassifier over phase 24's 2**18-wide packed
+    blocks, bitwise the resident fit on the card (``shuffle=False``,
+    ``tol=None``), its row-form launches exact; the row forms held to
+    their plain versions on a fed block's batch; a shuffled streamed fit
+    finite and above the majority share. Returns the row forms'
+    launches on the streamed fit and their largest errors."""
+    from skdist_tpu_torch import SGDClassifier
+    from skdist_tpu_torch.ops import packed_sparse as ps
+    from skdist_tpu_torch.parallel.backend import BlockFeeder
+    from skdist_tpu_torch.sparse import LinearOperator
+
+    kw = dict(batch_size=STREAM_SGD_BATCH, max_iter=STREAM_SGD_EPOCHS,
+              tol=None)
+    say(f"phase 25b: SGDClassifier({kw}, shuffle=False) streamed over phase "
+        "24's blocks and resident on the same rows")
+    say(f"CUT: phase 25b runs {STREAM_SGD_EPOCHS} epochs (of the default 20) "
+        f"in batches of {STREAM_SGD_BATCH} rows")
+    with BlockFeeder(lambda i: {"X": ld.read_block(i).X}, 1, "cuda") as fd:
+        _i, block = fd.next()
+        op = LinearOperator(block["X"], True, sort_columns=False)
+        rows = op.row_batch(torch.arange(STREAM_SGD_BATCH,
+                                         device="cuda")[None])
+        g = torch.Generator(device="cuda").manual_seed(26)
+        W = torch.randn((1, op.p, 20), generator=g, device="cuda")
+        gz = torch.randn((1, STREAM_SGD_BATCH, 20), generator=g,
+                         device="cuda")
+        errs = check_rows(torch, ps, rows[0], rows[1], W, gz, op.p, False,
+                          "a fed block's batch (25b)")
+        del op, rows, W, gz, block
+    torch.cuda.empty_cache()
+    with launch_counts() as lc:
+        ms, wall_s = timed_call(
+            torch, lambda: SGDClassifier(shuffle=False, **kw).fit(ld))
+    st = ms.stream_stats_
+    mr, wall_r = timed_call(
+        torch, lambda: SGDClassifier(shuffle=False, **kw).fit(X, y))
+    want = {"packed_row_matvec": 2 * st["steps"],
+            "packed_row_rmatvec": st["steps"]}
+    got = {k: lc.counts[k] for k in want}
+    same = (np.array_equal(ms.coef_, mr.coef_)
+            and np.array_equal(ms.intercept_, mr.intercept_)
+            and np.array_equal(ms.n_iter_, mr.n_iter_))
+    say(f"  streamed {wall_s:.2f}s ({st['epochs']} epochs, {st['steps']} steps,"
+        f" feed_wait_s {st['feed_wait_s']:.2f}), resident {wall_r:.2f}s; "
+        f"row-form launches {got}, steps x (2, 1) = {want}; coef_, intercept_ "
+        f"and n_iter_ " + ("bitwise equal" if same else "DIFFER"))
+    if not same:
+        raise AssertionError("phase 25b: the streamed SGD fit is not bitwise "
+                             "the resident one")
+    if got != want:
+        raise AssertionError("phase 25b: row-form launches are not steps x "
+                             "their launches a step")
+    if st["steps"] != STREAM_SGD_EPOCHS * (len(y) // STREAM_SGD_BATCH):
+        raise AssertionError(f"phase 25b: {st['steps']} steps")
+    mh, wall_h = timed_call(torch, lambda: SGDClassifier(**kw).fit(ld))
+    acc = float(np.mean(mh.predict(ld) == y))
+    major = float(np.bincount(y).max() / len(y))
+    say(f"  shuffled (block-local orders): {wall_h:.2f}s, training accuracy "
+        f"{acc:.4f} against the majority share {major:.4f}")
+    if not np.all(np.isfinite(mh.coef_)) or not acc > major:
+        raise AssertionError("phase 25b: the shuffled streamed fit is not "
+                             "finite or not above the majority share")
+    return got, errs
+
+
+def phase_stream_search(torch, X, y, ld):
+    """25c: a streamed DistGridSearchCV(LogisticRegression) over phase
+    24's dataset, 2 C x KFold(3), held to the resident search by the ulp
+    rule, the refit streamed; K1/K2 launches = blocks x passes (the
+    scoring pass included). Returns the launches of the search and of
+    its scoring pass."""
+    from skdist_tpu_torch import DistGridSearchCV, LogisticRegression
+    from skdist_tpu_torch.utils.cv import KFold
+
+    say(f"phase 25c: streamed DistGridSearchCV(LogisticRegression(max_iter="
+        f"{STREAM_CV_ITERS}), {{'C': {STREAM_CV_CS}}}, cv=KFold(3)) over "
+        "phase 24's dataset, and resident on the same rows")
+    say(f"CUT: phase 25c fits max_iter={STREAM_CV_ITERS} (of 100) on "
+        f"{len(STREAM_CV_CS)} C x 3 folds")
+
+    def search(X_, sw=None):
+        return DistGridSearchCV(
+            LogisticRegression(max_iter=STREAM_CV_ITERS),
+            {"C": STREAM_CV_CS}, cv=KFold(3), scoring="accuracy").fit(
+                X_, y, **({} if sw is None else {"sample_weight": sw}))
+
+    with launch_counts() as lc:
+        gs_s, wall_s = timed_call(torch, lambda: search(ld))
+    st = gs_s.round_stats_[0]
+    rst = gs_s.best_estimator_.stream_stats_
+    nb = ld.n_blocks
+    want = {"packed_matvec": nb * (st["passes"] + rst["passes"]),
+            "packed_rmatvec": nb * (st["grad_passes"] + rst["grad_passes"])}
+    got = {k: lc.counts[k] for k in want}
+    say(f"  streamed wall {wall_s:.2f}s: search passes {st['passes']} "
+        f"({st['grad_passes']} value-and-gradient, {st['value_passes']} value,"
+        f" {st['score_passes']} scoring), refit passes {rst['passes']}; K1/K2 "
+        f"launches {got}, blocks x passes {want}")
+    if got != want:
+        raise AssertionError("phase 25c: K1/K2 launches are not blocks x "
+                             "passes")
+    if st["score_passes"] != 1 or not isinstance(
+            gs_s.best_estimator_.stream_stats_, dict):
+        raise AssertionError("phase 25c: no streamed scoring pass or refit")
+    gs_r, wall_r = timed_call(torch, lambda: search(X))
+    gs_u = search(X, ulp_weights(len(y), 7))
+    say(f"    resident wall {wall_r:.2f}s")
+    hold_cv_ulp("25c search", gs_s, gs_r, gs_u, 3, len(y) // 3)
+    return got, nb * st["score_passes"]
+
+
+def phase_stream_multiclass(torch, X, y, tmp):
+    """25d: streamed one-vs-rest and one-vs-one of
+    LogisticRegression(max_iter=10) on cuts of phase 24's data, held to
+    the resident fits: predictions differ on at most 10x the rows a
+    noised resident refit changes (:func:`hold_classes_noise`). Returns
+    each path's K1/K2 launches."""
+    from skdist_tpu_torch import (DistOneVsOneClassifier,
+                                  DistOneVsRestClassifier,
+                                  LogisticRegression)
+
+    est = LogisticRegression(max_iter=STREAM_CV_ITERS)
+    n_ovr = STREAM_OVR_BLOCKS * STREAM_BLOCK
+    rows = np.flatnonzero(y[:STREAM_OVO_BLOCKS * STREAM_BLOCK]
+                          < STREAM_OVO_CLASSES)
+    say(f"phase 25d: streamed one-vs-rest and one-vs-one of "
+        f"LogisticRegression(max_iter={STREAM_CV_ITERS})")
+    say(f"CUT: phase 25d's one-vs-rest runs the first {STREAM_OVR_BLOCKS} of "
+        f"16 blocks (20 classes); its one-vs-one the {len(rows)} rows of the "
+        f"first {STREAM_OVO_CLASSES} classes in the first "
+        f"{STREAM_OVO_BLOCKS} blocks ({STREAM_OVO_CLASSES * (STREAM_OVO_CLASSES - 1) // 2}"
+        " pairs)")
+    out = {}
+    for name, cls, Xc, yc in (
+            ("streamed_ovr", DistOneVsRestClassifier, X[:n_ovr], y[:n_ovr]),
+            ("streamed_ovo", DistOneVsOneClassifier, X[rows], y[rows])):
+        ds = saved_dataset(Xc, yc, os.path.join(tmp, name))
+        with launch_counts() as lc:
+            ms, wall_s = timed_call(torch, lambda: cls(est).fit(ds))
+        mr, wall_r = timed_call(torch, lambda: cls(est).fit(Xc, yc))
+        perm = np.random.RandomState(25).permutation(len(yc))
+        noised = {
+            "ulp-weighted": cls(est).fit(
+                Xc, yc, sample_weight=ulp_weights(len(yc), 7)).predict(Xc),
+            "row-permuted": cls(est).fit(Xc[perm], yc[perm]).predict(Xc)}
+        st = ms.round_stats_[0]
+        out[name] = {k: lc.counts[k] for k in ("packed_matvec",
+                                               "packed_rmatvec")}
+        say(f"  {name}: {ds.n_rows} rows in {ds.n_blocks} blocks, "
+            f"{st['tasks']} lanes, passes {st['passes']}; streamed "
+            f"{wall_s:.2f}s (feed_wait_s {st['feed_wait_s']:.2f}, read_place_s "
+            f"{st['read_place_s']:.2f}, dispatch_s {st['dispatch_s']:.2f}), "
+            f"resident {wall_r:.2f}s; K1/K2 launches {out[name]}")
+        want = {"packed_matvec": ds.n_blocks * st["passes"],
+                "packed_rmatvec": ds.n_blocks * st["grad_passes"]}
+        if out[name] != want:
+            raise AssertionError(f"phase 25d: {name}'s K1/K2 launches are "
+                                 f"not blocks x passes {want}")
+        pred_s = ms.predict(ds)
+        if not np.array_equal(pred_s, ms.predict(Xc)):
+            raise AssertionError(f"phase 25d: {name}'s chunked predict is "
+                                 "not its resident predict")
+        hold_classes_noise(f"25d {name}", pred_s, mr.predict(Xc), noised)
+        del ds
+    return out
+
+
+def phase_stream_more(torch, X, y, ld, tmp):
+    """Phase 25 (``--phase-25`` runs it, with phase 24's data): returns the
+    launches of its paths and the largest errors of K3 and the row forms
+    on its fed blocks."""
+    t0 = time.perf_counter()
+    laps = []
+
+    def sub_lap():
+        torch.cuda.empty_cache()
+        laps.append(time.perf_counter() - t0 - sum(laps))
+
+    k3, k3_err = phase_stream_ridge(torch, X, y, tmp)
+    sub_lap()
+    sgd, row_errs = phase_stream_sgd(torch, X, y, ld)
+    sub_lap()
+    search, scores = phase_stream_search(torch, X, y, ld)
+    sub_lap()
+    multi = phase_stream_multiclass(torch, X, y, tmp)
+    sub_lap()
+    say(f"phase 25 seconds: {sum(laps):.1f} (25a-d "
+        + ", ".join(f"{t:.1f}" for t in laps) + ")")
+    return {"streamed_ridge": k3, "k3_err": k3_err, "streamed_sgd": sgd,
+            "row_errs": row_errs, "streamed_search": search,
+            "stream_scores": scores, **multi}
 
 
 def main():
@@ -5826,6 +6328,10 @@ def main():
                     help="build the kernels and run only phase 24 (no "
                     "result line): a short check of the out-of-core data "
                     "plane, the streamed fit and chunked predict")
+    ap.add_argument("--phase-25", action="store_true",
+                    help="build the kernels and run only phase 25 (no "
+                    "result line) on phase 24's data: a short check of the "
+                    "streamed ridge, SGD, search and multiclass fits")
     ap.add_argument("--ab-row-kernels", metavar="DIR",
                     help="run only an A/B of the row kernels' times and "
                     "phase 14d's step split between the checkout at DIR "
@@ -5896,8 +6402,8 @@ def main():
         phase_featurize(torch)
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
-    if args.phase_24:
-        phase_streaming(torch)
+    if args.phase_24 or args.phase_25:
+        phase_streaming(torch, (24,) if args.phase_24 else (25,))
         say(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -6022,32 +6528,41 @@ def main():
     # the card refit again on X * (1 + 2**-23). Tolerance: the card/CPU
     # coef_ gap is at most 10x that one-ulp gap (plus 1e-6 of max|coef_|
     # for a solve that absorbs the ulp entirely); a wrong kernel or
-    # objective moves coef_ by far more than rounding does.
+    # objective moves coef_ by far more than rounding does. The CPU fit
+    # (~50 s) runs in a process of its own on CPU_REFIT_THREADS of the
+    # host's cores while the card runs the rest of phase 3 and 3b.
     best_C = float(gs.best_params_["C"])
-    t0 = time.perf_counter()
-    on_card = LogisticRegression(C=best_C, max_iter=100).fit(X, y)
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    on_cpu = LogisticRegression(C=best_C, max_iter=100, device="cpu",
-                                engine="xla").fit(X, y)
-    t_cpu = time.perf_counter() - t0
-    X_ulp = X.copy()
-    X_ulp.data *= np.float32(1 + 2.0 ** -23)
-    on_card_ulp = LogisticRegression(C=best_C, max_iter=100).fit(X_ulp, y)
-    dcoef = float(np.abs(on_card.coef_ - on_cpu.coef_).max())
+    say(f"  phase 3's CPU refit runs in a process of its own, on "
+        f"{CPU_REFIT_THREADS} host threads, beside the card's work up to the "
+        "end of phase 3b")
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_job = pool.submit(cpu_logreg_refit, X, y, best_C,
+                              CPU_REFIT_THREADS)
+        t0 = time.perf_counter()
+        on_card = LogisticRegression(C=best_C, max_iter=100).fit(X, y)
+        t_card = time.perf_counter() - t0
+        X_ulp = X.copy()
+        X_ulp.data *= np.float32(1 + 2.0 ** -23)
+        on_card_ulp = LogisticRegression(C=best_C, max_iter=100).fit(X_ulp, y)
+        profile_logreg_round(torch, X, y, Cs_main, stats["tasks_per_round"],
+                             backend)
+        phase_sparse_ab(torch, X, y, Cs_main)
+        t0 = time.perf_counter()
+        cpu_coef, cpu_iter, t_cpu = cpu_job.result()
+        t_wait = time.perf_counter() - t0
+    dcoef = float(np.abs(on_card.coef_ - cpu_coef).max())
     dulp = float(np.abs(on_card.coef_ - on_card_ulp.coef_).max())
-    scale = float(np.abs(on_cpu.coef_).max())
-    say(f"  refit C={best_C:.4g}: card {t_card:.1f}s ({on_card.n_iter_} it), "
-        f"cpu {t_cpu:.1f}s ({on_cpu.n_iter_} it); max|coef| {scale:.3e}, "
+    scale = float(np.abs(cpu_coef).max())
+    say(f"phase 3's refit C={best_C:.4g}: card {t_card:.1f}s "
+        f"({on_card.n_iter_} it), cpu {t_cpu:.1f}s ({cpu_iter} it, "
+        f"{t_wait:.1f}s of it waited for after 3b); max|coef| {scale:.3e}, "
         f"card vs cpu max|dcoef| {dcoef:.3e}, card vs card on X*(1+ulp) "
         f"{dulp:.3e}")
     if not dcoef <= 10 * dulp + 1e-6 * scale:
         raise AssertionError(
             "card and CPU refits differ by more than 10x what one ulp of "
             "input noise does")
-    profile_logreg_round(torch, X, y, Cs_main, stats["tasks_per_round"],
-                         backend)
-    phase_sparse_ab(torch, X, y, Cs_main)
     lap("phases 2-3b")
 
     # ---- phase 4: the dense headline -----------------------------------
@@ -6179,9 +6694,10 @@ def main():
     torch.cuda.empty_cache()
     enc_launches = phase_featurize(torch)
 
-    # ---- phase 24: out of core: the data plane, streamed fit, predict ---
+    # ---- phases 24-25: out of core: the data plane, the streamed fits,
+    # ---- searches and multiclass, chunked predict
     torch.cuda.empty_cache()
-    stream_launches = phase_streaming(torch)
+    stream_launches, more = phase_streaming(torch)
 
     # ---- phase 12: the kernel line and the result line -----------------
     source = "skdist_tpu_torch/csrc/packed_sparse.cu"
@@ -6201,7 +6717,12 @@ def main():
                       for size, v in enc_launches.items()},
                    "streamed_pass": stream_launches["pass"]["packed_matvec"],
                    "streamed_fit": stream_launches["fit"]["packed_matvec"],
-                   "chunked_predict": stream_launches["predict"]}},
+                   "chunked_predict": stream_launches["predict"],
+                   "streamed_search":
+                       more["streamed_search"]["packed_matvec"],
+                   "stream_scores": more["stream_scores"],
+                   "streamed_ovr": more["streamed_ovr"]["packed_matvec"],
+                   "streamed_ovo": more["streamed_ovo"]["packed_matvec"]}},
         {"name": "packed_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": launches["packed_rmatvec"],
@@ -6215,14 +6736,20 @@ def main():
                    **{f"encoder_{size}": v["packed_rmatvec"]
                       for size, v in enc_launches.items()},
                    "streamed_pass": stream_launches["pass"]["packed_rmatvec"],
-                   "streamed_fit": stream_launches["fit"]["packed_rmatvec"]}},
+                   "streamed_fit": stream_launches["fit"]["packed_rmatvec"],
+                   "streamed_search":
+                       more["streamed_search"]["packed_rmatvec"],
+                   "streamed_ovr": more["streamed_ovr"]["packed_rmatvec"],
+                   "streamed_ovo": more["streamed_ovo"]["packed_rmatvec"]}},
         {"name": "packed_weighted_gram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/packed_gram.cu",
          "replaces": "skdist_tpu/ops/pallas_sparse.py:263",
          "launches": r_launches["packed_weighted_gram"],
-         "max_abs_err": k3_err, "ms": k3_times["K3"],
+         "max_abs_err": max(k3_err, more["k3_err"]), "ms": k3_times["K3"],
          "plain_ms": k3_times["K3_plain"], "bound_ms": k3_bound_ms,
-         "bound_by": k3_by, "library_ms": k3_times["sparse_mm"]},
+         "bound_by": k3_by, "library_ms": k3_times["sparse_mm"],
+         "paths": {"ridge_grid": r_launches["packed_weighted_gram"],
+                   "streamed_ridge": more["streamed_ridge"]}},
         {"name": "level_histogram", "route": "cuda",
          "source": "skdist_tpu_torch/csrc/level_histogram.cu",
          "replaces": "skdist_tpu/ops/pallas_hist.py:124",
@@ -6238,25 +6765,30 @@ def main():
         {"name": "packed_row_matvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:130",
          "launches": row_launches["packed_row_matvec"],
-         "max_abs_err": max(e[0] for e in row_errs),
+         "max_abs_err": max([e[0] for e in row_errs]
+                            + [more["row_errs"][0]]),
          "ms": row_times["row_matvec"],
          "plain_ms": row_times["row_matvec_plain"],
          "bound_ms": row_mv_bound[0], "bound_by": row_mv_bound[1],
          "library_ms": row_times["row_matvec_library"],
          **row_clocks(row_times, "row_matvec"),
          "paths": {"ovr_sgd": row_launches["packed_row_matvec"],
-                   "multimodel": mm_launches["packed_row_matvec"]}},
+                   "multimodel": mm_launches["packed_row_matvec"],
+                   "streamed_sgd": more["streamed_sgd"]["packed_row_matvec"]}},
         {"name": "packed_row_rmatvec", "route": "cuda", "source": source,
          "replaces": "skdist_tpu/ops/pallas_sparse.py:180",
          "launches": row_launches["packed_row_rmatvec"],
-         "max_abs_err": max(e[1] for e in row_errs),
+         "max_abs_err": max([e[1] for e in row_errs]
+                            + [more["row_errs"][1]]),
          "ms": row_times["row_rmatvec"],
          "plain_ms": row_times["row_rmatvec_plain"],
          "bound_ms": row_rmv_bound[0], "bound_by": row_rmv_bound[1],
          "library_ms": row_times["row_rmatvec_library"],
          **row_clocks(row_times, "row_rmatvec"),
          "paths": {"ovr_sgd": row_launches["packed_row_rmatvec"],
-                   "multimodel": mm_launches["packed_row_rmatvec"]},
+                   "multimodel": mm_launches["packed_row_rmatvec"],
+                   "streamed_sgd":
+                       more["streamed_sgd"]["packed_row_rmatvec"]},
          "library_zeroed_ms": row_times["row_rmatvec_library_zeroed"],
          "library_zeroed_device_ms":
              row_times["row_rmatvec_library_zeroed_device"],

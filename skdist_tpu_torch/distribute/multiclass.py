@@ -27,12 +27,20 @@ convergence-compacted path (the CV search uses it too). Counterpart of
   semantics (exact down-sampling, the constant-column fallback, nested
   search unwrapping).
 
-Both paths leave the same artifacts: ``estimators_`` (plain picklable
-binary estimators), ``classes_``, and ``predict``/``predict_proba``/
-``decision_function``.
+- **Streamed path** (a :class:`~skdist_tpu_torch.data.ChunkedDataset`
+  X and a linear family with a streamed fit): the class (or pair) lanes
+  share one streamed fit (``models/streaming.py``), so every solver
+  pass reads each block once for all of them; each lane's labels and
+  weights are derived on the device from the block's encoded labels
+  (``y == c``; a pair's mask), as in the JAX package. No host fallback
+  exists for a dataset, so what it cannot take raises.
 
-Not ported yet (ROADMAP): the streamed (out-of-core) fits of both
-meta-estimators, and the backends' host fan-out (``run_tasks``; the
+All paths leave the same artifacts: ``estimators_`` (plain picklable
+binary estimators), ``classes_``, and ``predict``/``predict_proba``/
+``decision_function``, which take a dataset too (block by block through
+:func:`~skdist_tpu_torch.distribute.predict.batch_predict`).
+
+Not ported yet (ROADMAP): the backends' host fan-out (``run_tasks``; the
 generic path here runs its fits in turn).
 """
 
@@ -115,14 +123,84 @@ def _warn_nonfinite_lanes(stacked, describe, what):
     )
 
 
-def _refuse_chunked(X, what):
-    """The streamed one-vs-rest and one-vs-one fits over a ChunkedDataset
-    are not ported yet."""
+def _stream_prep(meta_est, dataset, y, fit_params, what):
+    """The checks and host prep shared by the streamed one-vs-rest and
+    one-vs-one fits: ``(1-D labels, sample weights (n,), the {0, 1}
+    binary sub-problem's meta and static)``. Raises for what the streamed
+    path cannot take: an estimator without a streamed binary fit, a
+    ``class_weight`` (keyed by the original labels, which do not map onto
+    the binary sub-problems), ``engine='host'``, multilabel y and fit
+    params other than a full-length ``sample_weight``."""
+    from ..models.linear import _freeze, prepare_sample_weight
+
+    est = meta_est.estimator
+    est_cls = type(est)
+    if getattr(est_cls, "_stream_fit_kind", None) is None or \
+            not _batched_family(est):
+        raise ValueError(
+            f"{est_cls.__name__} has no streamed fit path; "
+            f"ChunkedDataset {what} supports the linear classifiers")
+    if getattr(est, "class_weight", None) is not None:
+        raise ValueError(
+            "class_weight does not map onto the streamed {0,1} binary "
+            f"sub-problems; fit with resident X for class-weighted {what}")
+    if getattr(est, "engine", None) == "host":
+        raise ValueError(
+            "engine='host' cannot fit a ChunkedDataset; use "
+            "engine='auto'/'xla'")
+    if y is None:
+        y = dataset.load_y()
+    y = np.asarray(y)
+    if y.ndim != 1 and not (y.ndim == 2 and y.shape[1] == 1):
+        raise ValueError(
+            f"{what} over a ChunkedDataset needs 1-D multiclass labels; "
+            f"got y with shape {y.shape}")
+    sw, sw_ok = full_length_sample_weight(fit_params, dataset.n_rows)
+    if not sw_ok:
+        raise ValueError(
+            f"streamed {what} supports only a full-length sample_weight "
+            f"fit param; got {sorted(fit_params)}")
+    if sw is None:
+        sw = dataset.load_sw()
+    meta = {"n_features": dataset.n_features,
+            "classes": np.arange(2, dtype=np.int64), "n_classes": 2,
+            "cw_arr": None, "x_format": dataset.x_format}
+    if dataset.x_format == "packed":
+        meta["packed_m"] = dataset.packed_m
+    static = _freeze(est._static_config(meta))
+    return (y.reshape(-1), prepare_sample_weight(sw, dataset.n_rows), meta,
+            static)
+
+
+def _stream_binary_fits(meta_est, dataset, y_idx, sw, meta, static, task,
+                        derive):
+    """The lanes of ``task`` (``(T,)`` host arrays) as one streamed binary
+    fit of the estimator, ``derive(block, task) -> (y (T, rows), sw (T,
+    rows))`` making their labels and weights on the device; returns the
+    stacked params and sets ``round_stats_``."""
+    from ..models.streaming import (new_stream_stats, stream_fit_tasks,
+                                    stream_hyper)
+
+    est = meta_est.estimator
+    n_lanes = len(next(iter(task.values())))
+    stats = new_stream_stats(False)
+    device = _resolve_backend(meta_est.backend, est).device
+    params = stream_fit_tasks(type(est), meta, static, dataset,
+                              {"y": y_idx, "sw": sw},
+                              stream_hyper(est, n_lanes), device,
+                              stats=stats, task=task, derive=derive)
+    meta_est.round_stats_ = [dict(stats, x_format=meta["x_format"])]
+    return params
+
+
+def _method_output(est, X, method):
+    """``est.<method>(X)`` as an array; a dataset X goes block by block
+    through :func:`~skdist_tpu_torch.distribute.predict.batch_predict`."""
     if is_chunked(X):
-        raise NotImplementedError(
-            f"{what}.fit over a ChunkedDataset (the streamed class-lane "
-            "fit) is not ported to skdist_tpu_torch yet (see ROADMAP.md, "
-            "queue 1 item 9b)")
+        from .predict import batch_predict
+
+        return np.asarray(batch_predict(est, X, method))
+    return np.asarray(getattr(est, method)(X))
 
 
 class _ConstantPredictor(BaseEstimator):
@@ -297,14 +375,14 @@ def _binary_confidence(est, X):
     through, a two-column decision becomes its difference, otherwise
     ``proba - 0.5``."""
     if hasattr(est, "decision_function"):
-        dec = np.asarray(est.decision_function(X))
+        dec = _method_output(est, X, "decision_function")
         if dec.ndim == 1:
             return dec
         if dec.ndim == 2 and dec.shape[1] == 1:
             return dec[:, 0]
         if dec.ndim == 2 and dec.shape[1] == 2:
             return dec[:, 1] - dec[:, 0]
-    return np.asarray(est.predict_proba(X))[:, 1] - 0.5
+    return _method_output(est, X, "predict_proba")[:, 1] - 0.5
 
 
 def _make_fitted_binary(base, params, meta):
@@ -482,10 +560,14 @@ class DistOneVsRestClassifier(BaseEstimator, ClassifierMixin):
 
     def fit(self, X, y=None, **fit_params):
         check_estimator_backend(self, self.verbose)
-        _refuse_chunked(X, type(self).__name__)
         if self.method not in ("ratio", "multiplier"):
             raise ValueError(
                 "Unknown method. Options are 'ratio' or 'multiplier'.")
+        if is_chunked(X):
+            self._fit_streamed(X, y, fit_params)
+            self.estimator = clone(self.estimator)
+            strip_runtime(self)
+            return self
         if y is None:
             raise TypeError("fit requires y")
         Y, classes, multilabel = _label_matrix(y)
@@ -505,6 +587,62 @@ class DistOneVsRestClassifier(BaseEstimator, ClassifierMixin):
         self.estimator = clone(self.estimator)
         strip_runtime(self)
         return self
+
+    # -- streamed path ----------------------------------------------------
+    def _fit_streamed(self, dataset, y, fit_params):
+        """One-vs-rest over a dataset: the class lanes share one streamed
+        fit, each lane's labels ``y == c`` made on the device from the
+        block's encoded labels; a binary y fits the positive class alone.
+        A class present in every row or in none gets a constant
+        predictor, as on the resident paths."""
+        if self.max_negatives is not None:
+            raise ValueError(
+                "max_negatives down-sampling needs per-class row draws over "
+                "resident X; not supported with ChunkedDataset input")
+        y, sw, meta, static = _stream_prep(self, dataset, y, fit_params,
+                                           "one-vs-rest")
+        classes, y_enc = np.unique(y, return_inverse=True)
+        y_enc = y_enc.reshape(-1).astype(np.int32)
+        self.classes_ = classes
+        self.multilabel_ = False
+        k = len(classes)
+        self.binary_ = k == 2
+        task_cls = (np.array([1], np.int32) if self.binary_
+                    else np.arange(k, dtype=np.int32))
+        counts = np.bincount(y_enc, minlength=k)
+        n = dataset.n_rows
+        degenerate = (counts == 0) | (counts == n)
+        live = np.asarray([c for c in task_cls if not degenerate[c]],
+                          np.int32)
+        estimators = [None] * len(task_cls)
+        self.round_stats_ = []
+        if live.size:
+            def derive(block, task):
+                y_bin = block["y"][None, :] == task["cls"][:, None]
+                return (y_bin.to(torch.int32),
+                        block["sw"][None].expand(y_bin.shape[0], -1))
+
+            params = _stream_binary_fits(self, dataset, y_enc, sw, meta,
+                                         static, {"cls": live}, derive)
+            _warn_nonfinite_lanes(
+                params, lambda i: f"class {classes[live[i]]!r}",
+                "one-vs-rest")
+            for t, cls_idx in enumerate(live):
+                estimators[int(np.flatnonzero(task_cls == cls_idx)[0])] = \
+                    _make_fitted_binary(
+                        self.estimator,
+                        {key: v[t] for key, v in params.items()}, meta)
+        for col, cls_idx in enumerate(task_cls):
+            if not degenerate[cls_idx]:
+                continue
+            warnings.warn(
+                f"Label {self._col_label(col)} is present in "
+                f"{'all' if counts[cls_idx] == n else 'no'} training "
+                "examples.")
+            cp = _ConstantPredictor()
+            cp.y_ = np.array([1 if counts[cls_idx] == n else 0])
+            estimators[col] = cp
+        self.estimators_ = estimators
 
     # -- batched device path ---------------------------------------------
     def _try_batched(self, X, Y, sample_weight=None):
@@ -633,7 +771,7 @@ class DistOneVsRestClassifier(BaseEstimator, ClassifierMixin):
         cols = []
         for est in self.estimators_:
             if want_proba:
-                cols.append(np.asarray(est.predict_proba(X))[:, 1])
+                cols.append(_method_output(est, X, "predict_proba")[:, 1])
             else:
                 cols.append(_binary_confidence(est, X))
         return np.column_stack(cols)
@@ -699,7 +837,11 @@ class DistOneVsOneClassifier(BaseEstimator, ClassifierMixin):
 
     def fit(self, X, y=None, **fit_params):
         check_estimator_backend(self, self.verbose)
-        _refuse_chunked(X, type(self).__name__)
+        if is_chunked(X):
+            self._fit_streamed(X, y, fit_params)
+            self.estimator = clone(self.estimator)
+            strip_runtime(self)
+            return self
         if y is None:
             raise ValueError("y is required")
         y = np.asarray(y)
@@ -715,6 +857,36 @@ class DistOneVsOneClassifier(BaseEstimator, ClassifierMixin):
         self.estimator = clone(self.estimator)
         strip_runtime(self)
         return self
+
+    def _fit_streamed(self, dataset, y, fit_params):
+        """One-vs-one over a dataset: all ``k(k-1)/2`` pair lanes share
+        one streamed fit, so every solver pass reads each block once for
+        all of them; a pair's rows are a weight mask (``in pair x
+        sample_weight``) and its labels ``y == j``, both made on the
+        device, as on the resident batched path."""
+        y, sw, meta, static = _stream_prep(self, dataset, y, fit_params,
+                                           "one-vs-one")
+        self.classes_ = np.unique(y)
+        k = len(self.classes_)
+        self.pairs_ = [(i, j) for i in range(k) for j in range(i + 1, k)]
+        y_idx = np.searchsorted(self.classes_, y).astype(np.int32)
+
+        def derive(block, task):
+            yi = block["y"][None, :]
+            in_pair = (yi == task["i"][:, None]) | (yi == task["j"][:, None])
+            y_bin = (yi == task["j"][:, None]).to(torch.int32)
+            return y_bin, in_pair.to(torch.float32) * block["sw"]
+
+        task = {"i": np.asarray([p[0] for p in self.pairs_], np.int32),
+                "j": np.asarray([p[1] for p in self.pairs_], np.int32)}
+        params = _stream_binary_fits(self, dataset, y_idx, sw, meta, static,
+                                     task, derive)
+        _warn_nonfinite_lanes(params, self._describe_pair, "one-vs-one")
+        self.estimators_ = [
+            _make_fitted_binary(self.estimator,
+                                {key: v[t] for key, v in params.items()},
+                                meta)
+            for t in range(len(self.pairs_))]
 
     def _describe_pair(self, t):
         i, j = self.pairs_[t]

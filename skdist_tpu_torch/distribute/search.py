@@ -59,15 +59,26 @@ each started from the previous optimum.
 :class:`DistMultiModelSearch` runs a randomized search over several
 model families through the same scheduler, family by family.
 
+A :class:`~skdist_tpu_torch.data.ChunkedDataset` X takes the streamed
+search (:meth:`DistBaseSearchCV._run_streamed_search`), as in the JAX
+package: the folds are one ``(n,)`` fold-id vector sliced per block, a
+bucket's (candidate x fold) lanes fit through the family's streamed fit
+(``models/streaming.py``: L-BFGS passes, the ridge family's summed
+normal equations, SGD epochs as block streams) with the fold masks
+composed into the weights on the device, and one more streamed pass
+scores them with ``metrics.STREAM_SCORERS``; the best candidate is
+refit streamed.
+
 Not ported yet (ROADMAP): checkpointing (and so the journaling of rung
-kills), streamed input and its streamed rungs, and fault retries of the
-compacted path.
+kills), the streamed search's ASHA rungs (Queue 1 item 9c), and fault
+retries of the compacted path.
 """
 
 import time
 import warnings
 
 import numpy as np
+import torch
 from numpy.ma import MaskedArray
 from scipy.stats import rankdata
 
@@ -76,6 +87,8 @@ from ..data import is_chunked
 from ..metrics import (
     BINARY_ONLY_SCORERS,
     DEVICE_SCORERS,
+    STREAM_BINARY_ONLY,
+    STREAM_SCORERS,
     aggregate_score_dicts,
     check_multimetric_scoring,
     default_device_scorer,
@@ -123,13 +136,6 @@ def _not_ported(what, where=_ROADMAP):
     return NotImplementedError(
         f"{what} is not ported to skdist_tpu_torch yet ({where})"
     )
-
-
-def _refuse_chunked(X):
-    """The streamed search over a ChunkedDataset is not ported yet."""
-    if is_chunked(X):
-        raise _not_ported("a search over a ChunkedDataset (the streamed "
-                          "search)", "see ROADMAP.md, queue 1 item 9b")
 
 
 def _fit_and_score(estimator, X, y, scorers, train, test, parameters,
@@ -313,6 +319,90 @@ def _resolve_device_scoring(estimator, scoring, classes):
     return specs
 
 
+def _resolve_stream_scoring(estimator, scoring, y=None):
+    """``scoring`` as the streamed search's ``[(out_name, metric)]`` over
+    :data:`~skdist_tpu_torch.metrics.STREAM_SCORERS`, or a ValueError: the
+    streamed search has no host fallback, so a metric it cannot score
+    says so."""
+    if scoring is None:
+        names = [("score", default_device_scorer(estimator))]
+    elif isinstance(scoring, str):
+        names = [("score", scoring)]
+    elif isinstance(scoring, (list, tuple, set)):
+        names = [(s, s) for s in scoring]
+    else:
+        raise ValueError(
+            "streamed search scoring must be None, a metric name, or a "
+            "list of metric names (callable scorers need resident "
+            f"predictions); got {scoring!r}")
+    classes = np.unique(y) if y is not None else None
+    for _out, metric in names:
+        if metric not in STREAM_SCORERS:
+            raise ValueError(
+                f"scoring={metric!r} has no streamed (decomposable) "
+                f"kernel; streamed search supports {sorted(STREAM_SCORERS)}")
+        if not scorer_task_compatible(metric, estimator):
+            raise ValueError(
+                f"scoring={metric!r} does not fit a "
+                f"{getattr(estimator, '_estimator_type', 'model')}: "
+                "streamed scoring has no host fallback, so the metric "
+                "must match the estimator kind")
+        if metric in STREAM_BINARY_ONLY and not device_scorer_compatible(
+                metric, classes):
+            raise ValueError(
+                f"scoring={metric!r} is binary-only with positive class 1; "
+                "this label set needs a resident fit")
+    return names
+
+
+def _partition_fold_ids(splits, n):
+    """The CV splits as one ``(n,)`` fold-id vector, which the streamed
+    search slices per block. The splits must partition the rows, each
+    train set the complement of its test set (KFold/StratifiedKFold);
+    anything else raises."""
+    fold_id = np.full(n, -1, dtype=np.int32)
+    for s, (train, test) in enumerate(splits):
+        test = np.asarray(test)
+        if (fold_id[test] != -1).any():
+            raise ValueError(
+                "streamed search needs partition-style CV (each row in "
+                "exactly one test fold, train = complement), e.g. "
+                "KFold/StratifiedKFold; this splitter assigns rows to "
+                "multiple test folds")
+        fold_id[test] = s
+        if len(train) + len(test) != n:
+            raise ValueError(
+                "streamed search needs partition-style CV with "
+                "train = complement of test (KFold/StratifiedKFold); "
+                f"split {s} covers {len(train) + len(test)} of {n} rows")
+    if (fold_id == -1).any():
+        raise ValueError(
+            "streamed search needs partition-style CV: "
+            f"{int((fold_id == -1).sum())} rows appear in no test fold")
+    return fold_id
+
+
+def _stream_cv_derive(block, task):
+    """The streamed search's lanes: the block's labels, and its weights
+    times each lane's train-fold mask (a padded tail row weighs 0)."""
+    fit_w = block["sw"] * (block["fold"] != task["split"][:, None]).to(
+        block["sw"].dtype)
+    return block["y"], fit_w
+
+
+def _stream_test_weights(block, task):
+    """Scoring weights: the raw test-fold masks (a padded tail row's fold
+    id -1 equals no split id)."""
+    return (block["fold"] == task["split"][:, None]).to(torch.float32)
+
+
+def _stream_train_weights(block, task):
+    """The train folds' raw masks; the padded tail rows (fold id -1)
+    differ from every split id and are excluded explicitly."""
+    return ((block["fold"] != task["split"][:, None])
+            & (block["fold"] >= 0)).to(torch.float32)
+
+
 def _cv_scoring(est_cls, meta, static, scorer_specs, return_train_score,
                 rung_spec=None, mask_x=False):
     """``(scores, rung_score)``: ``scores(params, shared, task)`` scores
@@ -459,12 +549,15 @@ class DistBaseSearchCV(BaseEstimator):
         :func:`~skdist_tpu_torch.parallel.resolve_backend`."""
         check_error_score(self.error_score)
         check_adaptive(self.adaptive)
-        _refuse_chunked(X)
         if checkpoint_dir is not None:
             raise _not_ported(
                 "checkpoint_dir (search checkpointing)",
                 "see ROADMAP.md, queue 1 item 10, with parallel/faults.py")
         estimator = self.estimator
+        if is_chunked(X) and y is None:
+            # a dataset carries its labels: O(n) host bytes, which the
+            # splitters, the class discovery and the scoring read
+            y = X.load_y()
         if y is None:
             raise ValueError(f"{type(self).__name__}.fit needs y")
         if self.backend is None:
@@ -477,7 +570,11 @@ class DistBaseSearchCV(BaseEstimator):
         if not is_classifier and np.ndim(y) != 1:
             raise _not_ported("a regressor's multi-target y")
         cv = check_cv(self.cv, y, classifier=is_classifier)
-        n_splits = cv.get_n_splits(X, y, groups)
+        # splitters index rows, not features: a dataset is shown to them as
+        # an (n, 0) stand-in of no bytes
+        split_X = (np.empty((len(X), 0), dtype=np.float32) if is_chunked(X)
+                   else X)
+        n_splits = cv.get_n_splits(split_X, y, groups)
         candidate_params = list(self._get_param_iterator())
         if self.verbose:
             print(
@@ -485,7 +582,7 @@ class DistBaseSearchCV(BaseEstimator):
                 f"{len(candidate_params)} candidates, totalling "
                 f"{len(candidate_params) * n_splits} fits"
             )
-        splits = list(cv.split(X, y, groups))
+        splits = list(cv.split(split_X, y, groups))
         scorers, multimetric = check_multimetric_scoring(estimator,
                                                          self.scoring)
         self.multimetric_ = multimetric
@@ -557,7 +654,12 @@ class DistBaseSearchCV(BaseEstimator):
         the batched path: under ``engine='auto'`` only when X would not
         pack (packed X has no host form and stays batched), under an
         explicit ``engine='host'`` always. So does a search over
-        ``engine`` itself, whose candidates must each run their own."""
+        ``engine`` itself, whose candidates must each run their own. A
+        ChunkedDataset X takes the streamed search, its one path."""
+        if is_chunked(X):
+            return self._run_streamed_search(
+                backend, estimator, X, y, candidate_params, splits,
+                fit_params), {}, False
         sw, sw_ok = full_length_sample_weight(fit_params, num_samples(X))
         host = prefers_host_engine(backend, estimator, X)
         if (sw_ok and hasattr(type(estimator), "_build_fit_kernel")
@@ -843,6 +945,102 @@ class DistBaseSearchCV(BaseEstimator):
                               exempt=set(killed_gids))
         return out, killed_gids, engaged
 
+    def _run_streamed_search(self, backend, estimator, dataset, y,
+                             candidate_params, splits, fit_params):
+        """The out-of-core search: each bucket's (candidate x fold) lanes
+        fit through the family's streamed fit on the backend's device,
+        their fold masks composed from the ``(n,)`` fold ids into the
+        weights on the device, then one more streamed pass over the same
+        feeder scores them (``metrics.STREAM_SCORERS``: test weights are
+        the raw fold masks, train weights exclude the tail padding).
+        Returns the per-task score dicts in task order; nothing X-sized
+        leaves the dataset's blocks. Unsupported settings raise: there is
+        no host fallback that could hold X."""
+        from ..models.linear import _freeze, hyper_float
+        from ..models.streaming import (new_stream_stats, open_feeder,
+                                        stream_fit_tasks, stream_hyper_names,
+                                        stream_scores)
+
+        if self.preds:
+            raise ValueError(
+                "preds=True needs resident out-of-fold predictions; "
+                "not supported with ChunkedDataset input")
+        est_cls = type(estimator)
+        if getattr(est_cls, "_stream_fit_kind", None) is None:
+            raise ValueError(
+                f"{est_cls.__name__} has no streamed fit path; "
+                "ChunkedDataset search supports the linear families "
+                "(LogisticRegression, LinearSVC, SGDClassifier, the Ridge "
+                "family). Materialise the dataset for other estimators.")
+        if getattr(estimator, "engine", None) == "host":
+            raise ValueError(
+                "engine='host' cannot fit a ChunkedDataset (the f64 host "
+                "engine needs X resident); use engine='auto'/'xla'")
+        if self.adaptive is not None:
+            raise _not_ported(
+                "adaptive= over a ChunkedDataset (the streamed search's "
+                "ASHA rungs)", "see ROADMAP.md, queue 1 item 9c")
+        scorer_specs = _resolve_stream_scoring(estimator, self.scoring, y)
+        n = dataset.n_rows
+        n_splits = len(splits)
+        sw, sw_ok = full_length_sample_weight(fit_params, n)
+        if not sw_ok or [k for k in fit_params if k != "sample_weight"]:
+            raise ValueError(
+                "streamed search supports only a full-length "
+                f"sample_weight fit param; got {sorted(fit_params)}")
+        if sw is None:
+            sw = dataset.load_sw()
+        fold_id = _partition_fold_ids(splits, n)
+        buckets = _candidate_buckets(estimator, candidate_params)
+        if buckets is None:
+            raise ValueError(
+                "streamed search candidates may only vary the estimator's "
+                f"batchable hypers ({est_cls._hyper_names}) and declared "
+                f"statics ({est_cls._static_names})")
+        device = backend.device
+        weight_fns = {"test": _stream_test_weights}
+        if self.return_train_score:
+            weight_fns["train"] = _stream_train_weights
+        out = [None] * (len(candidate_params) * n_splits)
+        self.round_stats_ = []
+        for static_overrides, cand_indices in buckets.values():
+            bucket_est = clone(estimator).set_params(**static_overrides)
+            bucket_est._check_supported()
+            gids = [c * n_splits + s for c in cand_indices
+                    for s in range(n_splits)]
+            hyper = {
+                name: np.asarray([
+                    hyper_float(candidate_params[g // n_splits].get(
+                        name, getattr(bucket_est, name)))
+                    for g in gids], dtype=np.float32)
+                for name in stream_hyper_names(est_cls)}
+            task = {"split": np.asarray([g % n_splits for g in gids],
+                                        dtype=np.int32)}
+            y_enc, sw_arr, meta = bucket_est._prep_stream_fit(dataset, y, sw)
+            static = _freeze(bucket_est._static_config(meta))
+            rows = {"y": y_enc, "sw": sw_arr, "fold": fold_id}
+            stats = new_stream_stats(False)
+            with open_feeder(dataset, rows, device, stats=stats) as feeder:
+                t0 = time.perf_counter()
+                params = stream_fit_tasks(
+                    est_cls, meta, static, dataset, rows, hyper, device,
+                    stats=stats, task=task,
+                    derive=_stream_cv_derive, feeder=feeder)
+                t1 = time.perf_counter()
+                scores = stream_scores(
+                    est_cls, meta, static, dataset, rows, task, params,
+                    scorer_specs, weight_fns, device, stats=stats,
+                    feeder=feeder)
+                t2 = time.perf_counter()
+            self.round_stats_.append(dict(stats, x_format=meta["x_format"]))
+            for t, gid in enumerate(gids):
+                row = {k: float(v[t]) for k, v in scores.items()}
+                row["fit_time"] = (t1 - t0) / len(gids)
+                row["score_time"] = (t2 - t1) / len(gids)
+                out[gid] = row
+        _quarantine_nonfinite(out, self.error_score)
+        return out
+
     def _format_results(self, candidate_params, scorer_names, n_splits, out):
         """sklearn-schema ``cv_results_``."""
         n_candidates = len(candidate_params)
@@ -1074,7 +1272,12 @@ class DistMultiModelSearch(BaseEstimator):
 
     def fit(self, X, y=None, groups=None, **fit_params):
         check_adaptive(self.adaptive)
-        _refuse_chunked(X)
+        if is_chunked(X):
+            raise ValueError(
+                "DistMultiModelSearch does not support ChunkedDataset "
+                "input; search each family over the dataset with "
+                "DistGridSearchCV/DistRandomizedSearchCV, or materialise "
+                "it (dataset.materialize())")
         models = _validate_models(self.models)
         if self.backend is None:
             backend = CUDABackend(device=getattr(models[0][1], "device", None),

@@ -16,6 +16,9 @@ with one more axis than ``w`` is per-class. The result is a scalar or a
 The host scorers (:class:`Scorer`, :func:`check_multimetric_scoring`)
 score a fitted estimator's predictions through the same kernels, on the
 host in float64, for the generic search path and ``score()``.
+
+:data:`STREAM_SCORERS` are the streamed search's scorers: per-block
+sufficient statistics summed on the device and a host combine.
 """
 
 import warnings
@@ -38,6 +41,7 @@ __all__ = [
     "neg_root_mean_squared_error",
     "neg_mean_absolute_error",
     "DEVICE_SCORERS",
+    "STREAM_SCORERS",
     "BINARY_ONLY_SCORERS",
     "CLASSIFICATION_ONLY_SCORERS",
     "REGRESSION_ONLY_SCORERS",
@@ -213,6 +217,130 @@ REGRESSION_ONLY_SCORERS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# streamed (decomposable) scorers
+# ---------------------------------------------------------------------------
+# The streamed scoring pass (``models/streaming.py stream_scores``) never
+# holds every prediction at once: each metric sums per-block sufficient
+# statistics on the device (weighted sums, a confusion matrix), block by
+# block, and a host ``combine`` in float64 finishes one lane. Every
+# statistic is additive over row blocks, so a streamed score differs from
+# the resident kernel's only by the order of the float32 sums. roc_auc has
+# no bounded statistic (it ranks every score) and is absent, as in the
+# JAX package. Each stats kernel is ``(y (rows,), out (T, rows[, k]),
+# w (T, rows), meta) -> {name: (T, ...) tensor}``.
+
+def _acc_stats(y, out, w, meta):
+    correct = (_pred_idx(out, w) == y.long()).to(w.dtype)
+    return {"num": _wsum(correct, w), "den": torch.sum(w, dim=-1)}
+
+
+def _ratio_combine(parts, meta):
+    return float(parts["num"]) / max(float(parts["den"]), 1e-12)
+
+
+def _confusion_stats(y, out, w, meta):
+    return {"C": _confusion(y, out, w, meta["n_classes"])}
+
+
+def _np_prf(C):
+    tp = np.diag(C)
+    support = C.sum(axis=1)
+    pred_tot = C.sum(axis=0)
+    precision = tp / np.maximum(pred_tot, 1e-12)
+    recall = tp / np.maximum(support, 1e-12)
+    f1 = 2 * precision * recall / np.maximum(precision + recall, 1e-12)
+    return precision, recall, f1, support
+
+
+def _combine_confusion(metric):
+    """The host combine of a confusion-matrix metric, in float64."""
+
+    def combine(parts, meta):
+        C = np.asarray(parts["C"], dtype=np.float64)
+        precision, recall, f1, support = _np_prf(C)
+        if metric == "f1_micro":
+            return float(np.sum(np.diag(C)) / max(np.sum(C), 1e-12))
+        if metric == "f1_macro":
+            present = (support > 0) | (C.sum(axis=0) > 0)
+            return float(np.sum(np.where(present, f1, 0.0))
+                         / max(np.sum(present.astype(np.float64)), 1e-12))
+        if metric == "f1":
+            return float(f1[meta["n_classes"] - 1])
+        if metric == "balanced_accuracy":
+            present = support > 0
+            return float(np.sum(np.where(present, recall, 0.0))
+                         / max(np.sum(present.astype(np.float64)), 1e-12))
+        per = {"f1_weighted": f1, "precision_weighted": precision,
+               "recall_weighted": recall}[metric]
+        return float(np.sum(per * support) / max(np.sum(support), 1e-12))
+
+    return combine
+
+
+def _nll_stats(y, proba, w, meta):
+    p = torch.clamp(proba, 1e-15, 1.0 - 1e-15)
+    ll = torch.sum(F.one_hot(y.long(), meta["n_classes"]).to(p.dtype)
+                   * torch.log(p), dim=-1)
+    return {"num": _wsum(ll, w), "den": torch.sum(w, dim=-1)}
+
+
+def _sq_err_stats(y, pred, w, meta):
+    return {"num": _wsum((y - pred) ** 2, w), "den": torch.sum(w, dim=-1)}
+
+
+def _abs_err_stats(y, pred, w, meta):
+    return {"num": _wsum(torch.abs(y - pred), w),
+            "den": torch.sum(w, dim=-1)}
+
+
+def _neg_ratio_combine(parts, meta):
+    return -_ratio_combine(parts, meta)
+
+
+def _neg_root_ratio_combine(parts, meta):
+    return -float(np.sqrt(_ratio_combine(parts, meta)))
+
+
+def _r2_stats(y, pred, w, meta):
+    return {"sw": torch.sum(w, dim=-1), "swy": _wsum(y, w),
+            "swy2": _wsum(y * y, w), "sres": _wsum((y - pred) ** 2, w)}
+
+
+def _r2_combine(parts, meta):
+    sw = max(float(parts["sw"]), 1e-12)
+    ybar = float(parts["swy"]) / sw
+    ss_tot = float(parts["swy2"]) - sw * ybar * ybar
+    return 1.0 - float(parts["sres"]) / max(ss_tot, 1e-12)
+
+
+#: name -> (block-stats kernel, host combine, required output kind): the
+#: streamed counterpart of :data:`DEVICE_SCORERS`, with the JAX package's
+#: 13 names (greater is better)
+STREAM_SCORERS = {
+    "accuracy": (_acc_stats, _ratio_combine, "decision"),
+    **{name: (_confusion_stats, _combine_confusion(name), "decision")
+       for name in ("f1", "f1_macro", "f1_micro", "f1_weighted",
+                    "precision_weighted", "recall_weighted",
+                    "balanced_accuracy")},
+    "neg_log_loss": (_nll_stats, _ratio_combine, "proba"),
+    "r2": (_r2_stats, _r2_combine, "predict"),
+    "neg_mean_squared_error": (_sq_err_stats, _neg_ratio_combine, "predict"),
+    "neg_root_mean_squared_error": (
+        _sq_err_stats, _neg_root_ratio_combine, "predict"),
+    "neg_mean_absolute_error": (_abs_err_stats, _neg_ratio_combine,
+                                "predict"),
+}
+
+#: the streamed scorers' task-kind split and binary-only names: a metric
+#: scored on a class decision or probabilities is classification-only, one
+#: on raw predictions regression-only; f1 scores the positive class 1
+STREAM_CLASSIFICATION_ONLY = {
+    name for name, (_k, _c, kind) in STREAM_SCORERS.items()
+    if kind != "predict"}
+STREAM_BINARY_ONLY = {"f1"}
+
+
 def scorer_task_compatible(metric, task):
     """Whether ``metric``'s device kernel fits this estimator kind
     (``task``: an estimator, an estimator class, or ``'classifier'``/
@@ -222,7 +350,8 @@ def scorer_task_compatible(metric, task):
     )
     if kind == "classifier" and metric in REGRESSION_ONLY_SCORERS:
         return False
-    if kind == "regressor" and metric in CLASSIFICATION_ONLY_SCORERS:
+    if kind == "regressor" and (metric in CLASSIFICATION_ONLY_SCORERS
+                                or metric in STREAM_CLASSIFICATION_ONLY):
         return False
     return True
 
@@ -230,7 +359,7 @@ def scorer_task_compatible(metric, task):
 def device_scorer_compatible(metric, classes):
     """Whether the device kernel for ``metric`` agrees with sklearn's
     semantics for this label set."""
-    if metric in BINARY_ONLY_SCORERS:
+    if metric in BINARY_ONLY_SCORERS or metric in STREAM_BINARY_ONLY:
         if classes is None or len(classes) != 2:
             return False
         try:
@@ -345,7 +474,8 @@ def _ones(n):
 
 class Scorer:
     """``scorer(estimator, X, y) -> float`` for the named metric of
-    :data:`HOST_SCORERS`: the estimator's response on X, from the method
+    :data:`HOST_SCORERS` or :data:`STREAM_SCORERS` (the streamed search's
+    ``scorer_``): the estimator's response on X, from the method
     scikit-learn's scorer of that name calls (``predict_proba`` for
     ``neg_log_loss``; ``decision_function``, else the positive class's
     probability, for ``roc_auc``; ``predict`` for the rest), scored on the
@@ -353,7 +483,7 @@ class Scorer:
     Picklable."""
 
     def __init__(self, name):
-        if name not in HOST_SCORERS:
+        if name not in HOST_SCORERS and name not in STREAM_SCORERS:
             raise ValueError(
                 f"{name!r} is not a valid scoring value; the scorers are "
                 f"{sorted(HOST_SCORERS)}, None (the estimator's score) or "
@@ -384,6 +514,14 @@ class Scorer:
         _check_labels(y, pred)
         labels = np.unique(np.concatenate([y, pred]))
         k = len(labels)
+        if name not in DEVICE_SCORERS:
+            # a streamed scorer's name (f1, precision_weighted,
+            # recall_weighted, balanced_accuracy): its combine over the
+            # float64 confusion matrix
+            C = np.zeros((k, k))
+            np.add.at(C, (np.searchsorted(labels, y),
+                          np.searchsorted(labels, pred)), 1.0)
+            return STREAM_SCORERS[name][1]({"C": C}, {"n_classes": k})
         onehot = F.one_hot(torch.as_tensor(np.searchsorted(labels, pred)),
                            k).to(torch.float64)
         kernel, _kind = DEVICE_SCORERS[name]

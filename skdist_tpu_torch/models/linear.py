@@ -225,8 +225,9 @@ class _LinearModelBase(BaseEstimator):
 
     #: the family's streamed fit over a ``ChunkedDataset``
     #: (:mod:`~skdist_tpu_torch.models.streaming`): ``"lbfgs"``
-    #: (block-accumulated loss and gradient passes), ``"sgd"`` and
-    #: ``"gram"`` (ROADMAP Queue 1 item 9b, not ported yet), or None
+    #: (block-accumulated loss and gradient passes), ``"sgd"`` (epochs as
+    #: block streams), ``"gram"`` (block-accumulated normal equations), or
+    #: None
     _stream_fit_kind = None
 
     def fit(self, X, y=None, sample_weight=None, coef_init=None,
@@ -247,8 +248,8 @@ class _LinearModelBase(BaseEstimator):
 
         A :class:`~skdist_tpu_torch.data.ChunkedDataset` ``X`` is fitted
         out of core (:func:`~skdist_tpu_torch.models.streaming.
-        stream_fit_estimator`, the ``"lbfgs"`` kind only), its labels and
-        weights read from the dataset unless given."""
+        stream_fit_estimator`, the family's ``_stream_fit_kind``), its
+        labels and weights read from the dataset unless given."""
         self._check_supported()
         if is_chunked(X):
             from .streaming import stream_fit_estimator
@@ -1153,8 +1154,7 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
     ``(p, k)`` plane a lane, as in the JAX package.
     """
 
-    #: out of core: epochs as block streams (ROADMAP Queue 1 item 9b,
-    #: not ported yet)
+    #: out of core: epochs as block streams
     _stream_fit_kind = "sgd"
 
     _hyper_names = ("alpha", "eta0", "l1_ratio", "tol")
@@ -1292,17 +1292,19 @@ class SGDClassifier(_ProbaMixin, _LinearClassifierBase):
                      if Ypm.ndim == 3 else None)
 
             def batches(rows):
-                # the epoch's gathered weights and each batch's live
-                # weight (a sum over one contiguous 64-float row)
+                # each batch gathers its weights into a fresh (T, bs)
+                # tensor and sums them there: a reduction of one shape
+                # and layout whatever the epoch's length, so a streamed
+                # epoch, whose batches come a block at a time, sums them
+                # in the same order (a (T, n_batches, bs) sum may not)
                 rows = rows.reshape(T, n_batches, bs)
-                wts = sw_full.gather(1, rows.reshape(T, -1)).view(
-                    T, n_batches, bs)
-                denom = torch.clamp(wts.sum(2), min=1e-12)
 
                 def batch(b):
                     idx = rows[:, b]
                     yb = Ypm[idx] if lanes is None else Ypm[lanes, idx]
-                    return op.row_batch(idx), yb, wts[:, b], denom[:, b]
+                    wb = sw_full.gather(1, idx)
+                    denom = torch.clamp(wb.sum(1), min=1e-12)
+                    return op.row_batch(idx), yb, wb, denom
 
                 return n_batches, batch
 
@@ -1478,8 +1480,7 @@ class _RidgeKernelMixin:
     """The closed-form solve shared by ``Ridge``, ``LinearRegression``
     and ``RidgeClassifier``, and what a round of them holds."""
 
-    #: out of core: block-accumulated normal equations (ROADMAP Queue 1
-    #: item 9b, not ported yet)
+    #: out of core: block-accumulated normal equations
     _stream_fit_kind = "gram"
 
     @staticmethod
@@ -1500,6 +1501,14 @@ class _RidgeKernelMixin:
         assume_a="pos")`` gives, and the search maps its scores to
         ``error_score``; nothing raises."""
         G, b = op.weighted_gram_rhs(sw, T)  # (L, p, p), (L, p, k)
+        return _RidgeKernelMixin._gram_solve(G, b, alpha, d)
+
+    @staticmethod
+    def _gram_solve(G, b, alpha, d):
+        """The solve of :meth:`_solve` from the lanes' normal equations
+        ``G (L, p, p)`` and ``b (L, p, k)`` (``G`` is regularised in
+        place): the resident fit and the streamed one, whose ``G`` and
+        ``b`` are sums over blocks, share it."""
         diag = torch.diagonal(G, dim1=-2, dim2=-1)
         diag[:, :d] += alpha[:, None].to(G.dtype)
         diag += 1e-8
@@ -1561,6 +1570,29 @@ class Ridge(_RidgeKernelMixin, _LinearModelBase, RegressorMixin):
         self.fit_intercept = fit_intercept
         self.device = device
 
+    def _prep_stream_fit(self, dataset, y, sample_weight=None):
+        """The streamed fit's host prep: targets, weights and ``meta`` from
+        O(n) vectors and the dataset's shape, no X read. Returns ``(y
+        (n[, targets]) float32, sw (n,), meta)``."""
+        if y is None:
+            raise ValueError(
+                f"{type(self).__name__} needs targets: the ChunkedDataset "
+                "carries none and no y was passed")
+        y = np.asarray(y, dtype=np.float32)
+        if y.ndim not in (1, 2) or y.shape[0] != dataset.n_rows:
+            raise ValueError(
+                f"y of shape {y.shape} does not fit the dataset's "
+                f"{dataset.n_rows} rows")
+        meta = {
+            "n_features": dataset.n_features,
+            "y_ndim": y.ndim,
+            "n_targets": 1 if y.ndim == 1 else y.shape[1],
+            "x_format": dataset.x_format,
+        }
+        if dataset.x_format == "packed":
+            meta["packed_m"] = dataset.packed_m
+        return y, prepare_sample_weight(sample_weight, dataset.n_rows), meta
+
     def _prep_fit_data(self, X, y, sample_weight=None):
         y = np.asarray(y, dtype=np.float32)
         if y.ndim not in (1, 2) or y.shape[0] != X.shape[0]:
@@ -1577,20 +1609,30 @@ class Ridge(_RidgeKernelMixin, _LinearModelBase, RegressorMixin):
         return {"X": X, "y": y, "sw": sw}, meta
 
     @classmethod
+    def _gram_terms(cls, meta, static, y, sw, dtype):
+        """The lanes' weights ``sw (L, n)`` and targets of the normal
+        equations: the raw ``y`` as ``(n, targets)`` columns."""
+        return sw, y.reshape(y.shape[0], -1).to(dtype)
+
+    @classmethod
+    def _gram_params(cls, meta, W):
+        """The fitted params of the lanes' solutions ``W (L, p, k)``: one
+        column for a 1-D y."""
+        return {"W": W[..., 0] if meta.get("y_ndim", 1) == 1 else W}
+
+    @classmethod
     def _build_fit_kernel(cls, meta, static):
         d = meta["n_features"]
-        one_column = meta.get("y_ndim", 1) == 1
 
         def kernel(op, y, sw, hyper, w0=None):
             # a warm seed is accepted and ignored: a direct solve has no
             # iterate to start from
-            T = y.reshape(y.shape[0], -1).to(op.dtype)
+            sw, T = cls._gram_terms(meta, static, y, sw, op.dtype)
             alpha = hyper.get("alpha")
             if alpha is None:  # LinearRegression: no alpha on the task axis
                 alpha = torch.zeros(sw.shape[0], dtype=sw.dtype,
                                     device=sw.device)
-            W = cls._solve(op, T, sw, alpha, d)
-            return {"W": W[..., 0] if one_column else W}
+            return cls._gram_params(meta, cls._solve(op, T, sw, alpha, d))
 
         return kernel
 
@@ -1643,20 +1685,33 @@ class RidgeClassifier(_RidgeKernelMixin, _LinearClassifierBase):
         return 1 if k <= 2 else k
 
     @classmethod
-    def _build_fit_kernel(cls, meta, static):
+    def _gram_terms(cls, meta, static, y_idx, sw, dtype):
+        """The lanes' class-weighted ``sw (L, n)`` and their +-1 targets:
+        one column when there are at most two classes, else one a class
+        (``y_idx`` is ``(n,)``, or ``(L, n)`` with one label vector a
+        lane)."""
         st = dict(static)
-        class_weight, cw_arr = st["class_weight"], meta.get("cw_arr")
-        d = meta["n_features"]
         k = meta["n_classes"]
+        sw = _apply_class_weight(sw, y_idx, k, st["class_weight"],
+                                 meta.get("cw_arr"))
+        if k <= 2:
+            T = torch.where(y_idx == (k - 1), 1.0, -1.0)[..., None]
+        else:
+            T = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
+        return sw, T.to(dtype)
+
+    @classmethod
+    def _gram_params(cls, meta, W):
+        return {"W": W[..., 0] if meta["n_classes"] <= 2 else W}
+
+    @classmethod
+    def _build_fit_kernel(cls, meta, static):
+        d = meta["n_features"]
 
         def kernel(op, y_idx, sw, hyper, w0=None):
             # a warm seed is accepted and ignored (the direct solve)
-            sw = _apply_class_weight(sw, y_idx, k, class_weight, cw_arr)
-            if k <= 2:
-                T = torch.where(y_idx == (k - 1), 1.0, -1.0)[..., None]
-            else:
-                T = torch.where(F.one_hot(y_idx.long(), k) > 0, 1.0, -1.0)
-            W = cls._solve(op, T.to(op.dtype), sw, hyper["alpha"], d)
-            return {"W": W[..., 0] if k <= 2 else W}
+            sw, T = cls._gram_terms(meta, static, y_idx, sw, op.dtype)
+            return cls._gram_params(
+                meta, cls._solve(op, T, sw, hyper["alpha"], d))
 
         return kernel

@@ -321,33 +321,53 @@ def _sgd_epoch_body(problem, max_epochs, tol, n_iter_no_change):
     sklearn's ``tol=None``, never stops one)."""
 
     def epoch(carry, rows):
-        w, u, q, step, best, bad, n_done, it, done = (
-            carry[key] for key in SGD_CARRY_KEYS)
         n_batches, batch = problem["batches"](rows)
-        w_new, (u_new, q_new), step_new, acc = sgd_batch_scan(
+        scanned = sgd_batch_scan(
             problem["grad_fn"], problem["lr_fn"], problem["post_step"],
-            problem["loss_fn"], (w, (u, q), step, torch.zeros_like(best)),
-            n_batches, batch)
-        keep = done | (it >= max_epochs)
-        loss = acc / n_batches
-        bad_new = torch.where(loss < best - tol, 0, bad + 1)
-        stopped = bad_new >= n_iter_no_change
-        best_new = torch.minimum(best, loss)
-        it_new = torch.where(it >= max_epochs, it, it + 1)
-        col = keep[:, None]
-        return dict(zip(SGD_CARRY_KEYS, (
-            torch.where(col, w, w_new),
-            torch.where(keep, u, u_new),
-            torch.where(col, q, q_new),
-            torch.where(keep, step, step_new),
-            torch.where(keep, best, best_new),
-            torch.where(keep, bad, bad_new),
-            torch.where(keep, n_done, n_done + 1),
-            it_new,
-            keep | stopped | (it_new >= max_epochs),
-        )))
+            problem["loss_fn"], sgd_scan_start(carry), n_batches, batch)
+        return sgd_epoch_end(carry, scanned, n_batches, max_epochs, tol,
+                             n_iter_no_change)
 
     return epoch
+
+
+def sgd_scan_start(carry):
+    """The ``(w, (u, q), step, acc)`` quadruple an epoch's batch scan
+    starts from: the carry's, with the epoch's loss sum at zero."""
+    return (carry["w"], (carry["u"], carry["q"]), carry["step"],
+            torch.zeros_like(carry["best"]))
+
+
+def sgd_epoch_end(carry, scanned, n_batches, max_epochs, tol,
+                  n_iter_no_change):
+    """The end of an SGD epoch whose ``n_batches`` mini-batches advanced
+    the carry's quadruple to ``scanned`` (:func:`sgd_batch_scan`): the
+    mean post-update batch loss against ``best - tol``, the
+    no-improvement count, and frozen lanes (stopped, or at
+    ``max_epochs``) keeping every leaf but their epoch clock ``it``.
+    The resident epoch and the streamed one (whose scan runs block by
+    block) share it."""
+    w, u, q, step, best, bad, n_done, it, done = (
+        carry[key] for key in SGD_CARRY_KEYS)
+    w_new, (u_new, q_new), step_new, acc = scanned
+    keep = done | (it >= max_epochs)
+    loss = acc / n_batches
+    bad_new = torch.where(loss < best - tol, 0, bad + 1)
+    stopped = bad_new >= n_iter_no_change
+    best_new = torch.minimum(best, loss)
+    it_new = torch.where(it >= max_epochs, it, it + 1)
+    col = keep[:, None]
+    return dict(zip(SGD_CARRY_KEYS, (
+        torch.where(col, w, w_new),
+        torch.where(keep, u, u_new),
+        torch.where(col, q, q_new),
+        torch.where(keep, step, step_new),
+        torch.where(keep, best, best_new),
+        torch.where(keep, bad, bad_new),
+        torch.where(keep, n_done, n_done + 1),
+        it_new,
+        keep | stopped | (it_new >= max_epochs),
+    )))
 
 
 def sgd_carry_init(w0):

@@ -14,7 +14,9 @@ The port cannot reproduce that stream; it draws from a hash of
 - OOB scoring regenerates each tree's bootstrap from its stored seed;
 - an SGD epoch's row order is a function of ``(seed, epoch)`` alone
   (:func:`epoch_permutation`), so slicing a solve into resumable parts,
-  or restarting a lane in another slot, cannot change it;
+  or restarting a lane in another slot, cannot change it; a streamed
+  epoch's block-local order is one of ``(seed, epoch, block)``
+  (:func:`block_permutation`), so the feed cannot change it;
 - a boosting fit's early-stopping validation rows are a function of its
   seed and row count alone (``models/gbdt.py validation_uniforms``).
 
@@ -33,6 +35,7 @@ __all__ = [
     "SHUFFLE",
     "VALIDATION",
     "bits32",
+    "block_permutation",
     "bootstrap_counts",
     "epoch_permutation",
     "uniform",
@@ -46,6 +49,9 @@ EXTRA_THRESHOLD = 3
 SHUFFLE = 4
 #: a boosting fit's early-stopping validation rows
 VALIDATION = 5
+#: the key of a streamed SGD epoch's block (its rows' order is then drawn
+#: under SHUFFLE from that key)
+BLOCK_SHUFFLE = 6
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -117,3 +123,15 @@ def epoch_permutation(seed, epoch, padded, n, device=None):
     keys = bits32(torch.tensor([int(seed)], device=device), int(epoch),
                   SHUFFLE, torch.arange(padded, device=device))[0]
     return torch.argsort(keys, stable=True) % n
+
+
+def block_permutation(seed, epoch, block, rows, device=None):
+    """The order of the ``rows`` rows of block ``block`` in streamed SGD
+    epoch ``epoch``: the stable argsort of :func:`bits32` over the row
+    counter, keyed by a draw of ``(seed, epoch, block)``. Integer ops and a
+    stable sort, as :func:`epoch_permutation`. Returns an int64 tensor of
+    shape ``(rows,)``, a permutation of ``range(rows)``."""
+    key = bits32(torch.tensor([int(seed)], device=device), int(epoch),
+                 BLOCK_SHUFFLE, torch.tensor([int(block)], device=device))
+    keys = bits32(key[:, 0], 0, SHUFFLE, torch.arange(rows, device=device))[0]
+    return torch.argsort(keys, stable=True)

@@ -274,6 +274,9 @@ def test_feeder_cycles_for_repeated_passes(sync):
     for i, tree in got:
         assert torch.equal(tree["y"], torch.full((5,), i, dtype=torch.int32))
     # the pipelined feed has read the block after the last one handed out
+    # (its read is in flight on the worker thread: wait for it)
+    for _j, fut in feeder._pending:
+        fut.result()
     assert calls == [0, 1, 2, 0, 1, 2, 0] + ([] if sync else [1])
     feeder.close()
     assert stats["blocks_fed"] == 7  # the discarded prefetch is not fed

@@ -270,16 +270,20 @@ def test_refusals():
         LinearSVC(class_weight="balanced", device="cpu").fit(ds)
     with pytest.raises(TypeError, match="requires y"):
         LogisticRegression(device="cpu").fit(X)
-    for est in (SGDClassifier(device="cpu"), RidgeClassifier(device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            est.fit(ds)
+    # the SGD and ridge kinds, the search and one-vs-rest stream too now
+    # (their own refusals: tests/test_torch_streaming_linear.py and
+    # tests/test_torch_streamed_search.py); boosting stays item 9c's
+    for est in (SGDClassifier(batch_size=50, device="cpu"),
+                RidgeClassifier(device="cpu")):
+        assert est.fit(ds).stream_stats_["blocks_fed"] >= ds.n_blocks
     with pytest.raises(NotImplementedError, match="item 9c"):
         tg.DistHistGradientBoostingClassifier(device="cpu").fit(ds)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        DistGridSearchCV(LogisticRegression(device="cpu"),
-                         {"C": [1.0]}).fit(ds, y)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        DistOneVsRestClassifier(LogisticRegression(device="cpu")).fit(ds, y)
+    gs = DistGridSearchCV(LogisticRegression(device="cpu", max_iter=5),
+                          {"C": [1.0]}, cv=3).fit(ds, y)
+    assert gs.round_stats_[0]["mode"] == "streamed"
+    ovr = DistOneVsRestClassifier(LogisticRegression(device="cpu",
+                                                     max_iter=5)).fit(ds, y)
+    assert len(ovr.estimators_) == 3
     # a dict class_weight is not refused: it weighs each block's rows
     cw = {0: 2.0, 1: 1.0, 2: 0.5}
     ours = LogisticRegression(class_weight=cw, device="cpu", **KW).fit(ds)

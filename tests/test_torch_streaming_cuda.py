@@ -13,7 +13,10 @@ use) are not overwritten by later copies, so their sums are bitwise
 those of the serial feed, also over repeated passes of one cycling feeder,
 whose ring of pinned buffers is allocated once; a streamed fit launches K1 once a block a pass
 and K2 once a block a value-and-gradient pass, and chunked prediction K1
-once a block.
+once a block; K3 and the row forms on a fed block equal their plain
+versions (whole numbers: bitwise); the streamed ridge and SGD fits give
+the same bits fed serially and pipelined, the SGD fit those of the
+resident fit.
 """
 
 import numpy as np
@@ -145,3 +148,75 @@ def test_chunked_predict_launches_k1_once_a_block(cuda):
     want = batch_predict(model, X, "predict_proba", backend=backend,
                          batch_size=ds.block_rows)
     np.testing.assert_array_equal(out, want)
+
+
+def _fed_block(ds, cuda):
+    """Block 0 of ``ds`` fed to the card, and its operator."""
+    from skdist_tpu_torch.sparse import LinearOperator
+
+    with pb.BlockFeeder(lambda i: {"X": ds.read_block(i).X}, 1, cuda) as fd:
+        _i, block = fd.next()
+        return LinearOperator(block["X"], True)
+
+
+def test_k3_and_the_row_forms_on_a_fed_block(cuda):
+    """K3 over a fed block's lanes and the row forms on a batch gathered
+    from it, against their plain versions: bitwise on whole numbers (each
+    term is the plain version's), and each repeats bitwise."""
+    rng = np.random.RandomState(4)
+    X = sp.random(2000, 3000, density=0.01, format="csr", random_state=4,
+                  dtype=np.float32)
+    X.data[:] = rng.randint(-3, 4, X.nnz)
+    ds = ChunkedDataset.from_arrays(X, np.zeros(2000), block_rows=1024,
+                                    pack=True)
+    op = _fed_block(ds, cuda)
+    sw = torch.as_tensor(rng.randint(0, 4, (3, 1024)).astype(np.float32),
+                         device=cuda)
+    G = ps.packed_weighted_gram(op.pidx, op.pval, sw, op.p)
+    assert torch.equal(G, ps.packed_weighted_gram(op.pidx, op.pval, sw, op.p))
+    for t in range(3):
+        assert torch.equal(G[t], ps.packed_weighted_gram_ref(
+            op.pidx, op.pval, sw[t], op.p))
+    rows = op.row_batch(torch.arange(256, device=cuda).reshape(2, 128))
+    W = torch.as_tensor(rng.randint(-4, 5, (2, op.p, 3)).astype(np.float32),
+                        device=cuda)
+    g = torch.as_tensor(rng.randint(-4, 5, (2, 128, 3)).astype(np.float32),
+                        device=cuda)
+    out = ps.packed_row_matvec(*rows, W)
+    back = ps.packed_row_rmatvec(*rows, g, op.p)
+    assert torch.equal(out, ps.packed_row_matvec_ref(*rows, W))
+    assert torch.equal(back, ps.packed_row_rmatvec_ref(*rows, g, op.p))
+    assert torch.equal(back, ps.packed_row_rmatvec(*rows, g, op.p))
+
+
+@pytest.mark.parametrize("family", ["ridge", "sgd"])
+def test_serial_feed_is_the_pipelined_feed(cuda, family):
+    """The gram and SGD kinds: a serial feed and the pipelined one give
+    the same bits; the SGD fit is also bitwise the resident one, K3
+    launches once a block a round and the row forms per step."""
+    from skdist_tpu_torch.models import RidgeClassifier, SGDClassifier
+    from skdist_tpu_torch.models.streaming import stream_fit_estimator
+
+    X, y, ds = _dataset()
+    ds = ChunkedDataset.from_arrays(X, y, block_rows=640, pack=True)
+
+    def est():
+        return (RidgeClassifier(alpha=1.0) if family == "ridge" else
+                SGDClassifier(batch_size=64, max_iter=3, shuffle=False,
+                              tol=None))
+
+    ps.packed_weighted_gram.launches = 0
+    ps.packed_row_rmatvec.launches = 0
+    fits = [stream_fit_estimator(est(), ds, sync=sync)
+            for sync in (True, False)]
+    for a, b in zip(fits[0].coef_, fits[1].coef_):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(fits[0].intercept_, fits[1].intercept_)
+    st = fits[0].stream_stats_
+    if family == "ridge":
+        assert ps.packed_weighted_gram.launches == 2 * ds.n_blocks
+    else:
+        assert ps.packed_row_rmatvec.launches == 2 * st["steps"]
+        resident = est().fit(X, y)
+        np.testing.assert_array_equal(fits[0].coef_, resident.coef_)
+        np.testing.assert_array_equal(fits[0].n_iter_, resident.n_iter_)
